@@ -1,0 +1,567 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch port (``src/repro_torch``) on one NVIDIA GPU.
+
+    python3 chip_smoke.py                 # every phase; needs one CUDA card
+    python3 chip_smoke.py --profile       # every phase, then a profiled ask
+
+Phases:
+  1. setup: card name and power limit, build the CUDA kernels from
+     ``src/repro_torch/kernels/gp_acquisition/csrc`` with nvcc (sm_90a) and
+     print what ptxas says about them;
+  2. each kernel against its plain PyTorch version on the card, at the fleet
+     path's shapes and at a ragged small shape, with timings;
+  3. the fleet path: a 64-study ``StudyBank`` over Hartmann-6 with the default
+     candidate budget, 200 observations each, three rounds of ask_all(4) ->
+     tell, with the kernels' launch counts read around the run;
+  4. a single-study ``Tuner`` on the mixed Branin space (paper Fig. 3 setting);
+  5. one full-size ask, with a batch of trials in flight, from the phase-3
+     state on the card and on the CPU (plain versions); picks must agree
+     except on near-ties, judged by a float64 numpy GP-BUCB oracle.
+
+The second-to-last line is a JSON object with one entry per kernel; the last
+line is ``{"ok": true, "device": {...}}``.  Any failure exits non-zero before
+that line.  Without a CUDA device it exits 2 and prints no result.
+"""
+from __future__ import annotations
+
+import ctypes
+import json
+import math
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+import numpy as np
+
+ROOT = Path(__file__).resolve().parent
+sys.path.insert(0, str(ROOT / "src"))
+
+import torch  # noqa: E402
+
+from repro_torch.core import StudyBank, Tuner  # noqa: E402
+from repro_torch.core import gp as gp_lib  # noqa: E402
+from repro_torch.core import scoring  # noqa: E402
+from repro_torch.kernels import build  # noqa: E402
+from repro_torch.kernels.gp_acquisition import ops, ref  # noqa: E402
+from repro_torch.scheduler import SerialScheduler  # noqa: E402
+
+# H100 SXM peaks (NVIDIA data sheet): fp32 outside the tensor cores, HBM3
+PEAK_FP32 = 67e12
+PEAK_BYTES = 3.35e12
+
+FLEET = dict(B=64, n_obs=200, batch=4, rounds=3)
+NEAR_TIE = 1e-4
+EPS32 = float(np.finfo(np.float32).eps)
+
+
+# --------------------------------------------------------------------------- #
+# objectives and spaces (numpy, seeded)
+# --------------------------------------------------------------------------- #
+_H6_A = np.array([[10, 3, 17, 3.5, 1.7, 8], [0.05, 10, 17, 0.1, 8, 14],
+                  [3, 3.5, 1.7, 10, 17, 8], [17, 8, 0.05, 10, 0.1, 14]])
+_H6_P = 1e-4 * np.array([[1312, 1696, 5569, 124, 8283, 5886],
+                         [2329, 4135, 8307, 3736, 1004, 9991],
+                         [2348, 1451, 3522, 2883, 3047, 6650],
+                         [4047, 8828, 8732, 5743, 1091, 381]])
+_H6_ALPHA = np.array([1.0, 1.2, 3.0, 3.2])
+
+
+def neg_hartmann6(p: dict) -> float:
+    """-Hartmann-6 on [0, 1]^6 (maximum 3.32237)."""
+    x = np.array([p[f"x{i}"] for i in range(6)])
+    inner = np.sum(_H6_A * (x[None, :] - _H6_P) ** 2, axis=1)
+    return float(np.sum(_H6_ALPHA * np.exp(-inner)))
+
+
+def hartmann_space():
+    from scipy.stats import uniform
+    return {f"x{i}": uniform(0, 1) for i in range(6)}
+
+
+def branin(x1: float, x2: float) -> float:
+    a, b, c = 1.0, 5.1 / (4 * math.pi ** 2), 5 / math.pi
+    r, s, t = 6.0, 10.0, 1 / (8 * math.pi)
+    return (a * (x2 - b * x1 ** 2 + c * x1 - r) ** 2
+            + s * (1 - t) * math.cos(x1) + s)
+
+
+def modified_branin(p: dict) -> float:
+    """Mixed Branin of the paper's Fig. 3: continuous x1, 16-level x2, and a
+    categorical shelf."""
+    shelf = {"low": 0.0, "high": 12.0}[p["mode"]]
+    return branin(p["x1"], float(p["x2"])) + shelf
+
+
+def branin_space():
+    from scipy.stats import uniform
+    return {"x1": uniform(-5, 15), "x2": range(0, 16),
+            "mode": ["low", "high"]}
+
+
+# --------------------------------------------------------------------------- #
+# float64 GP-BUCB oracle (numpy), the judge of near-ties
+# --------------------------------------------------------------------------- #
+def _matern_np(A, B, var):
+    d2 = ((A * A).sum(-1)[:, None] + (B * B).sum(-1)[None, :]
+          - 2.0 * A @ B.T)
+    s = math.sqrt(5.0) * np.sqrt(np.maximum(d2, 1e-12))
+    return var * (1.0 + s + (5.0 / 3.0) * d2) * np.exp(-s)
+
+
+def bucb_acquisition(X, z, C, ls, var, noise, prev, domain_size,
+                     pending=None):
+    """UCB surface of GP-BUCB slot ``len(prev)``, in float64: the posterior
+    of observations X (n, d) with standardized values z, extended by the
+    in-flight rows ``pending`` (m, d) and the already-picked candidates
+    ``C[prev]``, all hallucinated at their mean, at every candidate of
+    C (S, d).  ls (d,), var and noise are the fitted hyperparameters (noise
+    including its floor)."""
+    X, C = np.asarray(X, np.float64), np.asarray(C, np.float64)
+    P = np.zeros((0, X.shape[1])) if pending is None else \
+        np.asarray(pending, np.float64)
+    ls = np.asarray(ls, np.float64)
+    var, noise = float(var), float(noise)
+    Xs, Cs = X / ls, C / ls
+    diag = var + noise + 1e-6 * max(var, 1.0)
+    K = _matern_np(Xs, Xs, var)
+    np.fill_diagonal(K, diag)
+    mu = _matern_np(Cs, Xs, var) @ np.linalg.solve(K, np.asarray(z, float))
+    Xe = np.concatenate([Xs, P / ls, Cs[list(prev)]], 0)
+    Ke = _matern_np(Xe, Xe, var)
+    np.fill_diagonal(Ke, diag)
+    kc = _matern_np(Cs, Xe, var)
+    sig2 = var + noise - np.sum(kc * np.linalg.solve(Ke, kc.T).T, 1)
+    t = max(len(Xe), 1)
+    beta = float(np.clip(2.0 * math.log(max(domain_size, 2.0) * t * t
+                                        * math.pi ** 2 / 0.6), 1.0, 100.0))
+    return mu + math.sqrt(beta) * np.sqrt(np.maximum(sig2, 1e-10))
+
+
+def picks_agree(pa, pb, oracle, tol=NEAR_TIE):
+    """Two pick sequences agree slot by slot until the first slot where they
+    differ; there both picks must be within ``tol`` (relative) of the
+    oracle's best acquisition value at that slot, a near-tie after which
+    the sequences may part.  ``oracle(prev)`` returns the slot's surface.
+    Returns (agree, first_differing_slot or None)."""
+    for s, (a, b) in enumerate(zip(pa, pb)):
+        if a == b:
+            continue
+        acq = oracle(list(pa[:s]))
+        top = float(np.max(acq))
+        gap = max(top - acq[a], top - acq[b])
+        return gap <= tol * max(abs(top), 1e-12), s
+    return True, None
+
+
+# --------------------------------------------------------------------------- #
+# helpers
+# --------------------------------------------------------------------------- #
+def log(msg: str) -> None:
+    print(msg, flush=True)
+
+
+def card_line() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True, timeout=60)
+    return out.stdout.strip().splitlines()[0] if out.stdout.strip() else \
+        "nvidia-smi: " + out.stderr.strip()
+
+
+def cuda_ms(fn, reps: int, warmup: int = 2) -> float:
+    """Mean milliseconds per call by CUDA events over ``reps`` calls."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def gp_system(B, S, na, n_act, d, seed, dev):
+    """A fitted-looking GP system per study at the bank's shapes: prescaled
+    candidates and observations, masked tail past ``n_act``, factors from
+    the port's own stages."""
+    rng = np.random.default_rng(seed)
+    dp = max(8, -(-d // 8) * 8)
+    X = rng.uniform(size=(B, na, d)).astype(np.float32)
+    C = rng.uniform(size=(B, S, d)).astype(np.float32)
+    mask = np.zeros((B, na), np.float32)
+    mask[:, :n_act] = 1.0
+    X *= mask[..., None]
+    ls = rng.uniform(0.2, 0.8, size=(B, d)).astype(np.float32)
+    var = rng.uniform(0.5, 2.0, size=B).astype(np.float32)
+    noise = rng.uniform(1e-3, 1e-2, size=B).astype(np.float32)
+    y = (rng.normal(size=(B, na)) * mask).astype(np.float32)
+    t = {k: torch.as_tensor(v, device=dev) for k, v in dict(
+        X=X, C=C, mask=mask, ls=ls, var=var, noise=noise, y=y).items()}
+    L, Linv, _ = gp_lib.bank_factors(t["X"], t["mask"], t["ls"], t["var"],
+                                     t["noise"])
+    Xs = gp_lib.bank_prescale_X(t["X"], t["ls"])
+    Cs = gp_lib.bank_prescale_C(t["C"], t["ls"])
+    alpha = scoring.kinv_matvec(Linv, t["y"] * t["mask"])
+    assert Cs.shape[-1] == dp
+    return dict(Cs=Cs, Xs=Xs, mask=t["mask"], L=L, Linv=Linv, alpha=alpha,
+                var=t["var"], noise=t["noise"], n_act=n_act)
+
+
+def _max_err(a, b) -> float:
+    return float((a - b).abs().max())
+
+
+def kernel_errors(B, S, na, n_act, d, dev, seed=7):
+    """Every kernel output against its plain version on the same inputs at
+    one shape.  Returns ``({output: (max_abs_err, tolerance)}, inputs)``.
+
+    Tolerances.  K and k(C, x*): the squared distance |c|^2 + |x|^2 - 2 c.x
+    rounds to a few ulps of |c|^2 + |x|^2 (summed in another order than
+    cuBLAS's), which moves K by at most (5/6) var per unit of d2:
+    8 eps32 (|c|^2 + |x|^2)_max var_max.  mu: a sum over na, 1e-5 of the
+    sum of absolute terms.  sig2: subtracts a sum of squares of K L^-T,
+    whose terms grow with the factor's condition: 1e-4 of the prior
+    variance, the JAX package's own kernel-test tolerance."""
+    assert n_act < na, "the downdate's slot n_act must be a free row"
+    g = gp_system(B, S, na, n_act, d, seed=seed, dev=dev)
+    Cs, Xs, mask, Linv, alpha = (g["Cs"], g["Xs"], g["mask"], g["Linv"],
+                                 g["alpha"])
+    var, noise = g["var"], g["noise"]
+    mu_k, sig2_k, K_k = ops.score_cov(Cs, Xs, mask, Linv, alpha, var, noise)
+    mu_r, sig2_r, K_r = ref.score_cov_ref(Cs, Xs, mask, Linv, alpha, var,
+                                          noise)
+    c2x2 = float((Cs * Cs).sum(-1).max() + (Xs * Xs).sum(-1).max())
+    tol_k = 8 * EPS32 * c2x2 * float(var.max())
+    scale_mu = float((K_r.abs() @ alpha.abs()[..., None]).max())
+    scale_s2 = float((var + noise).max())
+    errs = {"K": (_max_err(K_k, K_r), tol_k),
+            "mu": (_max_err(mu_k, mu_r), 1e-5 * scale_mu),
+            "sig2": (_max_err(sig2_k, sig2_r), 1e-4 * scale_s2)}
+    # one GP-BUCB slot: pick, append, downdate (kernel vs plain on the same
+    # inputs, each on its own copy of the cached block)
+    rows = torch.arange(B, device=dev)
+    idx = torch.argmax(mu_r + 2.0 * torch.sqrt(sig2_r), dim=1)
+    slot = torch.full((B,), n_act, dtype=torch.int32, device=dev)
+    _, _, u, schur = scoring.factor_append(
+        g["L"].clone(), Linv.clone(), slot.long(), K_r[rows, idx], var, noise)
+    x_star = Cs[rows, idx].contiguous()
+    Kc_k, Kc_r = K_r.clone(), K_r.clone()
+    s2d_k, kn_k = ops.var_downdate(Cs, x_star, Kc_k, u, schur, sig2_r, var,
+                                   slot=slot)
+    s2d_r, kn_r = ref.var_downdate_ref(Cs, x_star, Kc_r, u, schur, sig2_r,
+                                       var)
+    col = Kc_k[rows, :, slot.long()]
+    errs.update({
+        "sig2_dd": (_max_err(s2d_k, s2d_r), 1e-4 * scale_s2),
+        "knew": (_max_err(kn_k, kn_r), tol_k),
+        "Kc_col": (_max_err(col, kn_r), tol_k)})
+    inputs = dict(Cs=Cs, Xs=Xs, mask=mask, Linv=Linv, alpha=alpha, var=var,
+                  noise=noise, x_star=x_star, u=u, schur=schur, sig2=sig2_r,
+                  Kc=K_r, slot=slot)
+    return errs, inputs
+
+
+def time_kernels(t, reps: int):
+    """Kernel and plain times, operations and bytes at one shape."""
+    Cs, Xs, mask, Linv, alpha = t["Cs"], t["Xs"], t["mask"], t["Linv"], \
+        t["alpha"]
+    var, noise, Kc = t["var"], t["noise"], t["Kc"]
+    B, S, dp = Cs.shape
+    na = Xs.shape[1]
+    recs = {}
+    ms = cuda_ms(lambda: ops.score_cov(Cs, Xs, mask, Linv, alpha, var,
+                                       noise), reps)
+    plain = cuda_ms(lambda: ref.score_cov_ref(Cs, Xs, mask, Linv, alpha,
+                                              var, noise), reps)
+    # operations: the triangular product (2 flops per multiply-add over the
+    # lower triangle), the distance dots, and mu
+    recs["score_cov"] = dict(
+        ms=ms, plain_ms=plain,
+        flops=B * S * na * (na + 1) + B * S * na * (2 * dp + 2),
+        bytes=4 * (B * S * dp + B * na * dp + 2 * B * na + B * na * na
+                   + 2 * B + 2 * B * S + B * S * na))
+    dd = (Cs, t["x_star"], Kc.clone(), t["u"], t["schur"], t["sig2"], var)
+    ms = cuda_ms(lambda: ops.var_downdate(*dd, slot=t["slot"]), reps)
+    plain = cuda_ms(lambda: ref.var_downdate_ref(*dd), reps)
+    recs["var_downdate"] = dict(
+        ms=ms, plain_ms=plain, flops=2 * B * S * na + 6 * B * S * dp,
+        bytes=4 * (B * S * na + B * S * dp + B * dp + B * na + 4 * B
+                   + 4 * B * S))
+    for r in recs.values():
+        t_ops, t_bytes = r["flops"] / PEAK_FP32, r["bytes"] / PEAK_BYTES
+        r.update(bound_ms=max(t_ops, t_bytes) * 1e3,
+                 bound_by="operations" if t_ops >= t_bytes else "bytes")
+    return recs
+
+
+def check_kernels(dev, reps_main: int):
+    """Phase 2: every kernel against its plain version on the card, at the
+    fleet shapes, at a ragged small shape, and at na = 1024 where score_cov
+    streams K back from global memory.  Returns the per-kernel records
+    (errors over all shapes, times at the fleet shapes)."""
+    shapes = [("fleet", FLEET["B"], 16800, 256, 212, 6),
+              ("ragged", 3, 1000, 16, 11, 19),
+              ("streamed", 4, 3000, 1024, 1000, 6)]
+    worst = {"score_cov": 0.0, "var_downdate": 0.0}
+    recs = None
+    for tag, B, S, na, n_act, d in shapes:
+        errs, inputs = kernel_errors(B, S, na, n_act, d, dev)
+        torch.cuda.synchronize()
+        for name, (err, tol) in errs.items():
+            ok = err <= tol
+            log(f"[kernels] {tag} B={B} S={S} na={na} "
+                f"dp={inputs['Cs'].shape[-1]} {name}: max_abs_err={err:.3e} "
+                f"tol={tol:.3e} {'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise AssertionError(f"{tag} {name} outside tolerance")
+            kern = ("score_cov" if name in ("K", "mu", "sig2")
+                    else "var_downdate")
+            worst[kern] = max(worst[kern], err)
+        if tag == "fleet":
+            recs = time_kernels(inputs, reps_main)
+        del inputs
+    for name, r in recs.items():
+        r["max_abs_err"] = worst[name]
+        log(f"[kernels] {name} fleet shape: kernel {r['ms']:.4f} ms, "
+            f"plain {r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
+            f"({r['bound_by']}), {r['flops'] / 1e9:.2f} GFLOP, "
+            f"{r['bytes'] / 1e9:.3f} GB; no single PyTorch call computes "
+            "this function (library_ms null)")
+    return recs
+
+
+# --------------------------------------------------------------------------- #
+# phases 3-5
+# --------------------------------------------------------------------------- #
+def seeded_fleet(device, seed=0):
+    bank = StudyBank(hartmann_space(), FLEET["B"], seed=seed, device=device)
+    rng = np.random.default_rng(seed + 1000)
+    for b in range(FLEET["B"]):
+        v = bank.study(b)
+        for _ in range(FLEET["n_obs"]):
+            p = {f"x{i}": float(x) for i, x in enumerate(rng.uniform(size=6))}
+            v.observe_params(p, neg_hartmann6(p))
+    return bank
+
+
+def check_picks(trials, n):
+    for b, ts in enumerate(trials):
+        assert len(ts) == n, (b, len(ts))
+        rows = [tuple(t.params[f"x{i}"] for i in range(6)) for t in ts]
+        assert len(set(rows)) == n, f"study {b}: repeated pick"
+        for r in rows:
+            assert all(0.0 <= x <= 1.0 and math.isfinite(x) for x in r), r
+
+
+def fleet_path(dev):
+    """Phase 3; returns the bank and the launch counts of its asks."""
+    bank = seeded_fleet(dev)
+    n = FLEET["batch"]
+    log(f"[fleet] {FLEET['B']} studies x {FLEET['n_obs']} observations, "
+        f"mc_samples={bank.space.mc_samples(n)} per study, batch {n}")
+    torch.cuda.reset_peak_memory_stats()
+    for k in ops.launches:
+        ops.launches[k] = 0
+    for rnd in range(FLEET["rounds"]):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        trials = bank.ask_all(n)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        check_picks(trials, n)
+        for b, ts in enumerate(trials):
+            for t in ts:
+                bank.tell(b, t.id, neg_hartmann6(t.params))
+        best = max(max(t.value for t in v.observed_trials())
+                   for v in bank.studies)
+        log(f"[fleet] round {rnd}: ask_all({n}) {dt * 1e3:.1f} ms "
+            f"(host clock, synchronized), best -Hartmann6 so far "
+            f"{best:.5f}")
+    launches = dict(ops.launches)
+    log(f"[fleet] launches {launches}; max_memory_allocated "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
+    if launches["score_cov"] < FLEET["rounds"] or \
+            launches["var_downdate"] < FLEET["rounds"] * (n - 1):
+        raise AssertionError(f"main path skipped a kernel: {launches}")
+    return bank, launches
+
+
+def tuner_path(dev):
+    """Phase 4: the paper's Fig. 3 setting on the card."""
+    for k in ops.launches:
+        ops.launches[k] = 0
+    tuner = Tuner(branin_space(), lambda p: modified_branin(p),
+                  dict(batch_size=5, num_iteration=15, seed=3,
+                       scheduler=SerialScheduler(), device=dev))
+    t0 = time.perf_counter()
+    res = tuner.minimize()
+    torch.cuda.synchronize()
+    log(f"[tuner] mixed Branin, batch 5 x 15 iterations: best "
+        f"{res.best_objective:.5f} at {res.best_params} "
+        f"({time.perf_counter() - t0:.2f} s, launches {dict(ops.launches)})")
+    assert math.isfinite(res.best_objective)
+    assert len(res.params_tried) == 2 + 5 * 15, len(res.params_tried)
+    if ops.launches["score_cov"] < 1 or ops.launches["var_downdate"] < 1:
+        raise AssertionError(f"Tuner skipped a kernel: {ops.launches}")
+
+
+def parity_path(bank):
+    """Phase 5: the same ask from the same state on the card and on the
+    CPU, each absorbing the same in-flight trials; picks must agree except
+    on near-ties."""
+    n = FLEET["batch"]
+    bank.ask_all(n)     # left in flight: the compared ask absorbs them
+    path = ROOT / "build" / "chip_smoke_fleet.npz"
+    path.parent.mkdir(parents=True, exist_ok=True)
+    bank.save(path)
+    cpu = StudyBank(hartmann_space(), FLEET["B"], device="cpu")
+    cpu.load(path)
+    led = cpu.ledger
+    in_flight = [led.X[b, led.pending_ids(b)] for b in range(FLEET["B"])]
+    state = bank._rng.bit_generator.state
+    got_gpu = bank.ask_all(n)
+    t0 = time.perf_counter()
+    got_cpu = cpu.ask_all(n)
+    log(f"[parity] CPU ask of the same state: "
+        f"{time.perf_counter() - t0:.2f} s")
+    # replay the candidate draw both banks saw
+    replay = np.random.default_rng(0)
+    replay.bit_generator.state = state
+    n_mc = bank.mc_samples or bank.space.mc_samples(n)
+    cols = bank.space.sample_columns(FLEET["B"] * n_mc, replay)
+    C = bank.space.encode_columns(cols, FLEET["B"] * n_mc).reshape(
+        FLEET["B"], n_mc, -1)
+    bad, ties = 0, 0
+    for b in range(FLEET["B"]):
+        enc_g = bank.space.encode([t.params for t in got_gpu[b]])
+        enc_c = cpu.space.encode([t.params for t in got_cpu[b]])
+        ig = [int(np.flatnonzero((C[b] == r).all(1))[0]) for r in enc_g]
+        ic = [int(np.flatnonzero((C[b] == r).all(1))[0]) for r in enc_c]
+        if ig == ic:
+            continue
+        ids = led.obs_ids(b)
+        X = led.X[b, ids]
+        z = (led.y[b, ids].astype(np.float32) - led.y_mean[b]) / led.y_std[b]
+        hyp = (np.exp(led.log_ls[b]), np.exp(led.log_var[b]),
+               np.exp(led.log_noise[b]) + 1e-5)
+
+        def oracle(prev, b=b, X=X, z=z, hyp=hyp):
+            return bucb_acquisition(X, z, C[b], *hyp, prev,
+                                    bank.study(b).domain_size, in_flight[b])
+
+        ok, slot = picks_agree(ig, ic, oracle)
+        ties += ok
+        bad += not ok
+        log(f"[parity] study {b}: picks differ from slot {slot} "
+            f"({'near-tie' if ok else 'DISAGREE'}): cuda {ig} cpu {ic}")
+    log(f"[parity] studies checked {FLEET['B']}, near-ties {ties}, "
+        f"disagreements {bad}")
+    if bad:
+        raise AssertionError(f"{bad} studies disagree beyond near-ties")
+
+
+def profile_path(bank):
+    """``--profile``: where a fleet ask's time goes.  Two asks under
+    torch.profiler: one whose observation stage is cached (the parity
+    ask's trials and those left in flight told failed), then one after real
+    tells (refit, factors and pick).  Prints the device busy share of each ask's wall time and
+    the kernels and host ops that take the most time, plus the host
+    candidate draw timed alone."""
+    from torch.profiler import ProfilerActivity, profile
+
+    n = FLEET["batch"]
+    n_mc = bank.mc_samples or bank.space.mc_samples(n)
+    rng = np.random.default_rng(0)
+    t0 = time.perf_counter()
+    cols = bank.space.sample_columns(FLEET["B"] * n_mc, rng)
+    bank.space.encode_columns(cols, FLEET["B"] * n_mc)
+    log(f"[profile] host candidate draw + encode of {FLEET['B'] * n_mc} "
+        f"rows alone: {(time.perf_counter() - t0) * 1e3:.1f} ms")
+    for b, v in enumerate(bank.studies):
+        for t in v.pending_trials():
+            bank.tell_failed(b, t.id)
+    dev_time = "self_device_time_total"
+    for tag in ("cached observation stage", "after tells: refit, factors"):
+        acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+        with profile(activities=acts) as prof:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            trials = bank.ask_all(n)
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+        ka = prof.key_averages()
+        busy = sum(getattr(e, dev_time) for e in ka) / 1e3
+        log(f"[profile] {tag}: wall {wall:.1f} ms under the profiler, "
+            f"device busy {busy:.2f} ms ({100 * busy / wall:.1f}% of wall)")
+        for e in sorted(ka, key=lambda e: -getattr(e, dev_time))[:8]:
+            log(f"[profile]   device {e.key[:56]:56s} "
+                f"{getattr(e, dev_time) / 1e3:9.3f} ms x{e.count}")
+        for e in sorted(ka, key=lambda e: -e.self_cpu_time_total)[:8]:
+            log(f"[profile]   host   {e.key[:56]:56s} "
+                f"{e.self_cpu_time_total / 1e3:9.3f} ms x{e.count}")
+        for b, ts in enumerate(trials):
+            for t in ts:
+                bank.tell(b, t.id, neg_hartmann6(t.params))
+
+
+def main(argv) -> int:
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device available", file=sys.stderr)
+        return 2
+    dev = torch.device("cuda")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    card = card_line()
+    log(f"[setup] {card}")
+    log(f"[setup] torch {torch.__version__} cuda {torch.version.cuda} "
+        f"device {torch.cuda.get_device_name(0)} "
+        f"allow_tf32 matmul={torch.backends.cuda.matmul.allow_tf32} "
+        f"cudnn={torch.backends.cudnn.allow_tf32}")
+    t0 = time.perf_counter()
+    lib = ops.library()
+    log(f"[setup] built {build.library_path('gp_acquisition', ops.SOURCES)}"
+        f" in {time.perf_counter() - t0:.1f} s")
+    for line in build.ptxas_report("gp_acquisition",
+                                   ops.SOURCES).splitlines():
+        if "ptxas" in line:
+            log(f"[setup] {line.strip()}")
+    for na, dp in ((16, 24), (256, 8), (1024, 8)):
+        blocks = ctypes.c_int(0)
+        err = lib.gp_score_cov_blocks_per_sm(na, dp, ctypes.byref(blocks))
+        if err:
+            raise RuntimeError(lib.gp_error_string(err).decode())
+        log(f"[setup] score_cov dynamic shared memory at na={na} dp={dp}: "
+            f"{lib.gp_score_cov_smem_bytes(na, dp)} bytes "
+            "(negative: K streamed from global memory), "
+            f"{blocks.value} blocks per SM (occupancy calculator)")
+    recs = check_kernels(dev, reps_main=20)
+    bank, launches = fleet_path(dev)
+    tuner_path(dev)
+    parity_path(bank)
+    if "--profile" in argv:
+        profile_path(bank)
+    src = "src/repro_torch/kernels/gp_acquisition/csrc/gp_acquisition.cu"
+    replaces = {
+        "score_cov": "src/repro/kernels/gp_acquisition/gp_acquisition.py:71",
+        "var_downdate":
+            "src/repro/kernels/gp_acquisition/gp_acquisition.py:145"}
+    kernels = [dict(name=name, route="cuda", source=src,
+                    replaces=replaces[name], launches=launches[name],
+                    max_abs_err=r["max_abs_err"], ms=r["ms"],
+                    plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
+                    bound_by=r["bound_by"], library_ms=None)
+               for name, r in recs.items()]
+    print(card, flush=True)
+    print(json.dumps({"kernels": kernels}), flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main(sys.argv[1:]))

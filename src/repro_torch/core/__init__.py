@@ -1,0 +1,9 @@
+from repro_torch.core.spaces import (ParamSpace, loguniform, Int, LogInt,
+                                     Choice, CHOICE_KEY)
+from repro_torch.core.optimizer import AskTellOptimizer, Trial
+from repro_torch.core.studybank import StudyBank, StudyLedger
+from repro_torch.core.tuner import Tuner, TunerResults
+
+__all__ = ["ParamSpace", "loguniform", "Int", "LogInt", "Choice",
+           "CHOICE_KEY", "AskTellOptimizer", "Trial",
+           "StudyBank", "StudyLedger", "Tuner", "TunerResults"]

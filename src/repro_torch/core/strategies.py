@@ -1,0 +1,63 @@
+"""Parallel batch-selection strategies (paper §2.3), as far as they are ported.
+
+  * ``bayesian`` (default) / ``hallucination``: GP-BUCB.  The ask itself is
+    served by the StudyBank pipeline (``core.studybank``), so the strategy
+    object only marks that a GP is needed.
+  * ``random``: a batch of valid random samples (the paper's third
+    optimizer).
+
+``tpe``, ``clustering`` and ``hallucination_ref`` exist in the JAX package
+and are not ported yet: asking for them raises.
+"""
+from __future__ import annotations
+
+from typing import List
+
+import numpy as np
+
+_NOT_PORTED = ("tpe", "clustering", "hallucination_ref")
+
+
+class BaseStrategy:
+    """GP-backed strategy: ``needs_gp`` routes the ask through the bank.
+    The knobs the bank's GP schedule reads live on the optimizer; unknown
+    keyword arguments raise ``TypeError`` here."""
+
+    needs_gp = True
+
+    def __init__(self, dim: int, domain_size: float, fit_steps: int = 40,
+                 refit_every: int = 8):
+        pass
+
+
+class RandomStrategy(BaseStrategy):
+    needs_gp = False
+
+    def __init__(self, dim: int = 0, domain_size: float = 1.0, **kwargs):
+        pass
+
+    def propose(self, X, y, candidates, batch_size, seed=0,
+                pending=None) -> List[int]:
+        rng = np.random.default_rng(seed)
+        # clamp: a small mc_samples override can leave fewer candidates
+        # than batch slots — return what exists instead of raising
+        return list(rng.choice(len(candidates),
+                               size=min(batch_size, len(candidates)),
+                               replace=False))
+
+
+STRATEGIES = {
+    "bayesian": BaseStrategy,     # mango's default name
+    "hallucination": BaseStrategy,
+    "random": RandomStrategy,
+}
+
+
+def check_strategy(name: str) -> None:
+    """Raise ``ValueError`` for a strategy name the port cannot serve."""
+    if name in _NOT_PORTED:
+        raise ValueError(f"optimizer {name!r} is not ported yet; choose "
+                         f"from {sorted(STRATEGIES)}")
+    if name not in STRATEGIES:
+        raise ValueError(f"unknown optimizer {name!r}; "
+                         f"choose from {sorted(STRATEGIES)}")

@@ -1,0 +1,141 @@
+"""Dispatch for the GP-BUCB scoring kernels.
+
+A CUDA tensor launches the hand-written kernel in ``csrc/gp_acquisition.cu``
+(built at first use, see ``repro_torch.kernels.build``); a CPU tensor runs the
+plain version in ``ref``.  Nothing falls back: a CUDA call that cannot build or
+launch raises.  ``launches`` counts kernel launches per wrapper (CPU calls
+leave it alone), so a run can show that its main path went through the
+kernels.
+"""
+from __future__ import annotations
+
+import ctypes
+from pathlib import Path
+
+import torch
+
+from repro_torch.kernels import build
+from repro_torch.kernels.gp_acquisition import ref
+
+SOURCES = (Path(__file__).resolve().parent / "csrc" / "gp_acquisition.cu",)
+MAX_DP = 128
+
+launches = {"score_cov": 0, "var_downdate": 0}
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+
+
+def library() -> ctypes.CDLL:
+    lib = build.load("gp_acquisition", SOURCES)
+    if not getattr(lib, "_typed", False):
+        lib.gp_score_cov.argtypes = [_P] * 10 + [_I] * 4 + [_P]
+        lib.gp_score_cov.restype = _I
+        lib.gp_var_downdate.argtypes = [_P] * 10 + [_I] * 4 + [_P]
+        lib.gp_var_downdate.restype = _I
+        lib.gp_score_cov_smem_bytes.argtypes = [_I, _I]
+        lib.gp_score_cov_smem_bytes.restype = ctypes.c_long
+        lib.gp_score_cov_blocks_per_sm.argtypes = [_I, _I, _P]
+        lib.gp_score_cov_blocks_per_sm.restype = _I
+        lib.gp_error_string.argtypes = [_I]
+        lib.gp_error_string.restype = ctypes.c_char_p
+        lib._typed = True
+    return lib
+
+
+def _check(name: str, t: torch.Tensor, shape, device: torch.device,
+           dtype=torch.float32) -> None:
+    if t.device != device:
+        raise ValueError(f"{name} is on {t.device}, expected {device}")
+    if t.dtype != dtype:
+        raise TypeError(f"{name} has dtype {t.dtype}, expected {dtype}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name} has shape {tuple(t.shape)}, "
+                         f"expected {tuple(shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+
+
+def _check_dp(dp: int) -> None:
+    if dp % 8 or not 0 < dp <= MAX_DP:
+        raise ValueError(f"padded dim {dp} must be a multiple of 8 in "
+                         f"[8, {MAX_DP}]")
+
+
+def _raise_on(lib: ctypes.CDLL, err: int, what: str) -> None:
+    if err:
+        raise RuntimeError(f"{what} launch failed: "
+                           f"{lib.gp_error_string(err).decode()}")
+
+
+def score_cov(Cs, Xs, mask, Linv, alpha, var, noise):
+    """(mu, sig2, K) for every candidate of every study in one launch.
+
+    Cs (B, S, dp) and Xs (B, na, dp) are lengthscale-prescaled and padded;
+    mask (B, na); Linv (B, na, na) lower triangular; alpha (B, na);
+    var, noise (B,).  All float32 and contiguous on one device."""
+    B, S, dp = Cs.shape
+    na = Xs.shape[1]
+    dev = Cs.device
+    _check_dp(dp)
+    for name, t, shape in (("Cs", Cs, (B, S, dp)), ("Xs", Xs, (B, na, dp)),
+                           ("mask", mask, (B, na)),
+                           ("Linv", Linv, (B, na, na)),
+                           ("alpha", alpha, (B, na)), ("var", var, (B,)),
+                           ("noise", noise, (B,))):
+        _check(name, t, shape, dev)
+    if dev.type == "cpu":
+        return ref.score_cov_ref(Cs, Xs, mask, Linv, alpha, var, noise)
+    if dev.type != "cuda":
+        raise ValueError(f"score_cov runs on cuda or cpu, not {dev}")
+    lib = library()
+    mu = torch.empty((B, S), dtype=torch.float32, device=dev)
+    sig2 = torch.empty((B, S), dtype=torch.float32, device=dev)
+    K = torch.empty((B, S, na), dtype=torch.float32, device=dev)
+    err = lib.gp_score_cov(
+        Cs.data_ptr(), Xs.data_ptr(), mask.data_ptr(), Linv.data_ptr(),
+        alpha.data_ptr(), var.data_ptr(), noise.data_ptr(), mu.data_ptr(),
+        sig2.data_ptr(), K.data_ptr(), B, S, na, dp,
+        torch.cuda.current_stream(dev).cuda_stream)
+    _raise_on(lib, err, "score_cov")
+    launches["score_cov"] += 1
+    return mu, sig2, K
+
+
+def var_downdate(Cs, x_star, Kc, u, schur, sig2, var, slot):
+    """Rank-1 GP-BUCB downdate after absorbing x_star: (sig2', knew).
+
+    Cs (B, S, dp); x_star (B, dp); Kc (B, S, na) the cached cross-covariance
+    block; u (B, na) the Schur vector; schur, var (B,); sig2 (B, S); slot
+    (B,) int32.  knew is also written into column ``slot[b]`` of ``Kc`` in
+    place, on both paths.  ``slot[b]`` must lie in [0, na): reading it back
+    would cost a device sync, so the caller guarantees it (the bank sizes
+    ``na`` for every slot of the batch, ``StudyBank._pick_gp``)."""
+    B, S, dp = Cs.shape
+    na = Kc.shape[2]
+    dev = Cs.device
+    _check_dp(dp)
+    for name, t, shape in (("Cs", Cs, (B, S, dp)), ("x_star", x_star, (B, dp)),
+                           ("Kc", Kc, (B, S, na)), ("u", u, (B, na)),
+                           ("schur", schur, (B,)), ("sig2", sig2, (B, S)),
+                           ("var", var, (B,))):
+        _check(name, t, shape, dev)
+    _check("slot", slot, (B,), dev, torch.int32)
+    if dev.type == "cpu":
+        sig2_new, knew = ref.var_downdate_ref(Cs, x_star, Kc, u, schur, sig2,
+                                              var)
+        Kc[torch.arange(B), :, slot.long()] = knew
+        return sig2_new, knew
+    if dev.type != "cuda":
+        raise ValueError(f"var_downdate runs on cuda or cpu, not {dev}")
+    lib = library()
+    sig2_new = torch.empty((B, S), dtype=torch.float32, device=dev)
+    knew = torch.empty((B, S), dtype=torch.float32, device=dev)
+    err = lib.gp_var_downdate(
+        Cs.data_ptr(), x_star.data_ptr(), Kc.data_ptr(), u.data_ptr(),
+        schur.data_ptr(), sig2.data_ptr(), var.data_ptr(), slot.data_ptr(),
+        sig2_new.data_ptr(), knew.data_ptr(), B, S, na, dp,
+        torch.cuda.current_stream(dev).cuda_stream)
+    _raise_on(lib, err, "var_downdate")
+    launches["var_downdate"] += 1
+    return sig2_new, knew

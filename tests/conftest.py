@@ -14,6 +14,11 @@ import pytest  # noqa: E402
 from repro.models.common import Runtime  # noqa: E402
 
 
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: needs a CUDA device; skips without one")
+
+
 @pytest.fixture(scope="session")
 def rt32():
     """fp32 runtime with small chunks for reduced-config tests."""

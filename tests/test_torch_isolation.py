@@ -1,0 +1,83 @@
+"""PyTorch port isolation: the port and ``chip_smoke.py`` import nothing of JAX
+or of the JAX package, and entry points never fall back to the CPU."""
+import subprocess
+import sys
+import textwrap
+from pathlib import Path
+
+import pytest
+import torch
+from scipy import stats
+
+import repro_torch.core as T
+
+ROOT = Path(__file__).resolve().parents[1]
+SPACE = {"x": stats.uniform(0, 1), "y": stats.uniform(-1, 2)}
+
+_BLOCKED_RUN = textwrap.dedent("""
+    import importlib.abc, sys
+    sys.path[:0] = [{src!r}, {root!r}]
+
+    class Block(importlib.abc.MetaPathFinder):
+        def find_spec(self, name, path=None, target=None):
+            top = name.split(".")[0]
+            if top in ("jax", "jaxlib", "repro"):
+                raise ImportError("blocked import of " + name)
+            return None
+
+    sys.meta_path.insert(0, Block())
+    import repro_torch, repro_torch.core, repro_torch.convert
+    import repro_torch.scheduler, repro_torch.device
+    import repro_torch.kernels.gp_acquisition.ops
+    import chip_smoke
+    from repro_torch.core import StudyBank
+    bank = StudyBank(chip_smoke.hartmann_space(), 2, seed=1, mc_samples=50,
+                     device="cpu")
+    for b in range(2):
+        for i in range(4):
+            p = {{f"x{{j}}": (i + j + b) / 10 for j in range(6)}}
+            bank.study(b).observe_params(p, chip_smoke.neg_hartmann6(p))
+    assert all(len(t) == 2 for t in bank.ask_all(2))
+    bad = [m for m in sys.modules
+           if m.split(".")[0] in ("jax", "jaxlib", "repro")]
+    assert not bad, bad
+    print("isolated ok")
+""")
+
+
+def test_port_and_smoke_import_no_jax_or_repro():
+    code = _BLOCKED_RUN.format(src=str(ROOT / "src"), root=str(ROOT))
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=300, cwd=str(ROOT))
+    assert out.returncode == 0, out.stderr[-3000:]
+    assert "isolated ok" in out.stdout
+
+
+@pytest.mark.parametrize("make", [
+    lambda: T.StudyBank(SPACE, 2),
+    lambda: T.AskTellOptimizer(SPACE),
+    lambda: T.Tuner(SPACE, lambda ps: [0.0] * len(ps)),
+], ids=["StudyBank", "AskTellOptimizer", "Tuner"])
+def test_entry_points_default_to_cuda_and_never_fall_back(make):
+    """With no ``device`` an entry point runs on the card; without a card it
+    raises instead of running on the CPU."""
+    if torch.cuda.is_available():
+        obj = make()
+        opt = getattr(obj, "opt", obj)
+        assert opt.device.type == "cuda"
+    else:
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            make()
+
+
+def test_cpu_is_used_only_when_asked():
+    bank = T.StudyBank(SPACE, 2, device="cpu")
+    assert bank.device.type == "cpu"
+    assert all(v.device.type == "cpu" for v in bank.studies)
+
+
+def test_kernel_wrappers_have_no_fallback():
+    """A CUDA tensor reaches the kernel or an exception: the dispatch code
+    holds no ``try`` around a launch."""
+    src = (ROOT / "src/repro_torch/kernels/gp_acquisition/ops.py").read_text()
+    assert "try:" not in src and "except" not in src
