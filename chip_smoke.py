@@ -2,21 +2,30 @@
 """Smoke run of the PyTorch port (``src/repro_torch``) on one NVIDIA GPU.
 
     python3 chip_smoke.py                 # every phase; needs one CUDA card
-    python3 chip_smoke.py --profile       # every phase, then a profiled ask
+    python3 chip_smoke.py --profile       # every phase, then profiled asks
 
 Phases:
-  1. setup: card name and power limit, build the CUDA kernels from
-     ``src/repro_torch/kernels/gp_acquisition/csrc`` with nvcc (sm_90a) and
-     print what ptxas says about them;
+  1. setup: card name and power limit, build the CUDA kernels of both suites
+     (``src/repro_torch/kernels/{gp_acquisition,tpe_kde}/csrc``) with nvcc
+     (sm_90a) and print what ptxas says about them;
   2. each kernel against its plain PyTorch version on the card, at the fleet
-     path's shapes and at a ragged small shape, with timings;
-  3. the fleet path: a 64-study ``StudyBank`` over Hartmann-6 with the default
+     path's shapes, at a ragged small shape and at a large bucket, with
+     timings;
+  3. the GP fleet: a 64-study ``StudyBank`` over Hartmann-6 with the default
      candidate budget, 200 observations each, three rounds of ask_all(4) ->
      tell, with the kernels' launch counts read around the run;
-  4. a single-study ``Tuner`` on the mixed Branin space (paper Fig. 3 setting);
-  5. one full-size ask, with a batch of trials in flight, from the phase-3
-     state on the card and on the CPU (plain versions); picks must agree
-     except on near-ties, judged by a float64 numpy GP-BUCB oracle.
+  4. the TPE fleet: the same fleet with ``optimizer="tpe"``, three rounds,
+     then once more with ``pending_penalty=True`` and a batch left in
+     flight; ``tpe_scores`` launches once per ask;
+  5. a mixed fleet of 32 ``bayesian`` and 32 ``tpe`` studies, one round:
+     both families launch their kernels;
+  6. the paper's Fig. 3 setting (mixed Branin) through ``Tuner``: GP-BUCB
+     batch 5; TPE serial and batch 5; TPE through ``AsyncTuner``; every TPE
+     best value equals the CPU port's on the same seed;
+  7. one full-size ask, with a batch of trials in flight, from the phase-3
+     (GP) and phase-4 (TPE) states on the card and on the CPU (plain
+     versions); picks must agree except on near-ties, judged by float64
+     numpy evaluations of the same surfaces.
 
 The second-to-last line is a JSON object with one entry per kernel; the last
 line is ``{"ok": true, "device": {...}}``.  Any failure exits non-zero before
@@ -30,6 +39,7 @@ import math
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import numpy as np
@@ -39,16 +49,26 @@ sys.path.insert(0, str(ROOT / "src"))
 
 import torch  # noqa: E402
 
-from repro_torch.core import StudyBank, Tuner  # noqa: E402
+from repro_torch.core import AsyncTuner, StudyBank, Tuner  # noqa: E402
 from repro_torch.core import gp as gp_lib  # noqa: E402
 from repro_torch.core import scoring  # noqa: E402
 from repro_torch.kernels import build  # noqa: E402
 from repro_torch.kernels.gp_acquisition import ops, ref  # noqa: E402
+from repro_torch.kernels.tpe_kde import ops as tpe_ops  # noqa: E402
+from repro_torch.kernels.tpe_kde import ref as tpe_ref  # noqa: E402
 from repro_torch.scheduler import SerialScheduler  # noqa: E402
 
-# H100 SXM peaks (NVIDIA data sheet): fp32 outside the tensor cores, HBM3
+# H100 SXM peaks (NVIDIA data sheet): fp32 outside the tensor cores, HBM3,
+# and the special-function units (16 exponentials per clock per SM, CUDA
+# programming guide's arithmetic-instruction throughput table for compute
+# capability 9.0) at the 1,980 MHz maximum boost clock on 132 SMs
 PEAK_FP32 = 67e12
 PEAK_BYTES = 3.35e12
+SM_CLOCK_HZ = 1.98e9
+PEAK_EXP = 16 * 132 * SM_CLOCK_HZ
+# fp32 operations around each exponential of the TPE kernels: difference,
+# square, scale, and one multiply-add per density (two for tpe_scores)
+TPE_FLOPS_PER_EXP = {"tpe_scores": 7, "parzen_logdens": 5}
 
 FLEET = dict(B=64, n_obs=200, batch=4, rounds=3)
 NEAR_TIE = 1e-4
@@ -152,6 +172,54 @@ def picks_agree(pa, pb, oracle, tol=NEAR_TIE):
         gap = max(top - acq[a], top - acq[b])
         return gap <= tol * max(abs(top), 1e-12), s
     return True, None
+
+
+def tpe_score64(X, y, C, gamma, pending=None):
+    """TPE l(x)/g(x) log-ratio of every candidate C (S, d), in float64: the
+    split of observations X (n, d) by the signed values y (good = the
+    ceil(gamma n) best, computed in float32 as the port does), per-dim
+    bandwidths (Scott base times the clipped per-dim spread of each
+    split), the in-flight rows ``pending`` (m, d) joining the bad split,
+    and the good rows standing in for an empty bad split."""
+    X = np.asarray(X, np.float64)
+    C = np.asarray(C, np.float64)
+    n, d = X.shape
+    n_good = max(1, int(np.ceil(np.float32(gamma) * np.float32(n))))
+    order = np.argsort(-np.asarray(y, np.float64), kind="stable")
+    good, bad = X[order[:n_good]], X[order[n_good:]]
+    P = (np.zeros((0, d)) if pending is None
+         else np.asarray(pending, np.float64).reshape(-1, d))
+    bad_eff = bad if len(bad) else good
+    b_pts = np.concatenate([bad_eff, P])
+
+    def bw(pts):
+        base = max(len(pts) ** (-1.0 / (d + 4)), 1e-2) * 0.5 + 1e-3
+        return base * np.clip(2.0 * pts.std(axis=0), 0.1, 1.0)
+
+    def kde_sum(pts, h):
+        out = np.zeros((len(C), d))
+        for s0 in range(0, len(C), 2048):
+            d2 = (C[s0:s0 + 2048, None, :] - pts[None, :, :]) ** 2
+            out[s0:s0 + 2048] = np.exp(-d2 * (0.5 / (h * h))).sum(axis=1)
+        return out
+
+    bw_g, bw_b = bw(good), bw(b_pts)
+    lg = np.log(kde_sum(good, bw_g) / len(good) + 1e-12).sum(axis=1)
+    bad_sum = kde_sum(bad, bw_b) if len(bad) else kde_sum(good, bw_g)
+    if len(P):
+        bad_sum = bad_sum + kde_sum(P, bw_b)
+    lb = np.log(bad_sum / len(b_pts) + 1e-12).sum(axis=1)
+    return lg - lb
+
+
+def top_b_oracle(score):
+    """``picks_agree`` oracle of a top-b selection: the slot's surface is
+    the score with the picks before it removed."""
+    def oracle(prev):
+        acq = np.array(score, np.float64)
+        acq[list(prev)] = -np.inf
+        return acq
+    return oracle
 
 
 # --------------------------------------------------------------------------- #
@@ -335,10 +403,152 @@ def check_kernels(dev, reps_main: int):
 
 
 # --------------------------------------------------------------------------- #
-# phases 3-5
+# TPE kernels (phase 2)
 # --------------------------------------------------------------------------- #
-def seeded_fleet(device, seed=0):
-    bank = StudyBank(hartmann_space(), FLEET["B"], seed=seed, device=device)
+TPE_TOL = 1e-4   # the JAX package's own kernel-vs-oracle tolerance
+
+
+def tpe_system(B, S, na, n_live, d, dev, seed=11, holes=False):
+    """Inputs of both TPE kernels at the bank's layout: candidates, live
+    observation rows (study b keeps ``n_live - b % 3``; the rest of the
+    bucket is zeros), a good and a bad split, and per-split per-dim scales
+    that differ along the dims.  As on the ask path, every live row carries
+    a weight; ``holes`` masks every ninth live row out of both splits.
+    Returns the tensors of both kernels' calls on ``dev`` and each study's
+    count of weighted rows."""
+    rng = np.random.default_rng(seed)
+    dp = max(8, -(-d // 8) * 8)
+    live = np.array([max(1, n_live - b % 3) for b in range(B)], np.int32)
+    row = np.arange(na)[None, :]
+    keep = row < live[:, None]
+    C = np.zeros((B, S, dp), np.float32)
+    C[..., :d] = rng.uniform(size=(B, S, d))
+    X = np.zeros((B, na, dp), np.float32)
+    X[..., :d] = rng.uniform(size=(B, na, d)) * keep[..., None]
+    n_good = np.maximum(1, live // 4)[:, None]
+    on = keep & (row % 9 != 5) if holes else keep
+    wg = (on & (row < n_good)).astype(np.float32)
+    wb = (on & (row >= n_good)).astype(np.float32)
+    wb[wb.sum(1) == 0, 0] = 1.0          # a bad split is never empty
+    ag = rng.uniform(5.0, 50.0, size=(B, 1, d))
+    ab = rng.uniform(5.0, 50.0, size=(B, 1, d))
+    a = np.zeros((B, na, dp), np.float32)
+    a[..., :d] = np.where(wg[..., None] > 0, ag, ab) * keep[..., None]
+    scal = np.zeros((B, 4), np.float32)
+    scal[:, 0] = 1.0 / wg.sum(1)
+    scal[:, 1] = 1.0 / wb.sum(1)
+    w = np.maximum(wg, wb)
+    bw = tpe_ref.scott_bandwidth(torch.as_tensor(w.sum(1)), d).numpy()
+    scal_p = np.zeros((B, 4), np.float32)
+    scal_p[:, 0] = 0.5 / (bw * bw)
+    scal_p[:, 1] = 1.0 / w.sum(1)
+    t = {k: torch.as_tensor(v, device=dev) for k, v in dict(
+        C=C, X=X, a=a, wg=wg, wb=wb, scal=scal, w=w, scal_p=scal_p,
+        live=live).items()}
+    return dict(tpe=(t["C"], t["X"], t["a"], t["wg"], t["wb"], t["scal"],
+                     t["live"]),
+                parzen=(t["C"], t["X"], t["w"], t["scal_p"], t["live"]),
+                d=d, live=live, weighted=(w > 0).sum(1))
+
+
+def tpe_kernel_errors(B, S, na, n_live, d, dev, seed=11, holes=False):
+    """Both TPE kernels against their plain versions on the same inputs at
+    one shape.  Returns ``({kernel: (max_abs_err, tolerance)}, system)``.
+
+    Tolerance 1e-4 absolute per score, the JAX package's own tolerance for
+    these kernels: a score sums 2d (tpe) or d (parzen) logs of fp32 sums of
+    positive terms, each of which the two versions add in another order
+    (relative error of a few eps times the row count's square root), and
+    both floor every density at 1e-12, so no log sees a cancelled sum."""
+    g = tpe_system(B, S, na, n_live, d, dev, seed, holes)
+    k = tpe_ops.tpe_scores(*g["tpe"], d_true=d)
+    r = tpe_ref.tpe_scores_ref(*g["tpe"], d_true=d)
+    kp = tpe_ops.parzen_logdens_bank(*g["parzen"], d_true=d)
+    rp = tpe_ref.parzen_logdens_ref(*g["parzen"], d_true=d)
+    assert bool(torch.isfinite(k).all()) and bool(torch.isfinite(kp).all())
+    return {"tpe_scores": (_max_err(k, r), TPE_TOL),
+            "parzen_logdens": (_max_err(kp, rp), TPE_TOL)}, g
+
+
+def tpe_bound(name, S, weighted, d):
+    """Least time for one call: the exponentials this call's data needs
+    (one per candidate, dim and row that carries a weight in either split;
+    ``weighted`` holds each study's count of such rows) over the
+    special-function rate, the fp32 work around them over the fp32 rate,
+    and the bytes the function must move (true candidate columns and
+    weighted rows in, scores out) over the memory rate.  Returns (bound_ms,
+    by, exp_ms, fp32_ms, bytes_ms, n_exp)."""
+    rows = float(np.sum(weighted))
+    n_exp = float(S) * rows * d
+    words_per_row = 2 * d + 2 if name == "tpe_scores" else d + 1
+    nbytes = 4 * (len(weighted) * S * d + rows * words_per_row
+                  + len(weighted) * (4 + 1) + len(weighted) * S)
+    t_exp = n_exp / PEAK_EXP
+    t_fp32 = n_exp * TPE_FLOPS_PER_EXP[name] / PEAK_FP32
+    t_bytes = nbytes / PEAK_BYTES
+    t_ops = max(t_exp, t_fp32)
+    return (max(t_ops, t_bytes) * 1e3,
+            "operations" if t_ops >= t_bytes else "bytes",
+            t_exp * 1e3, t_fp32 * 1e3, t_bytes * 1e3, n_exp)
+
+
+def check_tpe_kernels(dev, reps_main: int):
+    """Phase 2, TPE suite: both kernels against their plain versions at the
+    fleet shape (B 64, S 16,800, na 256 with 200 live rows, d 6; every live
+    row weighted, as on the ask path), a ragged small shape (S 257, d 11,
+    masked rows) and a large bucket (na 4096, sixteen row tiles per
+    dimension).  Returns per-kernel records (worst error over all shapes;
+    times and bound at the fleet shape)."""
+    shapes = [("fleet", FLEET["B"], 16800, 256, 200, 6, False),
+              ("ragged", 3, 257, 24, 17, 11, True),
+              ("large-bucket", 4, 3000, 4096, 4000, 6, False)]
+    worst = {"tpe_scores": 0.0, "parzen_logdens": 0.0}
+    recs = {}
+    for tag, B, S, na, n_live, d, holes in shapes:
+        errs, g = tpe_kernel_errors(B, S, na, n_live, d, dev, holes=holes)
+        torch.cuda.synchronize()
+        for name, (err, tol) in errs.items():
+            ok = err <= tol
+            log(f"[kernels] {tag} B={B} S={S} na={na} live<={n_live} "
+                f"d={d} {name}: max_abs_err={err:.3e} tol={tol:.1e} "
+                f"{'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise AssertionError(f"{tag} {name} outside tolerance")
+            worst[name] = max(worst[name], err)
+        reps = reps_main if tag == "fleet" else 5
+        for name, args, kern, plain in (
+                ("tpe_scores", g["tpe"], tpe_ops.tpe_scores,
+                 tpe_ref.tpe_scores_ref),
+                ("parzen_logdens", g["parzen"], tpe_ops.parzen_logdens_bank,
+                 tpe_ref.parzen_logdens_ref)):
+            ms = cuda_ms(lambda: kern(*args, d_true=d), reps)
+            plain_ms = cuda_ms(lambda: plain(*args, d_true=d), 3, warmup=1)
+            b_ms, by, e_ms, f_ms, y_ms, n_exp = tpe_bound(
+                name, S, g["weighted"], d)
+            log(f"[kernels] {tag} {name}: kernel {ms:.4f} ms, plain "
+                f"{plain_ms:.4f} ms, bound {b_ms:.4f} ms ({by}): "
+                f"{n_exp:.4g} exponentials over {int(g['weighted'].sum())} "
+                f"weighted rows ({int(g['live'].sum())} live) -> "
+                f"{e_ms:.4f} ms at 16/clk/SM x 132 SMs x "
+                f"{SM_CLOCK_HZ / 1e9:.2f} GHz; fp32 bound {f_ms:.4f} ms; "
+                f"bytes bound {y_ms:.4f} ms")
+            if tag == "fleet":
+                recs[name] = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                                  bound_by=by)
+        del g
+    for name, r in recs.items():
+        r["max_abs_err"] = worst[name]
+    log("[kernels] no single PyTorch call computes either TPE function "
+        "(library_ms null)")
+    return recs
+
+
+# --------------------------------------------------------------------------- #
+# phases 3-7
+# --------------------------------------------------------------------------- #
+def seeded_fleet(device, seed=0, **bank_kw):
+    bank = StudyBank(hartmann_space(), FLEET["B"], seed=seed, device=device,
+                     **bank_kw)
     rng = np.random.default_rng(seed + 1000)
     for b in range(FLEET["B"]):
         v = bank.study(b)
@@ -409,24 +619,197 @@ def tuner_path(dev):
         raise AssertionError(f"Tuner skipped a kernel: {ops.launches}")
 
 
-def parity_path(bank):
-    """Phase 5: the same ask from the same state on the card and on the
-    CPU, each absorbing the same in-flight trials; picks must agree except
-    on near-ties."""
+def _reset(*counters):
+    for c in counters:
+        for k in c:
+            c[k] = 0
+
+
+def _timed_ask(bank, n):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    trials = bank.ask_all(n)
+    torch.cuda.synchronize()
+    return trials, (time.perf_counter() - t0) * 1e3
+
+
+def _tell_all(bank, trials):
+    for b, ts in enumerate(trials):
+        for t in ts:
+            bank.tell(b, t.id, neg_hartmann6(t.params))
+
+
+def tpe_fleet_path(dev):
+    """Phase 4: the 64-study TPE fleet, three rounds of ask_all(4) -> tell;
+    then a fleet with ``pending_penalty=True`` that asks with a batch in
+    flight.  ``tpe_scores`` launches once per ask.  Returns the pending
+    bank (a batch still in flight) and the launch count."""
     n = FLEET["batch"]
-    bank.ask_all(n)     # left in flight: the compared ask absorbs them
-    path = ROOT / "build" / "chip_smoke_fleet.npz"
+    bank = seeded_fleet(dev, optimizer="tpe")
+    pend = seeded_fleet(dev, seed=1, optimizer="tpe",
+                        strategy_kwargs={"pending_penalty": True})
+    log(f"[tpe] {FLEET['B']} TPE studies x {FLEET['n_obs']} observations, "
+        f"mc_samples={bank.space.mc_samples(n)} per study, batch {n}")
+    _reset(tpe_ops.launches)
+    asks = 0
+    for rnd in range(FLEET["rounds"]):
+        trials, ms = _timed_ask(bank, n)
+        asks += 1
+        check_picks(trials, n)
+        _tell_all(bank, trials)
+        best = max(max(t.value for t in v.observed_trials())
+                   for v in bank.studies)
+        log(f"[tpe] round {rnd}: ask_all({n}) {ms:.1f} ms (host clock, "
+            f"synchronized), best -Hartmann6 so far {best:.5f}")
+    first, ms0 = _timed_ask(pend, n)            # left in flight
+    trials, ms1 = _timed_ask(pend, n)           # asks with 4 rows in flight
+    asks += 2
+    check_picks(trials, n)
+    for b in range(FLEET["B"]):
+        held = {tuple(t.params.values()) for t in first[b]}
+        assert not held & {tuple(t.params.values()) for t in trials[b]}
+    _tell_all(pend, trials)
+    log(f"[tpe] pending_penalty: ask_all({n}) {ms0:.1f} ms with nothing in "
+        f"flight, {ms1:.1f} ms with {n} trials per study in flight "
+        "(absorbed into the bad split)")
+    launches = tpe_ops.launches["tpe_scores"]
+    log(f"[tpe] asks {asks}, tpe_scores launches {launches}")
+    if launches != asks:
+        raise AssertionError(f"tpe_scores launched {launches} times in "
+                             f"{asks} TPE asks")
+    return pend, launches
+
+
+def parzen_path(dev):
+    """The entry point of ``parzen_logdens``, ``tpe_kde.ops.parzen_logdens``
+    (off the ask path): three studies' 200 observations scoring 16,800
+    candidates each on the card, held against the host oracle
+    ``TPEStrategy._log_kde``.  Returns the launch count."""
+    from repro_torch.core.tpe import TPEStrategy
+    rng = np.random.default_rng(5)
+    _reset(tpe_ops.launches)
+    worst = 0.0
+    for _ in range(3):
+        pts = rng.uniform(size=(FLEET["n_obs"], 6)).astype(np.float32)
+        cands = rng.uniform(size=(16800, 6)).astype(np.float32)
+        got = tpe_ops.parzen_logdens(cands, pts, device=dev)
+        want = TPEStrategy._log_kde(pts, cands)
+        assert got.shape == (16800,) and np.isfinite(got).all()
+        worst = max(worst, float(np.abs(got - want).max()))
+    launches = tpe_ops.launches["parzen_logdens"]
+    log(f"[parzen] ops.parzen_logdens x3 (16,800 x 200 x 6) vs the numpy "
+        f"host oracle: max_abs_err {worst:.3e} (tol {TPE_TOL:.0e}), "
+        f"launches {launches}")
+    if worst > TPE_TOL or launches != 3:
+        raise AssertionError(f"parzen path: err {worst}, launches "
+                             f"{launches}")
+    return launches
+
+
+def mixed_fleet_path(dev):
+    """Phase 5: 32 bayesian and 32 tpe studies in one bank, one round; each
+    family launches its kernels."""
+    n = FLEET["batch"]
+    half = FLEET["B"] // 2
+    bank = seeded_fleet(dev, seed=2,
+                        optimizer=["bayesian"] * half + ["tpe"] * half)
+    _reset(ops.launches, tpe_ops.launches)
+    trials, ms = _timed_ask(bank, n)
+    check_picks(trials, n)
+    _tell_all(bank, trials)
+    got = {**ops.launches, **tpe_ops.launches}
+    log(f"[mixed] {half} bayesian + {half} tpe studies: ask_all({n}) "
+        f"{ms:.1f} ms (host clock, synchronized), launches {got}")
+    if got["score_cov"] != 1 or got["var_downdate"] != n - 1 or \
+            got["tpe_scores"] != 1:
+        raise AssertionError(f"mixed fleet skipped a family: {got}")
+
+
+def fig3_tpe_path(dev):
+    """Phase 6, TPE: the Fig. 3 mixed Branin through ``Tuner`` serial
+    (batch 1 x 20) and parallel (batch 5 x 15), and through ``AsyncTuner``
+    over ``SerialScheduler().as_async(coalesce=True)`` for 40 evaluations
+    (one dispatcher thread completes trials in submit order and one trial
+    is in flight after the first two, so the run is deterministic); every
+    best value equals the CPU port's."""
+    runs = {
+        "tuner serial": lambda d: Tuner(
+            branin_space(), modified_branin,
+            dict(optimizer="tpe", batch_size=1, num_iteration=20, seed=3,
+                 scheduler=SerialScheduler(), device=d)).minimize(),
+        "tuner parallel": lambda d: Tuner(
+            branin_space(), modified_branin,
+            dict(optimizer="tpe", batch_size=5, num_iteration=15, seed=3,
+                 scheduler=SerialScheduler(), device=d)).minimize(),
+        "async": lambda d: AsyncTuner(
+            branin_space(), modified_branin,
+            SerialScheduler().as_async(coalesce=True), optimizer="tpe",
+            num_evals=40, batch_size=1, initial_random=2, seed=3,
+            device=d).minimize(),
+    }
+    want_asks = {"tuner serial": 20, "tuner parallel": 15, "async": 38}
+    for tag, run in runs.items():
+        _reset(tpe_ops.launches)
+        t0 = time.perf_counter()
+        res = run(dev)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = tpe_ops.launches["tpe_scores"]
+        ref_res = run("cpu")
+        same = res.params_tried == ref_res.params_tried
+        log(f"[fig3-tpe] {tag}: best {res.best_objective:.5f} on the card, "
+            f"{ref_res.best_objective:.5f} on the CPU; params_tried "
+            f"{'identical' if same else 'differ'}; {wall:.2f} s, "
+            f"tpe_scores launches {launches}")
+        assert math.isfinite(res.best_objective)
+        if res.best_objective != ref_res.best_objective:
+            raise AssertionError(f"{tag}: best value differs from the CPU")
+        if launches != want_asks[tag]:
+            raise AssertionError(f"{tag}: {launches} launches for "
+                                 f"{want_asks[tag]} TPE asks")
+
+
+def gp_oracle(bank, led, C, in_flight, b):
+    """``picks_agree`` oracle of study b's GP-BUCB slots (float64)."""
+    ids = led.obs_ids(b)
+    X = led.X[b, ids]
+    z = (led.y[b, ids].astype(np.float32) - led.y_mean[b]) / led.y_std[b]
+    hyp = (np.exp(led.log_ls[b]), np.exp(led.log_var[b]),
+           np.exp(led.log_noise[b]) + 1e-5)
+    return lambda prev: bucb_acquisition(X, z, C[b], *hyp, prev,
+                                         bank.study(b).domain_size,
+                                         in_flight[b])
+
+
+def tpe_oracle(bank, led, C, in_flight, b):
+    """``picks_agree`` oracle of study b's TPE top-b (float64 score)."""
+    ids = led.obs_ids(b)
+    return top_b_oracle(tpe_score64(
+        led.X[b, ids], led.y[b, ids], C[b],
+        bank.strategy_kwargs.get("gamma", 0.25), in_flight[b]))
+
+
+def parity_path(bank, tag, oracle_for, taken_in_by):
+    """Phase 7: the same fleet ask from one state on the card and on the
+    CPU, each taking in the same batch of in-flight trials
+    (``taken_in_by``); picks must agree except on near-ties, judged by
+    ``oracle_for(bank, ledger, C, in_flight, b)``."""
+    n = FLEET["batch"]
+    bank.ask_all(n)     # left in flight: the compared ask takes them in
+    path = ROOT / "build" / f"chip_smoke_{tag}_fleet.npz"
     path.parent.mkdir(parents=True, exist_ok=True)
     bank.save(path)
-    cpu = StudyBank(hartmann_space(), FLEET["B"], device="cpu")
-    cpu.load(path)
+    cpu = StudyBank(hartmann_space(), FLEET["B"],
+                    strategy_kwargs=bank.strategy_kwargs, device="cpu")
+    cpu.load(path)      # restores every study's strategy too
     led = cpu.ledger
     in_flight = [led.X[b, led.pending_ids(b)] for b in range(FLEET["B"])]
     state = bank._rng.bit_generator.state
-    got_gpu = bank.ask_all(n)
+    got_gpu, ms = _timed_ask(bank, n)
     t0 = time.perf_counter()
     got_cpu = cpu.ask_all(n)
-    log(f"[parity] CPU ask of the same state: "
+    log(f"[{tag}-parity] card ask with {n} trials per study in flight "
+        f"({taken_in_by}): {ms:.1f} ms; CPU ask of the same state: "
         f"{time.perf_counter() - t0:.2f} s")
     # replay the candidate draw both banks saw
     replay = np.random.default_rng(0)
@@ -437,42 +820,54 @@ def parity_path(bank):
         FLEET["B"], n_mc, -1)
     bad, ties = 0, 0
     for b in range(FLEET["B"]):
-        enc_g = bank.space.encode([t.params for t in got_gpu[b]])
-        enc_c = cpu.space.encode([t.params for t in got_cpu[b]])
-        ig = [int(np.flatnonzero((C[b] == r).all(1))[0]) for r in enc_g]
-        ic = [int(np.flatnonzero((C[b] == r).all(1))[0]) for r in enc_c]
+        ig, ic = ([int(np.flatnonzero((C[b] == r).all(1))[0])
+                   for r in bank.space.encode([t.params for t in got[b]])]
+                  for got in (got_gpu, got_cpu))
         if ig == ic:
             continue
-        ids = led.obs_ids(b)
-        X = led.X[b, ids]
-        z = (led.y[b, ids].astype(np.float32) - led.y_mean[b]) / led.y_std[b]
-        hyp = (np.exp(led.log_ls[b]), np.exp(led.log_var[b]),
-               np.exp(led.log_noise[b]) + 1e-5)
-
-        def oracle(prev, b=b, X=X, z=z, hyp=hyp):
-            return bucb_acquisition(X, z, C[b], *hyp, prev,
-                                    bank.study(b).domain_size, in_flight[b])
-
-        ok, slot = picks_agree(ig, ic, oracle)
+        ok, slot = picks_agree(ig, ic, oracle_for(bank, led, C, in_flight,
+                                                  b))
         ties += ok
         bad += not ok
-        log(f"[parity] study {b}: picks differ from slot {slot} "
+        log(f"[{tag}-parity] study {b}: picks differ from slot {slot} "
             f"({'near-tie' if ok else 'DISAGREE'}): cuda {ig} cpu {ic}")
-    log(f"[parity] studies checked {FLEET['B']}, near-ties {ties}, "
+    log(f"[{tag}-parity] studies checked {FLEET['B']}, near-ties {ties}, "
         f"disagreements {bad}")
     if bad:
-        raise AssertionError(f"{bad} studies disagree beyond near-ties")
+        raise AssertionError(f"{bad} {tag} studies disagree beyond "
+                             "near-ties")
 
 
-def profile_path(bank):
-    """``--profile``: where a fleet ask's time goes.  Two asks under
-    torch.profiler: one whose observation stage is cached (the parity
-    ask's trials and those left in flight told failed), then one after real
-    tells (refit, factors and pick).  Prints the device busy share of each ask's wall time and
-    the kernels and host ops that take the most time, plus the host
-    candidate draw timed alone."""
+def _profile_ask(bank, tag, n):
+    """One ``ask_all(n)`` under torch.profiler: wall time, device busy share
+    and the kernels and host ops that take the most time."""
     from torch.profiler import ProfilerActivity, profile
 
+    dev_time = "self_device_time_total"
+    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    with profile(activities=acts) as prof:
+        trials, wall = _timed_ask(bank, n)
+    ka = prof.key_averages()
+    busy = sum(getattr(e, dev_time) for e in ka) / 1e3
+    log(f"[profile] {tag}: wall {wall:.1f} ms under the profiler, "
+        f"device busy {busy:.2f} ms ({100 * busy / wall:.1f}% of wall)")
+    for e in sorted(ka, key=lambda e: -getattr(e, dev_time))[:8]:
+        log(f"[profile]   device {e.key[:56]:56s} "
+            f"{getattr(e, dev_time) / 1e3:9.3f} ms x{e.count}")
+    for e in sorted(ka, key=lambda e: -e.self_cpu_time_total)[:8]:
+        log(f"[profile]   host   {e.key[:56]:56s} "
+            f"{e.self_cpu_time_total / 1e3:9.3f} ms x{e.count}")
+    return trials
+
+
+def profile_path(bank, tpe_bank):
+    """``--profile``: where a fleet ask's time goes.  GP: one ask whose
+    observation stage is cached (the parity ask's trials and those left in
+    flight told failed), then one after real tells (refit, factors and
+    pick).  TPE: one ask of the pending-penalty fleet with a batch in
+    flight.  Prints the device busy share of each ask's wall time and the
+    kernels and host ops that take the most time, plus the host candidate
+    draw timed alone."""
     n = FLEET["batch"]
     n_mc = bank.mc_samples or bank.space.mc_samples(n)
     rng = np.random.default_rng(0)
@@ -484,28 +879,13 @@ def profile_path(bank):
     for b, v in enumerate(bank.studies):
         for t in v.pending_trials():
             bank.tell_failed(b, t.id)
-    dev_time = "self_device_time_total"
-    for tag in ("cached observation stage", "after tells: refit, factors"):
-        acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
-        with profile(activities=acts) as prof:
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            trials = bank.ask_all(n)
-            torch.cuda.synchronize()
-            wall = (time.perf_counter() - t0) * 1e3
-        ka = prof.key_averages()
-        busy = sum(getattr(e, dev_time) for e in ka) / 1e3
-        log(f"[profile] {tag}: wall {wall:.1f} ms under the profiler, "
-            f"device busy {busy:.2f} ms ({100 * busy / wall:.1f}% of wall)")
-        for e in sorted(ka, key=lambda e: -getattr(e, dev_time))[:8]:
-            log(f"[profile]   device {e.key[:56]:56s} "
-                f"{getattr(e, dev_time) / 1e3:9.3f} ms x{e.count}")
-        for e in sorted(ka, key=lambda e: -e.self_cpu_time_total)[:8]:
-            log(f"[profile]   host   {e.key[:56]:56s} "
-                f"{e.self_cpu_time_total / 1e3:9.3f} ms x{e.count}")
-        for b, ts in enumerate(trials):
-            for t in ts:
-                bank.tell(b, t.id, neg_hartmann6(t.params))
+    for tag in ("GP, cached observation stage",
+                "GP, after tells: refit, factors"):
+        _tell_all(bank, _profile_ask(bank, tag, n))
+    for b, v in enumerate(tpe_bank.studies):
+        for t in v.pending_trials()[:-n]:
+            tpe_bank.tell(b, t.id, neg_hartmann6(t.params))
+    _profile_ask(tpe_bank, f"TPE, {n} trials per study in flight", n)
 
 
 def main(argv) -> int:
@@ -521,14 +901,19 @@ def main(argv) -> int:
         f"device {torch.cuda.get_device_name(0)} "
         f"allow_tf32 matmul={torch.backends.cuda.matmul.allow_tf32} "
         f"cudnn={torch.backends.cudnn.allow_tf32}")
+    # one nvcc per suite, started together
     t0 = time.perf_counter()
-    lib = ops.library()
+    with ThreadPoolExecutor(max_workers=2) as pool:
+        lib, _ = [f.result() for f in [pool.submit(ops.library),
+                                       pool.submit(tpe_ops.library)]]
     log(f"[setup] built {build.library_path('gp_acquisition', ops.SOURCES)}"
-        f" in {time.perf_counter() - t0:.1f} s")
-    for line in build.ptxas_report("gp_acquisition",
-                                   ops.SOURCES).splitlines():
-        if "ptxas" in line:
-            log(f"[setup] {line.strip()}")
+        f" and {build.library_path('tpe_kde', tpe_ops.SOURCES)} in "
+        f"{time.perf_counter() - t0:.1f} s")
+    for name, sources in (("gp_acquisition", ops.SOURCES),
+                          ("tpe_kde", tpe_ops.SOURCES)):
+        for line in build.ptxas_report(name, sources).splitlines():
+            if "ptxas" in line:
+                log(f"[setup] {name}: {line.strip()}")
     for na, dp in ((16, 24), (256, 8), (1024, 8)):
         blocks = ctypes.c_int(0)
         err = lib.gp_score_cov_blocks_per_sm(na, dp, ctypes.byref(blocks))
@@ -539,18 +924,29 @@ def main(argv) -> int:
             "(negative: K streamed from global memory), "
             f"{blocks.value} blocks per SM (occupancy calculator)")
     recs = check_kernels(dev, reps_main=20)
+    recs.update(check_tpe_kernels(dev, reps_main=20))
     bank, launches = fleet_path(dev)
+    tpe_bank, launches["tpe_scores"] = tpe_fleet_path(dev)
+    launches["parzen_logdens"] = parzen_path(dev)
+    mixed_fleet_path(dev)
     tuner_path(dev)
-    parity_path(bank)
+    fig3_tpe_path(dev)
+    parity_path(bank, "gp", gp_oracle, "bank_absorb")
+    parity_path(tpe_bank, "tpe", tpe_oracle, "joined to the bad split")
     if "--profile" in argv:
-        profile_path(bank)
-    src = "src/repro_torch/kernels/gp_acquisition/csrc/gp_acquisition.cu"
-    replaces = {
-        "score_cov": "src/repro/kernels/gp_acquisition/gp_acquisition.py:71",
-        "var_downdate":
-            "src/repro/kernels/gp_acquisition/gp_acquisition.py:145"}
-    kernels = [dict(name=name, route="cuda", source=src,
-                    replaces=replaces[name], launches=launches[name],
+        profile_path(bank, tpe_bank)
+    gp_src = "src/repro_torch/kernels/gp_acquisition/csrc/gp_acquisition.cu"
+    tpe_src = "src/repro_torch/kernels/tpe_kde/csrc/tpe_kde.cu"
+    where = {
+        "score_cov": (gp_src, "src/repro/kernels/gp_acquisition/"
+                              "gp_acquisition.py:84"),
+        "var_downdate": (gp_src, "src/repro/kernels/gp_acquisition/"
+                                 "gp_acquisition.py:157"),
+        "tpe_scores": (tpe_src, "src/repro/kernels/tpe_kde/tpe_kde.py:70"),
+        "parzen_logdens": (tpe_src,
+                           "src/repro/kernels/tpe_kde/tpe_kde.py:114")}
+    kernels = [dict(name=name, route="cuda", source=where[name][0],
+                    replaces=where[name][1], launches=launches[name],
                     max_abs_err=r["max_abs_err"], ms=r["ms"],
                     plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
                     bound_by=r["bound_by"], library_ms=None)

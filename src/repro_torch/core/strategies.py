@@ -5,9 +5,11 @@
     object only marks that a GP is needed.
   * ``random``: a batch of valid random samples (the paper's third
     optimizer).
+  * ``tpe``: the Hyperopt baseline, registered by ``core.tpe``; its asks
+    are served by the StudyBank pipeline too.
 
-``tpe``, ``clustering`` and ``hallucination_ref`` exist in the JAX package
-and are not ported yet: asking for them raises.
+``clustering`` and ``hallucination_ref`` exist in the JAX package and are
+not ported yet: asking for them raises.
 """
 from __future__ import annotations
 
@@ -15,7 +17,7 @@ from typing import List
 
 import numpy as np
 
-_NOT_PORTED = ("tpe", "clustering", "hallucination_ref")
+_NOT_PORTED = ("clustering", "hallucination_ref")
 
 
 class BaseStrategy:

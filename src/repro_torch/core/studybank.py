@@ -1,18 +1,21 @@
 """StudyBank: many studies over one array ledger, one batched ask.
 
 The PyTorch counterpart of ``repro.core.studybank`` for the GP-BUCB family
-(``bayesian`` / ``hallucination``) and the random strategy.
+(``bayesian`` / ``hallucination``), TPE and the random strategy.
 
   * ``StudyLedger`` holds every study's trial ledger in fixed-capacity numpy
     arrays (encoded X rows, raw y, status, completion order), counters, RNG
     state, GP hyperparameters and fit schedule, and the last Cholesky factors.
     ``AskTellOptimizer`` is a view into one row.
-  * ``StudyBank.ask_all`` gathers every GP study into shape-bucketed device
-    tensors (power-of-2 trial capacity) and serves them in one batched pass:
-    ``gp.fit_hypers_bank`` when a refit is due, ``gp.bank_factors``, the
-    prescales, ``gp.bank_absorb`` for in-flight trials, and ``gp.bank_pick``,
-    whose scoring and downdates run the CUDA kernels on the card.  The
-    observation stage is cached on the ledger's ``obs_stamp``.
+  * ``StudyBank.ask_all`` gathers every device-phase study into
+    shape-bucketed tensors (power-of-2 trial capacity) and serves them
+    sub-batched per strategy family over one columnar candidate draw.  GP
+    rows: ``gp.fit_hypers_bank`` when a refit is due, ``gp.bank_factors``,
+    the prescales, ``gp.bank_absorb`` for in-flight trials, and
+    ``gp.bank_pick``, whose scoring and downdates run the CUDA kernels on
+    the card; their observation stage is cached on the ledger's
+    ``obs_stamp``.  TPE rows: ``tpe.fused_tpe_propose_bank``, whose scorer
+    is the ``tpe_scores`` CUDA kernel.  A bank may mix the families.
   * ``save``/``load`` write and read the same single ``.npz`` (format v2)
     as the JAX package, byte for byte, so a checkpoint moves across.
 
@@ -47,11 +50,13 @@ def _pow2(n: int) -> int:
     return p
 
 
-# strategy name -> dispatch family.  "gp" studies ask through the batched
-# device pipeline; "random" studies ask through their own view.
+# strategy name -> dispatch family.  "gp" and "tpe" studies ask through the
+# batched device pipeline (each family its own pick); "random" studies ask
+# through their own view.
 _FAMILY = {
     "bayesian": "gp",
     "hallucination": "gp",
+    "tpe": "tpe",
     "random": "random",
 }
 
@@ -320,7 +325,7 @@ class StudyBank:
         self._gp_pos = {int(r): i for i, r in enumerate(gpr)}
         bankable = np.zeros(self.ledger.n_studies, bool)
         for b, f in fams.items():
-            bankable[b] = f == "gp"
+            bankable[b] = f in ("gp", "tpe")
         self._bankable = bankable
         self._gp_cache = None
 
@@ -445,7 +450,8 @@ class StudyBank:
 
         Studies still in the random phase (< 2 observations) or with the
         random strategy ask through their own view; every other study is
-        served by one batched device pass.  Returns
+        served by the batched device pipeline, one pass per strategy
+        family.  Returns
         ``[trials_of_study_0, ...]``.
         """
         if n < 1:
@@ -485,9 +491,10 @@ class StudyBank:
         return out
 
     def _ask_device(self, n: int, n_obs: np.ndarray, device: np.ndarray):
-        """One columnar candidate draw for the whole bank, one batched pick
-        for the device-phase GP studies; returns ``{study: (configs,
-        encoded_rows)}``."""
+        """Per-family sub-batched dispatch over one columnar candidate draw;
+        returns ``{study: (configs, encoded_rows)}`` for every device-phase
+        study.  GP rows share the cached observation stage; each family
+        pays one pick pass and one exit sync."""
         led, space = self.ledger, self.space
         B, d = led.n_studies, led.dim
         k_obs = n_obs.astype(np.int32)
@@ -498,16 +505,34 @@ class StudyBank:
         cols = space.sample_columns(B * n_mc, self._rng)
         Cflat = np.asarray(space.encode_columns(cols, B * n_mc), np.float32)
         C = Cflat.reshape(B, n_mc, d)
-        rows = np.nonzero(device)[0].astype(np.int64)
+        dev = np.nonzero(device)[0]
+        picks: Dict[int, tuple] = {}
+        for fam in ("gp", "tpe"):
+            rows = np.array([int(b) for b in dev if self._fams[int(b)] == fam],
+                            np.int64)
+            if not len(rows):
+                continue
+            idx = self._pick_family(fam, rows, C[rows], k_obs, k_pend, n, na,
+                                    pend_cap)
+            idx = idx.cpu().numpy()               # one exit sync per family
+            flat = (rows[:, None] * n_mc + idx).astype(np.int64)  # (R, n)
+            cfgs = space.configs_at(cols, flat.ravel())
+            enc = Cflat[flat.ravel()].reshape(len(rows), -1, Cflat.shape[1])
+            for i, b in enumerate(rows):
+                picks[int(b)] = (cfgs[i * n:(i + 1) * n], enc[i])
+        return picks
+
+    def _pick_family(self, fam, rows, C, k_obs, k_pend, n, na, pend_cap):
+        """One family's pick for the ``rows`` sub-batch: (R, n) candidate
+        indices on the device."""
+        if fam == "tpe":
+            Xd, yraw, _ = self._gather_obs(k_obs[rows], na, rows)
+            Pd = self._gather_pend(k_pend[rows], pend_cap, rows)
+            return self._dispatch_tpe(Xd, yraw, Pd, C, k_obs[rows],
+                                      k_pend[rows], n, na)
         cache = self._obs_stage(k_obs, na)
-        idx = self._pick_gp(cache, rows, C[rows], k_obs[rows], k_pend[rows],
-                            n, pend_cap)
-        idx = idx.cpu().numpy()                   # the one exit sync
-        flat = (rows[:, None] * n_mc + idx).astype(np.int64)   # (R, n)
-        cfgs = space.configs_at(cols, flat.ravel())
-        enc = Cflat[flat.ravel()].reshape(len(rows), -1, Cflat.shape[1])
-        return {int(b): (cfgs[i * n:(i + 1) * n], enc[i])
-                for i, b in enumerate(rows)}
+        return self._pick_gp(cache, rows, C, k_obs[rows], k_pend[rows], n,
+                             pend_cap)
 
     def ask_view(self, view, n: int, cols, n_mc: int):
         """Bank-of-one ask: one view's proposal served by the bucketed
@@ -523,9 +548,8 @@ class StudyBank:
         Cflat = np.asarray(space.encode_columns(cols, n_mc), np.float32)
         C = Cflat.reshape(1, n_mc, led.dim)
         rows = np.array([b], np.int64)
-        cache = self._obs_stage(k_obs, na)
-        idx = self._pick_gp(cache, rows, C, k_obs[rows], k_pend[rows], n,
-                            pend_cap)
+        idx = self._pick_family(self._fams[b], rows, C, k_obs, k_pend, n, na,
+                                pend_cap)
         idx = idx.cpu().numpy()[0].astype(np.int64)
         return space.configs_at(cols, idx), Cflat[idx]
 
@@ -713,6 +737,38 @@ class StudyBank:
         dom = t(np.float32(self._members[int(rows[0])].domain_size))
         return gp_lib.bank_pick(Cs, Xs, z, maskd, L, Linv, var, noise,
                                 n_eff, dom, batch_size=n)
+
+    def _dispatch_tpe(self, Xd, yraw, Pd, C, k_obs, k_pend, n, na):
+        """TPE pick for a sub-batch: lay each study out as observed rows,
+        then pending rows, then zeros (the layout the ``tpe_scores`` kernel
+        relies on to stop at n_obs + n_pend), and run the fused proposal.
+        ``gamma`` and ``pending_penalty`` come from ``strategy_kwargs``."""
+        from repro_torch.core import tpe as tpe_lib
+        from repro_torch.kernels.tpe_kde.ops import pad_dims
+        d = self.ledger.dim
+        R = Xd.shape[0]
+        dp = pad_dims(d)
+        Xt = np.zeros((R, na, dp), np.float32)
+        yt = np.zeros((R, na), np.float32)
+        for i in range(R):
+            ko, kp = int(k_obs[i]), int(k_pend[i])
+            Xt[i, :ko, :d] = Xd[i, :ko]
+            yt[i, :ko] = yraw[i, :ko]
+            if kp:
+                Xt[i, ko:ko + kp, :d] = Pd[i, :kp]
+        S = C.shape[1]
+        gamma = self.strategy_kwargs.get("gamma", 0.25)
+        pending_penalty = self.strategy_kwargs.get("pending_penalty", False)
+        kp_eff = k_pend if pending_penalty else np.zeros_like(k_pend)
+        meta = np.stack([k_obs.astype(np.float32),
+                         kp_eff.astype(np.float32),
+                         np.full((R,), S, np.float32),
+                         np.full((R,), gamma, np.float32)], axis=1)
+        t = self._tensor
+        # candidates go up unpadded and gain their zero columns on the device
+        Ct = torch.nn.functional.pad(t(C), (0, dp - d)).contiguous()
+        return tpe_lib.fused_tpe_propose_bank(
+            t(Xt), t(yt), Ct, t(meta), batch_size=n, d_true=d)
 
     # ---------------------------------------------------------- checkpoint
     def state_dict(self) -> Dict[str, Any]:

@@ -1,0 +1,27 @@
+"""Argument checks shared by the kernel wrappers: a wrapper validates every
+tensor on the host before it hands a pointer to a kernel."""
+from __future__ import annotations
+
+import torch
+
+MAX_DP = 128
+
+
+def check_tensor(name: str, t: torch.Tensor, shape, device: torch.device,
+                 dtype=torch.float32) -> None:
+    if t.device != device:
+        raise ValueError(f"{name} is on {t.device}, expected {device}")
+    if t.dtype != dtype:
+        raise TypeError(f"{name} has dtype {t.dtype}, expected {dtype}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name} has shape {tuple(t.shape)}, "
+                         f"expected {tuple(shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+
+
+def check_dp(dp: int) -> None:
+    if dp % 8 or not 0 < dp <= MAX_DP:
+        raise ValueError(f"padded dim {dp} must be a multiple of 8 in "
+                         f"[8, {MAX_DP}]")
+

@@ -15,10 +15,11 @@ from pathlib import Path
 import torch
 
 from repro_torch.kernels import build
+from repro_torch.kernels.checks import check_dp as _check_dp
+from repro_torch.kernels.checks import check_tensor as _check
 from repro_torch.kernels.gp_acquisition import ref
 
 SOURCES = (Path(__file__).resolve().parent / "csrc" / "gp_acquisition.cu",)
-MAX_DP = 128
 
 launches = {"score_cov": 0, "var_downdate": 0}
 
@@ -41,25 +42,6 @@ def library() -> ctypes.CDLL:
         lib.gp_error_string.restype = ctypes.c_char_p
         lib._typed = True
     return lib
-
-
-def _check(name: str, t: torch.Tensor, shape, device: torch.device,
-           dtype=torch.float32) -> None:
-    if t.device != device:
-        raise ValueError(f"{name} is on {t.device}, expected {device}")
-    if t.dtype != dtype:
-        raise TypeError(f"{name} has dtype {t.dtype}, expected {dtype}")
-    if tuple(t.shape) != tuple(shape):
-        raise ValueError(f"{name} has shape {tuple(t.shape)}, "
-                         f"expected {tuple(shape)}")
-    if not t.is_contiguous():
-        raise ValueError(f"{name} must be contiguous")
-
-
-def _check_dp(dp: int) -> None:
-    if dp % 8 or not 0 < dp <= MAX_DP:
-        raise ValueError(f"padded dim {dp} must be a multiple of 8 in "
-                         f"[8, {MAX_DP}]")
 
 
 def _raise_on(lib: ctypes.CDLL, err: int, what: str) -> None:

@@ -10,6 +10,7 @@ import torch
 from scipy import stats
 
 import repro_torch.core as T
+from repro_torch.scheduler import SerialScheduler
 
 ROOT = Path(__file__).resolve().parents[1]
 SPACE = {"x": stats.uniform(0, 1), "y": stats.uniform(-1, 2)}
@@ -29,15 +30,18 @@ _BLOCKED_RUN = textwrap.dedent("""
     import repro_torch, repro_torch.core, repro_torch.convert
     import repro_torch.scheduler, repro_torch.device
     import repro_torch.kernels.gp_acquisition.ops
+    import repro_torch.kernels.tpe_kde.ops
+    import repro_torch.core.tpe, repro_torch.core.async_tuner
     import chip_smoke
     from repro_torch.core import StudyBank
-    bank = StudyBank(chip_smoke.hartmann_space(), 2, seed=1, mc_samples=50,
-                     device="cpu")
-    for b in range(2):
-        for i in range(4):
-            p = {{f"x{{j}}": (i + j + b) / 10 for j in range(6)}}
-            bank.study(b).observe_params(p, chip_smoke.neg_hartmann6(p))
-    assert all(len(t) == 2 for t in bank.ask_all(2))
+    for opt in ("bayesian", "tpe", ["bayesian", "tpe"]):
+        bank = StudyBank(chip_smoke.hartmann_space(), 2, seed=1,
+                         mc_samples=50, optimizer=opt, device="cpu")
+        for b in range(2):
+            for i in range(4):
+                p = {{f"x{{j}}": (i + j + b) / 10 for j in range(6)}}
+                bank.study(b).observe_params(p, chip_smoke.neg_hartmann6(p))
+        assert all(len(t) == 2 for t in bank.ask_all(2))
     bad = [m for m in sys.modules
            if m.split(".")[0] in ("jax", "jaxlib", "repro")]
     assert not bad, bad
@@ -57,7 +61,9 @@ def test_port_and_smoke_import_no_jax_or_repro():
     lambda: T.StudyBank(SPACE, 2),
     lambda: T.AskTellOptimizer(SPACE),
     lambda: T.Tuner(SPACE, lambda ps: [0.0] * len(ps)),
-], ids=["StudyBank", "AskTellOptimizer", "Tuner"])
+    lambda: T.AsyncTuner(SPACE, lambda p: 0.0, SerialScheduler(),
+                         optimizer="tpe"),
+], ids=["StudyBank", "AskTellOptimizer", "Tuner", "AsyncTuner"])
 def test_entry_points_default_to_cuda_and_never_fall_back(make):
     """With no ``device`` an entry point runs on the card; without a card it
     raises instead of running on the CPU."""
@@ -76,8 +82,9 @@ def test_cpu_is_used_only_when_asked():
     assert all(v.device.type == "cpu" for v in bank.studies)
 
 
-def test_kernel_wrappers_have_no_fallback():
+@pytest.mark.parametrize("suite", ["gp_acquisition", "tpe_kde"])
+def test_kernel_wrappers_have_no_fallback(suite):
     """A CUDA tensor reaches the kernel or an exception: the dispatch code
     holds no ``try`` around a launch."""
-    src = (ROOT / "src/repro_torch/kernels/gp_acquisition/ops.py").read_text()
+    src = (ROOT / f"src/repro_torch/kernels/{suite}/ops.py").read_text()
     assert "try:" not in src and "except" not in src

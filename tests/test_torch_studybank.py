@@ -265,7 +265,7 @@ def test_rng_state_pack_roundtrip():
     assert clone.bit_generator.state == rng.bit_generator.state
 
 
-@pytest.mark.parametrize("name", ["tpe", "clustering", "hallucination_ref"])
+@pytest.mark.parametrize("name", ["clustering", "hallucination_ref"])
 def test_unported_strategies_raise(name):
     with pytest.raises(ValueError, match="not ported yet"):
         T.AskTellOptimizer(SPACE, optimizer=name, device="cpu")
