@@ -3,14 +3,18 @@
 
     python3 chip_smoke.py                 # every phase; needs one CUDA card
     python3 chip_smoke.py --profile       # every phase, then profiled asks
+                                          # and serving steps
 
 Phases:
-  1. setup: card name and power limit, build the CUDA kernels of both suites
-     (``src/repro_torch/kernels/{gp_acquisition,tpe_kde}/csrc``) with nvcc
-     (sm_90a) and print what ptxas says about them;
-  2. each kernel against its plain PyTorch version on the card, at the fleet
-     path's shapes, at a ragged small shape and at a large bucket, with
-     timings;
+  1. setup: card name and power limit, build the CUDA kernels of the three
+     suites (``src/repro_torch/kernels/{gp_acquisition,tpe_kde,
+     flash_attention}/csrc``) with nvcc (sm_90a), one nvcc each, started
+     together, and print what ptxas says about them;
+  2. each kernel against its plain PyTorch version on the card, with
+     timings: the tuner kernels at the fleet path's shapes, at a ragged
+     small shape and at a large bucket; flash attention at the served
+     models' prefill shapes, yi-34b's width, a ragged and a cross shape,
+     beside ``scaled_dot_product_attention`` as a yardstick;
   3. the GP fleet: a 64-study ``StudyBank`` over Hartmann-6 with the default
      candidate budget, 200 observations each, three rounds of ask_all(4) ->
      tell, with the kernels' launch counts read around the run;
@@ -25,7 +29,15 @@ Phases:
   7. one full-size ask, with a batch of trials in flight, from the phase-3
      (GP) and phase-4 (TPE) states on the card and on the CPU (plain
      versions); picks must agree except on near-ties, judged by float64
-     numpy evaluations of the same surfaces.
+     numpy evaluations of the same surfaces;
+  8. serving (``repro_torch.launch.serve.run``), bf16, full width and depth:
+     smollm-135m at B 8 with a 1024-token and a ragged 1000-token prompt,
+     phi3-mini-3.8b at B 4 with a 2048-token prompt, 32 generated tokens
+     each; the flash kernel launches once per layer in prefill and never in
+     decode;
+  9. fp32 smollm-135m (full width and depth) on the card and on the CPU
+     plain path from the same parameters: logits within a tolerance, greedy
+     picks equal except on near-ties.
 
 The second-to-last line is a JSON object with one entry per kernel; the last
 line is ``{"ok": true, "device": {...}}``.  Any failure exits non-zero before
@@ -49,20 +61,29 @@ sys.path.insert(0, str(ROOT / "src"))
 
 import torch  # noqa: E402
 
+from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.core import AsyncTuner, StudyBank, Tuner  # noqa: E402
 from repro_torch.core import gp as gp_lib  # noqa: E402
 from repro_torch.core import scoring  # noqa: E402
 from repro_torch.kernels import build  # noqa: E402
+from repro_torch.kernels.flash_attention import ops as flash_ops  # noqa
+from repro_torch.kernels.flash_attention import ref as flash_ref  # noqa
 from repro_torch.kernels.gp_acquisition import ops, ref  # noqa: E402
 from repro_torch.kernels.tpe_kde import ops as tpe_ops  # noqa: E402
 from repro_torch.kernels.tpe_kde import ref as tpe_ref  # noqa: E402
+from repro_torch.launch import serve  # noqa: E402
+from repro_torch.models import (Runtime, forward_decode,  # noqa: E402
+                                forward_prefill, init_params)
 from repro_torch.scheduler import SerialScheduler  # noqa: E402
+from repro_torch.train.step import (make_decode_step,  # noqa: E402
+                                    make_prefill_step)
 
 # H100 SXM peaks (NVIDIA data sheet): fp32 outside the tensor cores, HBM3,
 # and the special-function units (16 exponentials per clock per SM, CUDA
 # programming guide's arithmetic-instruction throughput table for compute
 # capability 9.0) at the 1,980 MHz maximum boost clock on 132 SMs
 PEAK_FP32 = 67e12
+PEAK_BF16 = 989e12   # dense bf16 tensor-core rate
 PEAK_BYTES = 3.35e12
 SM_CLOCK_HZ = 1.98e9
 PEAK_EXP = 16 * 132 * SM_CLOCK_HZ
@@ -544,6 +565,246 @@ def check_tpe_kernels(dev, reps_main: int):
 
 
 # --------------------------------------------------------------------------- #
+# flash attention (phase 2)
+# --------------------------------------------------------------------------- #
+# (tag, B, Sq, Sk, H, KV, hd, causal, dtype): the prefill shapes of the two
+# served models, yi-34b's attention width, a ragged length and a
+# cross-attention shape
+FLASH_SHAPES = [
+    ("smollm-135m prefill", 8, 1024, 1024, 9, 3, 64, True, torch.bfloat16),
+    ("phi3-mini-3.8b prefill", 4, 2048, 2048, 32, 32, 96, True,
+     torch.bfloat16),
+    ("yi-34b width", 1, 4096, 4096, 56, 8, 128, True, torch.bfloat16),
+    ("ragged causal", 2, 1000, 1000, 9, 3, 64, True, torch.float32),
+    ("cross, non-causal", 2, 77, 300, 4, 2, 32, False, torch.float32),
+]
+FLASH_MAIN = "phi3-mini-3.8b prefill"   # the shape of the kernels line
+# small shapes for the card test (tests/test_torch_models.py): GQA bf16,
+# ragged fp32 at hd 96, MQA at hd 128, causal Sq < Sk at a reduced head size
+FLASH_CARD_TEST_SHAPES = [
+    ("bf16-gqa-hd64", 2, 256, 256, 9, 3, 64, True, torch.bfloat16),
+    ("fp32-ragged-hd96", 1, 1000, 1000, 4, 4, 96, True, torch.float32),
+    ("bf16-mqa-hd128", 1, 300, 300, 8, 1, 128, True, torch.bfloat16),
+    ("fp32-rect-causal-hd24", 2, 77, 300, 4, 2, 24, True, torch.float32),
+]
+
+
+def flash_inputs(shape, dev, seed=0):
+    _, B, Sq, Sk, H, KV, hd, causal, dtype = shape
+    g = torch.Generator(device=dev).manual_seed(seed)
+
+    def randn(*size):
+        return torch.randn(size, generator=g, device=dev).to(dtype)
+
+    return randn(B, Sq, H, hd), randn(B, Sk, KV, hd), randn(B, Sk, KV, hd)
+
+
+def flash_error(shape, dev, seed=0):
+    """The kernel against its plain version on the same inputs at one shape.
+    Returns (max_abs_err, tolerance, (q, k, v)).
+
+    Tolerance.  fp32: 2e-5, the JAX package's own tolerance for this kernel;
+    both versions compute in fp32 and differ only in the order of their
+    sums and in where 1/sqrt(hd) is applied.  bf16: both round an fp32
+    result to bf16, which differs by one bf16 ulp where the two fp32 values
+    straddle a rounding boundary: 2^-7 of the largest output, plus the fp32
+    tolerance."""
+    q, k, v = flash_inputs(shape, dev, seed)
+    causal = shape[7]
+    got = flash_ops.sdpa(q, k, v, causal=causal)
+    want = flash_ref.attention_ref(q, k, v, causal=causal)
+    assert bool(torch.isfinite(got).all())
+    err = _max_err(got.float(), want.float())
+    tol = 2e-5
+    if q.dtype == torch.bfloat16:
+        tol += 2.0 ** -7 * float(want.float().abs().max())
+    return err, tol, (q, k, v)
+
+
+def flash_bound(shape):
+    """Least time for one call: 4 B H hd flops per unmasked (q, k) pair
+    (two products of hd multiply-adds) over the dense bf16 tensor-core rate
+    (the fp32 rate for fp32 inputs), and q, k, v read once and the output
+    written once over the memory rate.  Returns (bound_ms, by, flops,
+    bytes)."""
+    _, B, Sq, Sk, H, KV, hd, causal, dtype = shape
+    if causal:
+        rows = np.arange(Sq) + (Sk - Sq) + 1
+        pairs = int(np.minimum(rows, Sk).sum())
+    else:
+        pairs = Sq * Sk
+    flops = 4.0 * B * H * hd * pairs
+    es = 2 if dtype == torch.bfloat16 else 4
+    nbytes = es * (2 * B * Sq * H * hd + 2 * B * Sk * KV * hd)
+    t_ops = flops / (PEAK_BF16 if dtype == torch.bfloat16 else PEAK_FP32)
+    t_bytes = nbytes / PEAK_BYTES
+    return (max(t_ops, t_bytes) * 1e3,
+            "operations" if t_ops >= t_bytes else "bytes", flops, nbytes)
+
+
+def library_sdpa(q, k, v, causal):
+    """``scaled_dot_product_attention`` on the same inputs in its own
+    (B, H, S, hd) layout, KV heads grouped by the call; a yardstick timed
+    here only, never called by the port."""
+    import torch.nn.functional as F
+    qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+    return lambda: F.scaled_dot_product_attention(
+        qt, kt, vt, is_causal=causal, enable_gqa=True)
+
+
+def check_flash_kernel(dev, reps_main: int):
+    """Phase 2, flash attention: the kernel against its plain version at
+    the five shapes of ``FLASH_SHAPES``, each timed beside the plain version,
+    the library call and the bound.  Returns the record of the kernels line
+    (worst error over all shapes; times and bound at ``FLASH_MAIN``)."""
+    rec = {"max_abs_err": 0.0}
+    for shape in FLASH_SHAPES:
+        tag, B, Sq, Sk, H, KV, hd, causal, dtype = shape
+        err, tol, (q, k, v) = flash_error(shape, dev)
+        torch.cuda.synchronize()
+        ok = err <= tol
+        desc = (f"B={B} Sq={Sq} Sk={Sk} H={H} KV={KV} hd={hd} "
+                f"{'causal' if causal else 'non-causal'} "
+                f"{str(dtype).split('.')[-1]}")
+        log(f"[flash] {tag} {desc}: max_abs_err={err:.3e} tol={tol:.3e} "
+            f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"flash {tag} outside tolerance")
+        rec["max_abs_err"] = max(rec["max_abs_err"], err)
+        ms = cuda_ms(lambda: flash_ops.sdpa(q, k, v, causal=causal),
+                     reps_main)
+        plain = cuda_ms(lambda: flash_ref.attention_ref(q, k, v,
+                                                        causal=causal),
+                        3, warmup=1)
+        lib = cuda_ms(library_sdpa(q, k, v, causal), reps_main)
+        b_ms, by, flops, nbytes = flash_bound(shape)
+        log(f"[flash] {tag}: kernel {ms:.4f} ms, plain {plain:.4f} ms, "
+            f"library {lib:.4f} ms, bound {b_ms:.4f} ms ({by}: "
+            f"{flops / 1e9:.2f} GFLOP at "
+            f"{'989 (bf16 tensor)' if dtype == torch.bfloat16 else '67 (fp32)'}"
+            f" TFLOP/s, {nbytes / 1e6:.1f} MB at 3.35 TB/s); kernel at "
+            f"{flops / ms / 1e9:.1f} TFLOP/s")
+        if tag == FLASH_MAIN:
+            rec.update(ms=ms, plain_ms=plain, library_ms=lib, bound_ms=b_ms,
+                       bound_by=by)
+        del q, k, v
+    return rec
+
+
+# --------------------------------------------------------------------------- #
+# serving (phases 8-9)
+# --------------------------------------------------------------------------- #
+# (arch, batch, prompt length, generated tokens), bf16, full width and depth
+SERVE = [("smollm-135m", 8, 1024, 32), ("smollm-135m", 8, 1000, 32),
+         ("phi3-mini-3.8b", 4, 2048, 32)]
+# fp32 card-vs-CPU parity: logits within LOGIT_TOL, absolute, on logits of
+# scale ~4: 30 layers of fp32 sums in cuBLAS's, the kernel's and the CPU's
+# orders move a logit by ~1e-5 of its scale; greedy tokens equal unless
+# the CPU's top-2 gap is below NEAR_TIE_LOGIT
+PARITY = dict(arch="smollm-135m", B=2, P=128, gen=8)
+LOGIT_TOL = 1e-4
+NEAR_TIE_LOGIT = 2 * LOGIT_TOL
+
+
+def serve_path(dev):
+    """Phase 8: serve each ``SERVE`` entry through ``launch.serve.run`` in
+    bf16 at full width and depth.  The flash counter is set to 0 just
+    before each run and read just after: one launch per layer in prefill,
+    none in decode.  Returns the launches of all runs."""
+    total = 0
+    for arch, B, P, gen in SERVE:
+        n_layers = get_config(arch).n_layers
+        args = serve.make_parser().parse_args(
+            ["--arch", arch, "--batch", str(B), "--prompt-len", str(P),
+             "--gen", str(gen)])
+        torch.cuda.reset_peak_memory_stats(dev)
+        flash_ops.launches["flash_attention"] = 0
+        r = serve.run(args)
+        n = flash_ops.launches["flash_attention"]
+        mem = torch.cuda.max_memory_allocated(dev)
+        log(f"[serve] {arch} bf16 B={B} prompt={P} gen={gen}: prefill "
+            f"{r['prefill_s'] * 1e3:.2f} ms ({B * P / r['prefill_s']:.0f} "
+            f"prompt tokens/s), decode {r['decode_s'] * 1e3:.2f} ms for "
+            f"{gen - 1} steps ({r['decode_tok_s']:.1f} tokens/s), peak "
+            f"memory {mem / 2**30:.2f} GiB, flash launches prefill "
+            f"{r['flash_launches']['prefill']} decode "
+            f"{r['flash_launches']['decode']} (layers {n_layers}), "
+            f"generated {r['generated_shape']}, sample {r['sample']}")
+        if r["flash_launches"] != {"prefill": n_layers, "decode": 0} or \
+                n != n_layers:
+            raise AssertionError(f"{arch}: {n} flash launches, expected one "
+                                 f"per layer ({n_layers}) in prefill only")
+        if not r["logits_finite"] or r["generated_shape"] != [B, gen]:
+            raise AssertionError(f"{arch}: non-finite logits or wrong shape")
+        total += n
+    return total
+
+
+def _to_device(tree, dev):
+    if isinstance(tree, dict):
+        return {k: _to_device(v, dev) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_to_device(v, dev) for v in tree]
+    return tree.to(dev)
+
+
+def _greedy(params, tokens, cfg, rt, steps, forced=None):
+    """Prefill, then ``steps`` greedy decode steps; feeds ``forced`` (B,
+    steps) tokens instead of its own picks where given.  Returns the
+    logits (steps + 1, B, V) as float64 numpy and the picks (steps + 1,
+    B)."""
+    B, P = tokens.shape
+    logits, cache = forward_prefill(params, {"tokens": tokens}, cfg, rt,
+                                    cache_size=P + steps)
+    out = [logits]
+    for i in range(steps):
+        tok = logits.argmax(-1) if forced is None else forced[:, i]
+        logits, cache = forward_decode(params, tok.int()[:, None], cache,
+                                       P + i, cfg, rt)
+        out.append(logits)
+    lg = torch.stack(out).double().cpu().numpy()[..., :cfg.vocab_size]
+    return lg, lg.argmax(-1)
+
+
+def serve_parity_path(dev):
+    """Phase 9: fp32 smollm-135m at full width and depth from the same
+    generator-made parameters on the card and on the CPU plain path.  The
+    CPU decodes greedily; the card is fed the CPU's picks, so both compute
+    on the same tokens at every step.  Logits must agree within LOGIT_TOL
+    and the card's picks equal the CPU's except on near-ties."""
+    cfg = get_config(PARITY["arch"])
+    rt = Runtime(param_dtype=torch.float32, compute_dtype=torch.float32)
+    params = init_params(torch.Generator(device=dev).manual_seed(0), cfg, rt)
+    params_cpu = _to_device(params, torch.device("cpu"))
+    B, P, steps = PARITY["B"], PARITY["P"], PARITY["gen"] - 1
+    tokens = torch.as_tensor(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (B, P), dtype=np.int32))
+    t0 = time.perf_counter()
+    lg_cpu, pick_cpu = _greedy(params_cpu, tokens, cfg, rt, steps)
+    t_cpu = time.perf_counter() - t0
+    flash_ops.launches["flash_attention"] = 0
+    lg_gpu, pick_gpu = _greedy(params, tokens.to(dev), cfg, rt, steps,
+                               forced=torch.as_tensor(pick_cpu[:steps].T,
+                                                      device=dev))
+    if flash_ops.launches["flash_attention"] != cfg.n_layers:
+        raise AssertionError("the card's prefill missed the flash kernel")
+    err = float(np.abs(lg_gpu - lg_cpu).max())
+    top2 = np.sort(lg_cpu, axis=-1)[..., -2:]
+    gap = top2[..., 1] - top2[..., 0]
+    differ = pick_gpu != pick_cpu
+    ties = int((differ & (gap < NEAR_TIE_LOGIT)).sum())
+    bad = int((differ & (gap >= NEAR_TIE_LOGIT)).sum())
+    log(f"[serve-parity] {PARITY['arch']} fp32 B={B} prompt={P} "
+        f"steps={steps + 1}: max |logit| {np.abs(lg_cpu).max():.3f}, max "
+        f"card-vs-cpu logit error {err:.3e} (tol {LOGIT_TOL:.0e}), picks "
+        f"{int((~differ).sum())}/{differ.size} equal, near-ties {ties}, "
+        f"disagreements {bad}, smallest top-2 gap {gap.min():.3e}; CPU "
+        f"path {t_cpu:.1f} s")
+    if err > LOGIT_TOL or bad:
+        raise AssertionError("card and CPU disagree beyond tolerance")
+
+
+# --------------------------------------------------------------------------- #
 # phases 3-7
 # --------------------------------------------------------------------------- #
 def seeded_fleet(device, seed=0, **bank_kw):
@@ -838,15 +1099,25 @@ def parity_path(bank, tag, oracle_for, taken_in_by):
                              "near-ties")
 
 
-def _profile_ask(bank, tag, n):
-    """One ``ask_all(n)`` under torch.profiler: wall time, device busy share
-    and the kernels and host ops that take the most time."""
+def _profiled(fn):
+    """``fn()`` under torch.profiler; returns (its result, the wall ms, the
+    profiler)."""
     from torch.profiler import ProfilerActivity, profile
 
-    dev_time = "self_device_time_total"
     acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
     with profile(activities=acts) as prof:
-        trials, wall = _timed_ask(bank, n)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    return out, wall, prof
+
+
+def _report_profile(prof, wall, tag):
+    """Device busy share of ``wall`` and the kernels and host ops that take
+    the most time."""
+    dev_time = "self_device_time_total"
     ka = prof.key_averages()
     busy = sum(getattr(e, dev_time) for e in ka) / 1e3
     log(f"[profile] {tag}: wall {wall:.1f} ms under the profiler, "
@@ -857,7 +1128,38 @@ def _profile_ask(bank, tag, n):
     for e in sorted(ka, key=lambda e: -e.self_cpu_time_total)[:8]:
         log(f"[profile]   host   {e.key[:56]:56s} "
             f"{e.self_cpu_time_total / 1e3:9.3f} ms x{e.count}")
+
+
+def _profile_ask(bank, tag, n):
+    """One ``ask_all(n)`` under torch.profiler."""
+    trials, wall, prof = _profiled(lambda: bank.ask_all(n))
+    _report_profile(prof, wall, tag)
     return trials
+
+
+def profile_serve(dev):
+    """``--profile``: where a serving step's time goes.  smollm-135m, bf16,
+    B 8, a 1024-token prompt (phase 8's first shape): after one untimed
+    prefill, one prefill and then three decode steps under the profiler."""
+    arch, B, P, _ = SERVE[0]
+    cfg, rt = get_config(arch), Runtime()
+    params = init_params(torch.Generator(device=dev).manual_seed(0), cfg, rt)
+    tokens = torch.as_tensor(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (B, P), dtype=np.int32), device=dev)
+    prefill = make_prefill_step(cfg, rt, cache_size=P + 4)
+    decode = make_decode_step(cfg, rt)
+    prefill(params, {"tokens": tokens})
+    (tok, cache, _), wall, prof = _profiled(
+        lambda: prefill(params, {"tokens": tokens}))
+    _report_profile(prof, wall, f"{arch} prefill B={B} prompt={P}")
+
+    def steps():
+        t, c = tok, cache
+        for i in range(3):
+            t, c, _ = decode(params, t[:, None], c, P + i)
+
+    _, wall, prof = _profiled(steps)
+    _report_profile(prof, wall, f"{arch} 3 decode steps B={B}")
 
 
 def profile_path(bank, tpe_bank):
@@ -902,18 +1204,23 @@ def main(argv) -> int:
         f"allow_tf32 matmul={torch.backends.cuda.matmul.allow_tf32} "
         f"cudnn={torch.backends.cudnn.allow_tf32}")
     # one nvcc per suite, started together
+    suites = (("gp_acquisition", ops), ("tpe_kde", tpe_ops),
+              ("flash_attention", flash_ops))
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(max_workers=2) as pool:
-        lib, _ = [f.result() for f in [pool.submit(ops.library),
-                                       pool.submit(tpe_ops.library)]]
-    log(f"[setup] built {build.library_path('gp_acquisition', ops.SOURCES)}"
-        f" and {build.library_path('tpe_kde', tpe_ops.SOURCES)} in "
-        f"{time.perf_counter() - t0:.1f} s")
-    for name, sources in (("gp_acquisition", ops.SOURCES),
-                          ("tpe_kde", tpe_ops.SOURCES)):
-        for line in build.ptxas_report(name, sources).splitlines():
+    with ThreadPoolExecutor(max_workers=len(suites)) as pool:
+        lib, _, flash_lib = [f.result() for f in [
+            pool.submit(mod.library) for _, mod in suites]]
+    log("[setup] built " + ", ".join(
+        str(build.library_path(name, mod.SOURCES)) for name, mod in suites)
+        + f" in {time.perf_counter() - t0:.1f} s")
+    for name, mod in suites:
+        for line in build.ptxas_report(name, mod.SOURCES).splitlines():
             if "ptxas" in line:
                 log(f"[setup] {name}: {line.strip()}")
+    log("[setup] flash_attention dynamic shared memory per block at hd "
+        "32/64/96/128: " + "/".join(
+            str(flash_lib.flash_attention_smem_bytes(hd))
+            for hd in (32, 64, 96, 128)) + " bytes")
     for na, dp in ((16, 24), (256, 8), (1024, 8)):
         blocks = ctypes.c_int(0)
         err = lib.gp_score_cov_blocks_per_sm(na, dp, ctypes.byref(blocks))
@@ -925,6 +1232,7 @@ def main(argv) -> int:
             f"{blocks.value} blocks per SM (occupancy calculator)")
     recs = check_kernels(dev, reps_main=20)
     recs.update(check_tpe_kernels(dev, reps_main=20))
+    recs["flash_attention"] = check_flash_kernel(dev, reps_main=20)
     bank, launches = fleet_path(dev)
     tpe_bank, launches["tpe_scores"] = tpe_fleet_path(dev)
     launches["parzen_logdens"] = parzen_path(dev)
@@ -933,10 +1241,15 @@ def main(argv) -> int:
     fig3_tpe_path(dev)
     parity_path(bank, "gp", gp_oracle, "bank_absorb")
     parity_path(tpe_bank, "tpe", tpe_oracle, "joined to the bad split")
+    launches["flash_attention"] = serve_path(dev)
+    serve_parity_path(dev)
     if "--profile" in argv:
         profile_path(bank, tpe_bank)
+        profile_serve(dev)
     gp_src = "src/repro_torch/kernels/gp_acquisition/csrc/gp_acquisition.cu"
     tpe_src = "src/repro_torch/kernels/tpe_kde/csrc/tpe_kde.cu"
+    flash_src = ("src/repro_torch/kernels/flash_attention/csrc/"
+                 "flash_attention.cu")
     where = {
         "score_cov": (gp_src, "src/repro/kernels/gp_acquisition/"
                               "gp_acquisition.py:84"),
@@ -944,12 +1257,15 @@ def main(argv) -> int:
                                  "gp_acquisition.py:157"),
         "tpe_scores": (tpe_src, "src/repro/kernels/tpe_kde/tpe_kde.py:70"),
         "parzen_logdens": (tpe_src,
-                           "src/repro/kernels/tpe_kde/tpe_kde.py:114")}
+                           "src/repro/kernels/tpe_kde/tpe_kde.py:114"),
+        "flash_attention": (flash_src, "src/repro/kernels/flash_attention/"
+                                       "flash_attention.py:90")}
     kernels = [dict(name=name, route="cuda", source=where[name][0],
                     replaces=where[name][1], launches=launches[name],
                     max_abs_err=r["max_abs_err"], ms=r["ms"],
                     plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
-                    bound_by=r["bound_by"], library_ms=None)
+                    bound_by=r["bound_by"],
+                    library_ms=r.get("library_ms"))
                for name, r in recs.items()]
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -32,6 +32,8 @@ _BLOCKED_RUN = textwrap.dedent("""
     import repro_torch.kernels.gp_acquisition.ops
     import repro_torch.kernels.tpe_kde.ops
     import repro_torch.core.tpe, repro_torch.core.async_tuner
+    import repro_torch.configs, repro_torch.models, repro_torch.launch.serve
+    import repro_torch.kernels.flash_attention.ops, repro_torch.train.step
     import chip_smoke
     from repro_torch.core import StudyBank
     for opt in ("bayesian", "tpe", ["bayesian", "tpe"]):
@@ -42,6 +44,10 @@ _BLOCKED_RUN = textwrap.dedent("""
                 p = {{f"x{{j}}": (i + j + b) / 10 for j in range(6)}}
                 bank.study(b).observe_params(p, chip_smoke.neg_hartmann6(p))
         assert all(len(t) == 2 for t in bank.ask_all(2))
+    from repro_torch.launch import serve
+    r = serve.run(serve.make_parser().parse_args(
+        ["--device", "cpu", "--reduced", "--batch", "2", "--gen", "3"]))
+    assert r["generated_shape"] == [2, 3] and r["logits_finite"]
     bad = [m for m in sys.modules
            if m.split(".")[0] in ("jax", "jaxlib", "repro")]
     assert not bad, bad
@@ -76,13 +82,27 @@ def test_entry_points_default_to_cuda_and_never_fall_back(make):
             make()
 
 
+def test_serve_defaults_to_cuda_and_never_falls_back():
+    """``launch.serve.run`` with the default device serves on the card, and
+    raises without one."""
+    from repro_torch.launch import serve
+    args = serve.make_parser().parse_args(["--reduced", "--gen", "2"])
+    assert args.device == "cuda"
+    if torch.cuda.is_available():
+        assert serve.run(args)["device"].startswith("cuda")
+    else:
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            serve.run(args)
+
+
 def test_cpu_is_used_only_when_asked():
     bank = T.StudyBank(SPACE, 2, device="cpu")
     assert bank.device.type == "cpu"
     assert all(v.device.type == "cpu" for v in bank.studies)
 
 
-@pytest.mark.parametrize("suite", ["gp_acquisition", "tpe_kde"])
+@pytest.mark.parametrize("suite", ["gp_acquisition", "tpe_kde",
+                                   "flash_attention"])
 def test_kernel_wrappers_have_no_fallback(suite):
     """A CUDA tensor reaches the kernel or an exception: the dispatch code
     holds no ``try`` around a launch."""
