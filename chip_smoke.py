@@ -2,19 +2,21 @@
 """Smoke run of the PyTorch port (``src/repro_torch``) on one NVIDIA GPU.
 
     python3 chip_smoke.py                 # every phase; needs one CUDA card
-    python3 chip_smoke.py --profile       # every phase, then profiled asks
-                                          # and serving steps
+    python3 chip_smoke.py --profile       # every phase, then profiled asks,
+                                          # serving and training steps
 
 Phases:
-  1. setup: card name and power limit, build the CUDA kernels of the three
+  1. setup: card name and power limit, build the CUDA kernels of the four
      suites (``src/repro_torch/kernels/{gp_acquisition,tpe_kde,
-     flash_attention}/csrc``) with nvcc (sm_90a), one nvcc each, started
-     together, and print what ptxas says about them;
+     flash_attention,mlstm_chunk}/csrc``) with nvcc (sm_90a), one nvcc
+     each, started together, and print what ptxas says about them;
   2. each kernel against its plain PyTorch version on the card, with
      timings: the tuner kernels at the fleet path's shapes, at a ragged
      small shape and at a large bucket; flash attention at the served
      models' prefill shapes, yi-34b's width, a ragged and a cross shape,
-     beside ``scaled_dot_product_attention`` as a yardstick;
+     beside ``scaled_dot_product_attention`` as a yardstick; the mLSTM
+     forward and backward kernels at xlstm-1.3b's training shape, a reduced
+     head size, a ragged length and a case where the clamp decides;
   3. the GP fleet: a 64-study ``StudyBank`` over Hartmann-6 with the default
      candidate budget, 200 observations each, three rounds of ask_all(4) ->
      tell, with the kernels' launch counts read around the run;
@@ -37,7 +39,16 @@ Phases:
      decode;
   9. fp32 smollm-135m (full width and depth) on the card and on the CPU
      plain path from the same parameters: logits within a tolerance, greedy
-     picks equal except on near-ties.
+     picks equal except on near-ties;
+ 10. training (``repro_torch.launch.train.run``): xlstm-1.3b at full width
+     and depth (48 layers: 42 mLSTM, 6 sLSTM), bf16, B 2, S 1024, four
+     AdamW steps with finite losses and grad norms; the mLSTM forward and
+     backward kernels launch once per mLSTM layer per step each;
+ 11. the reduced xLSTM trained 5 fp32 steps on the card, each step also
+     run on the CPU plain path from a copy of the card's state: losses and
+     grad norms within a tolerance;
+ 12. xlstm-1.3b served at full width and depth in bf16 (B 2, a 256-token
+     prompt, 8 tokens): stateful prefill and decode, no kernel.
 
 The second-to-last line is a JSON object with one entry per kernel; the last
 line is ``{"ok": true, "device": {...}}``.  Any failure exits non-zero before
@@ -69,14 +80,21 @@ from repro_torch.kernels import build  # noqa: E402
 from repro_torch.kernels.flash_attention import ops as flash_ops  # noqa
 from repro_torch.kernels.flash_attention import ref as flash_ref  # noqa
 from repro_torch.kernels.gp_acquisition import ops, ref  # noqa: E402
+from repro_torch.kernels.mlstm_chunk import ops as mlstm_ops  # noqa: E402
+from repro_torch.kernels.mlstm_chunk import ref as mlstm_ref  # noqa: E402
 from repro_torch.kernels.tpe_kde import ops as tpe_ops  # noqa: E402
 from repro_torch.kernels.tpe_kde import ref as tpe_ref  # noqa: E402
-from repro_torch.launch import serve  # noqa: E402
+from repro_torch.data.pipeline import DataConfig, SyntheticLM  # noqa
+from repro_torch.launch import serve, train  # noqa: E402
 from repro_torch.models import (Runtime, forward_decode,  # noqa: E402
                                 forward_prefill, init_params)
+from repro_torch.models.transformer import layer_specs  # noqa: E402
+from repro_torch.optim.adamw import AdamWConfig  # noqa: E402
 from repro_torch.scheduler import SerialScheduler  # noqa: E402
-from repro_torch.train.step import (make_decode_step,  # noqa: E402
-                                    make_prefill_step)
+from repro_torch.train.step import (TrainHyper,  # noqa: E402
+                                    init_train_state, make_decode_step,
+                                    make_prefill_step, make_train_step)
+from repro_torch.tree import tree_items, tree_map  # noqa: E402
 
 # H100 SXM peaks (NVIDIA data sheet): fp32 outside the tensor cores, HBM3,
 # and the special-function units (16 exponentials per clock per SM, CUDA
@@ -692,6 +710,431 @@ def check_flash_kernel(dev, reps_main: int):
 
 
 # --------------------------------------------------------------------------- #
+# mLSTM chunk kernels, forward and backward (phase 2)
+# --------------------------------------------------------------------------- #
+# (tag, B, NH, S, dh, clamp): xlstm-1.3b's training shape (B 2, S 1024, 4
+# heads of 1024), the reduced config's head size, a ragged length and a case
+# whose strongly negative input gates make the clamp e^{-m} decide most
+# denominators
+MLSTM_SHAPES = [
+    ("xlstm-1.3b train", 2, 4, 1024, 1024, False),
+    ("reduced", 2, 2, 256, 64, False),
+    ("ragged", 2, 4, 1000, 256, False),
+    ("clamp", 2, 2, 512, 128, True),
+]
+MLSTM_MAIN = "xlstm-1.3b train"
+# small shapes for the card test (tests/test_torch_xlstm.py)
+MLSTM_CARD_TEST_SHAPES = [
+    ("reduced-ragged", 1, 2, 200, 64, False),
+    ("clamp-ragged", 1, 2, 130, 64, True),
+    ("wide", 2, 1, 300, 256, False),
+]
+# max abs error of each output over the largest magnitude of the plain
+# version's: both compute in fp32 and sum in other orders (64-token chunks
+# and dh-long dot products; the gate gradients sum L^2 terms of mixed
+# sign), measured at ~7e-6 of the largest magnitude on one H100
+MLSTM_RTOL = 5e-5
+
+
+def mlstm_inputs(shape, dev, seed=0):
+    """q, k, v (B, NH, S, dh), logi, logf (B, NH, S) and an upstream
+    gradient, made with numpy from ``seed``: unit queries and values, keys
+    scaled by dh^-1/2 (by a tenth more in the clamp case), logf = log
+    sigmoid(N(2, 1)) and logi N(0, 1) (N(-3, 1) in the clamp case)."""
+    _, B, NH, S, dh, clamp = shape
+    rng = np.random.default_rng(seed)
+
+    def normal(*size):
+        return rng.standard_normal(size, dtype=np.float32)
+
+    q, v, g = normal(B, NH, S, dh), normal(B, NH, S, dh), normal(B, NH, S, dh)
+    k = normal(B, NH, S, dh) * np.float32(dh ** -0.5 * (0.1 if clamp else 1))
+    li = normal(B, NH, S) - np.float32(3.0 if clamp else 0.0)
+    lf = -np.log1p(np.exp(-(normal(B, NH, S) + np.float32(2.0))))
+    return [torch.as_tensor(a, device=dev) for a in (q, k, v, li, lf, g)]
+
+
+MLSTM_GRADS = ("dq", "dk", "dv", "dlogi", "dlogf")
+
+
+def mlstm_error(shape, dev, seed=0):
+    """Both kernels against the plain version on the same inputs at one
+    shape: the forward's h against ``ref.mlstm_chunkwise``, the backward's
+    gradients against autograd of it.  Returns ({output: (max_abs_err,
+    tolerance)}, inputs, h, gates)."""
+    q, k, v, li, lf, g = mlstm_inputs(shape, dev, seed)
+    h, gates = mlstm_ops.forward(q, k, v, li, lf)
+    grads = mlstm_ops.backward(q, k, v, li, h, gates, g)
+    xs = [t.clone().requires_grad_() for t in (q, k, v, li, lf)]
+    want = mlstm_ref.mlstm_chunkwise(*xs)
+    want_g = torch.autograd.grad(want, xs, g)
+    want = want.detach()
+    errs = {"h": (_max_err(h, want),
+                  MLSTM_RTOL * float(want.abs().max()))}
+    for name, got, ref_g in zip(MLSTM_GRADS, grads, want_g):
+        assert bool(torch.isfinite(got).all()), name
+        errs[name] = (_max_err(got, ref_g),
+                      MLSTM_RTOL * float(ref_g.abs().max()))
+    assert bool(torch.isfinite(h).all())
+    return errs, (q, k, v, li, lf, g), h, gates
+
+
+def mlstm_bound(shape):
+    """Least time of each direction at one shape.  Operations: the products
+    the chunkwise function needs, 2 flops per multiply-add: per chunk the
+    causal (q, k) pairs twice (Q K^T and S V; four times in the backward:
+    G V^T, dA K, dA^T Q, S^T G), the state update and q.C (2 L dh^2 each,
+    skipped where the state is known zero: no update after the last
+    chunk, no q.C in the first); the backward's dC recurrence, C G, dC V
+    and K dC likewise.  The chunk-boundary states the backward needs are
+    not counted (kept or recomputed, either costs more).  Bytes: q, k, v,
+    logi, logf in and h out (backward: q, k, v, logi, logf and dh in,
+    dq, dk, dv, dlogi, dlogf out), once each.  Returns {direction:
+    (bound_ms, by, flops, bytes)}."""
+    _, B, NH, S, dh, _ = shape
+    BH = B * NH
+    pairs = inner = 0
+    starts = list(range(0, S, 64))
+    for c, t0 in enumerate(starts):
+        L = min(64, S - t0)
+        pairs += L * (L + 1) // 2
+        inner += 2 * L * dh * dh * ((c < len(starts) - 1) + (c > 0))
+    fwd = BH * (2 * 2 * pairs * dh + inner)
+    bwd = BH * (4 * 2 * pairs * dh + 2 * inner)
+    out = {}
+    for name, flops, nbytes in (
+            ("forward", fwd, 4 * BH * S * (4 * dh + 2)),
+            ("backward", bwd, 4 * BH * S * (7 * dh + 4))):
+        t_ops, t_bytes = flops / PEAK_FP32, nbytes / PEAK_BYTES
+        out[name] = (max(t_ops, t_bytes) * 1e3,
+                     "operations" if t_ops >= t_bytes else "bytes", flops,
+                     nbytes)
+    return out
+
+
+def check_mlstm_kernels(dev, reps_main: int):
+    """Phase 2, mLSTM: both kernels against the plain version at the four
+    ``MLSTM_SHAPES``, each timed beside the plain version and the bound (no
+    single PyTorch call computes the function: library_ms null).  Returns
+    the records of the kernels line (worst error over all shapes; times and
+    bound at ``MLSTM_MAIN``)."""
+    recs = {"mlstm_chunk": {"max_abs_err": 0.0},
+            "mlstm_chunk_bwd": {"max_abs_err": 0.0}}
+    for shape in MLSTM_SHAPES:
+        tag, B, NH, S, dh, clamp = shape
+        errs, (q, k, v, li, lf, g), h, gates = mlstm_error(shape, dev)
+        torch.cuda.synchronize()
+        share = mlstm_ref.clamp_share(q, k, li, lf)
+        desc = f"B={B} NH={NH} S={S} dh={dh}"
+        for name, (err, tol) in errs.items():
+            ok = err <= tol
+            log(f"[mlstm] {tag} {desc} {name}: max_abs_err={err:.3e} "
+                f"tol={tol:.3e} {'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise AssertionError(f"mlstm {tag} {name} outside tolerance")
+            kern = "mlstm_chunk" if name == "h" else "mlstm_chunk_bwd"
+            recs[kern]["max_abs_err"] = max(recs[kern]["max_abs_err"], err)
+        log(f"[mlstm] {tag}: the clamp e^-m decides {100 * share:.1f}% of "
+            "the denominators")
+        if clamp and share < 0.5:
+            raise AssertionError("the clamp case does not exercise the clamp")
+        reps = reps_main if tag == MLSTM_MAIN else 5
+        xs = [t.clone().requires_grad_() for t in (q, k, v, li, lf)]
+        graph = mlstm_ref.mlstm_chunkwise(*xs)
+        times = {
+            "forward": (
+                cuda_ms(lambda: mlstm_ops.forward(q, k, v, li, lf), reps),
+                cuda_ms(lambda: mlstm_ref.mlstm_chunkwise(q, k, v, li, lf),
+                        3, warmup=1)),
+            "backward": (
+                cuda_ms(lambda: mlstm_ops.backward(q, k, v, li, h, gates, g),
+                        reps),
+                cuda_ms(lambda: torch.autograd.grad(graph, xs, g,
+                                                    retain_graph=True),
+                        3, warmup=1))}
+        for (direction, (ms, plain)), (_, (b_ms, by, flops, nbytes)) in zip(
+                times.items(), mlstm_bound(shape).items()):
+            log(f"[mlstm] {tag} {direction}: kernel {ms:.4f} ms, plain "
+                f"{plain:.4f} ms, bound {b_ms:.4f} ms ({by}: "
+                f"{flops / 1e9:.2f} GFLOP at 67 (fp32) TFLOP/s, "
+                f"{nbytes / 1e6:.1f} MB at 3.35 TB/s); kernel at "
+                f"{flops / ms / 1e9:.1f} TFLOP/s")
+            if tag == MLSTM_MAIN:
+                kern = ("mlstm_chunk" if direction == "forward"
+                        else "mlstm_chunk_bwd")
+                recs[kern].update(ms=ms, plain_ms=plain, library_ms=None,
+                                  bound_ms=b_ms, bound_by=by)
+        del q, k, v, li, lf, g, h, gates, xs, graph
+    return recs
+
+
+# --------------------------------------------------------------------------- #
+# xLSTM training and serving (phases 10-12)
+# --------------------------------------------------------------------------- #
+# full width and depth, bf16: B 2 x S 1024 (2,048 tokens a step) fits the
+# card with every activation kept (PERF.md section 5 has the byte count)
+TRAIN = dict(arch="xlstm-1.3b", batch=2, seq=1024, steps=4)
+# fp32 card-vs-CPU parity on the reduced config (7 mLSTM + 1 sLSTM layers,
+# dh 64), a ragged length.  Each step starts the CPU from a copy of the
+# card's state, so the check holds each step's arithmetic, the AdamW update
+# included: losses and grad norms differ only by the order of fp32 sums (the
+# kernel's, cuBLAS's and the CPU's; the mLSTM gate gradients sum terms of
+# mixed sign), measured at up to 1.4e-7 and 1.9e-6.  AdamW m and v agree
+# within LEAF_RTOL of each leaf's largest entry for the weight matrices.  A
+# 1-D leaf (a gate bias, a norm scale) has one gradient entry summed over
+# all B x S tokens of per-token terms of both signs, which largely cancel
+# at initialisation, so the rounding of the per-token terms (the kernel's
+# gate gradients agree within ~5e-6 of their largest, phase 2) is large
+# against the sum: those leaves agree within VECTOR_RTOL (measured 3.3e-4
+# on the first step, below 5e-5 once m has a history).  The parameters,
+# where |m| is above 1e-3 of its leaf's largest, agree within PARAM_LR_TOL
+# learning rates (the update m / sqrt(v) of an entry whose gradient is
+# near zero is a ratio of rounding errors, so those are not compared).
+# Two free-running trainings part instead: AdamW's normalised steps move
+# every parameter by about lr whatever the size of its gradient, so
+# rounding in near-zero gradient entries grows into parameter differences.
+# The phase prints that drift for the card against a free-running CPU
+# training, and, as a witness that rounding alone parts them, for two CPU
+# trainings whose only difference is the order of the mLSTM gradient's
+# sums: autograd of the plain chunkwise form against the backward kernel's
+# decomposition of the same function (``ref.mlstm_chunkwise_bwd``).
+TRAIN_PARITY = dict(arch="xlstm-1.3b", batch=4, seq=130, steps=5)
+TRAIN_LOSS_RTOL = 2e-5
+TRAIN_GNORM_RTOL = 1e-4
+LEAF_RTOL = 1e-4
+VECTOR_RTOL = 1e-3
+PARAM_LR_TOL = 1e-2
+XLSTM_SERVE = ("xlstm-1.3b", 2, 256, 8)
+
+
+def train_path(dev):
+    """Phase 10: xlstm-1.3b at full width and depth, bf16, through
+    ``launch.train.run`` for ``TRAIN["steps"]`` steps.  The mLSTM counters
+    are set to 0 just before the run and read just after: each step
+    launches the forward kernel once per mLSTM layer and the backward
+    kernel once per mLSTM layer.  Returns the counts."""
+    cfg = get_config(TRAIN["arch"])
+    n_mlstm = sum(spec.mixer == "mlstm" for spec in layer_specs(cfg))
+    args = train.make_parser().parse_args(
+        ["--arch", TRAIN["arch"], "--batch", str(TRAIN["batch"]), "--seq",
+         str(TRAIN["seq"]), "--steps", str(TRAIN["steps"]), "--remat",
+         "none", "--print-every", "1"])
+    _reset(mlstm_ops.launches)
+    r = train.run(args)
+    counts = dict(mlstm_ops.launches)
+    toks = TRAIN["batch"] * TRAIN["seq"]
+    for i, (loss, gn, s, n) in enumerate(zip(
+            r["losses"], r["grad_norms"], r["step_s"], r["mlstm_launches"])):
+        log(f"[train] {TRAIN['arch']} bf16 B={TRAIN['batch']} "
+            f"S={TRAIN['seq']} step {i}: loss {loss:.5f} grad_norm "
+            f"{gn:.4f} step {s * 1e3:.1f} ms ({toks / s:.0f} tokens/s, host "
+            f"clock, synchronized), mlstm launches {n}")
+        if not (math.isfinite(loss) and math.isfinite(gn)):
+            raise AssertionError("non-finite loss or grad norm")
+        if n != {"forward": n_mlstm, "backward": n_mlstm}:
+            raise AssertionError(f"step {i}: {n} mlstm launches, expected "
+                                 f"{n_mlstm} each way")
+    steady = r["step_s"][1:] or r["step_s"]
+    log(f"[train] {r['n_params']:,} parameters; steps after the first: "
+        f"{1e3 * sum(steady) / len(steady):.1f} ms mean "
+        f"({toks * len(steady) / sum(steady):.0f} tokens/s); peak memory "
+        f"{r['peak_mem_gib']:.2f} GiB; mlstm launches in the run {counts}")
+    if counts != {"mlstm_chunk": n_mlstm * TRAIN["steps"],
+                  "mlstm_chunk_bwd": n_mlstm * TRAIN["steps"]}:
+        raise AssertionError(f"main path launches {counts}")
+    del r
+    torch.cuda.empty_cache()
+    return counts
+
+
+def _copy_to(tree, dev):
+    """A copy of a state or parameter tree with its tensors on ``dev``."""
+    return tree_map(lambda t: t.to(dev, copy=True) if torch.is_tensor(t)
+                    else t, tree)
+
+
+def _rel(a, b) -> float:
+    a, b = float(a), float(b)
+    return abs(a - b) / max(abs(b), 1e-30)
+
+
+def _state_errors(got, want, lr):
+    """Worst errors of the card's state ``got`` against the CPU's ``want``
+    after one step from the same state: AdamW m and v over each leaf's
+    largest entry, for matrices and for 1-D leaves apart, with the worst
+    leaf's path; the parameters where |m| is above 1e-3 of its leaf's
+    largest, in learning rates."""
+    err = {"params": 0.0}
+    for key in ("m", "v"):
+        got_k = dict(tree_items(got["opt"][key]))
+        for path, w in tree_items(want["opt"][key]):
+            scale = max(float(w.abs().max()), 1e-30)
+            e = float((got_k[path].cpu() - w).abs().max()) / scale
+            kind = f"{key}_1d" if w.dim() < 2 else key
+            if e >= err.get(kind, (0.0, None))[0]:
+                err[kind] = (e, "/".join(map(str, path)))
+    m_want = dict(tree_items(want["opt"]["m"]))
+    got_p = dict(tree_items(got["params"]))
+    for path, w in tree_items(want["params"]):
+        m = m_want[path].abs()
+        sure = m > 1e-3 * float(m.max())
+        d = (got_p[path].cpu().float() - w.float())[sure]
+        if d.numel():
+            err["params"] = max(err["params"], float(d.abs().max()) / lr)
+    return err
+
+
+class _KernelOrderMixer(torch.autograd.Function):
+    """The plain chunkwise mLSTM whose backward is the backward kernel's
+    decomposition in plain PyTorch: the same function and gradient as
+    autograd of it, with the sums in the kernel's order."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, logi, logf):
+        h = mlstm_ref.mlstm_chunkwise(q, k, v, logi, logf)
+        ctx.save_for_backward(q, k, v, logi, logf, h)
+        return h
+
+    @staticmethod
+    def backward(ctx, g):
+        return mlstm_ref.mlstm_chunkwise_bwd(*ctx.saved_tensors,
+                                             g.contiguous())
+
+
+def _kernel_order_step(step):
+    """``step`` with every mLSTM mixer of the model differentiated in the
+    backward kernel's order (CPU only)."""
+    def run(state, batch):
+        plain = mlstm_ops.mlstm_mixer
+        mlstm_ops.mlstm_mixer = _KernelOrderMixer.apply
+        try:
+            return step(state, batch)
+        finally:
+            mlstm_ops.mlstm_mixer = plain
+    return run
+
+
+def train_parity_path(dev):
+    """Phase 11: the reduced xLSTM trained for ``TRAIN_PARITY["steps"]``
+    fp32 steps on the card; before each step the CPU plain path takes a
+    copy of the card's state and runs the same step on the same batch.
+    Losses, grad norms, AdamW moments and the well-conditioned parameters
+    agree within their tolerances, and the card's steps run both kernels.
+    Two free-running CPU trainings from the card's first state (one with
+    the mLSTM gradient's sums in the kernel's order) measure the drift."""
+    cfg = get_config(TRAIN_PARITY["arch"], reduced=True)
+    B, S = TRAIN_PARITY["batch"], TRAIN_PARITY["seq"]
+    rt = Runtime(param_dtype=torch.float32, compute_dtype=torch.float32,
+                 ce_chunk=min(S, 512), ssm_chunk=min(S, 256),
+                 remat_policy="none")
+    hyper = TrainHyper(opt=AdamWConfig(lr=3e-3, warmup_steps=2,
+                                       total_steps=TRAIN_PARITY["steps"]))
+    state_gpu = init_train_state(torch.Generator(device=dev).manual_seed(0),
+                                 cfg, rt)
+    free = [_copy_to(state_gpu, torch.device("cpu")) for _ in range(2)]
+    data = SyntheticLM(DataConfig(vocab_size=cfg.vocab_size, seq_len=S,
+                                  global_batch=B, seed=1234))
+    step_cpu = make_train_step(cfg, rt, hyper)
+    step_gpu = make_train_step(cfg, rt, hyper)
+    steps_free = [step_cpu, _kernel_order_step(step_cpu)]
+    _reset(mlstm_ops.launches)
+    bad = []
+    for s in range(TRAIN_PARITY["steps"]):
+        batch = data.batch_at(s)
+        cpu_batch = {k: torch.as_tensor(a) for k, a in batch.items()}
+        state_cpu = _copy_to(state_gpu, torch.device("cpu"))
+        state_cpu, m_cpu = step_cpu(state_cpu, cpu_batch)
+        state_gpu, m_gpu = step_gpu(state_gpu, {
+            k: torch.as_tensor(a, device=dev) for k, a in batch.items()})
+        row = []
+        for key, tol in (("loss", TRAIN_LOSS_RTOL),
+                         ("grad_norm", TRAIN_GNORM_RTOL)):
+            a, b = float(m_gpu[key]), float(m_cpu[key])
+            rel = _rel(a, b)
+            if not (math.isfinite(a) and rel <= tol):
+                bad.append((s, key, rel))
+            row.append(f"{key} {a:.7f} card / {b:.7f} cpu (rel {rel:.2e}, "
+                       f"tol {tol:.0e})")
+        err = _state_errors(state_gpu, state_cpu, float(m_cpu["lr"]))
+        for key, tol in (("m", LEAF_RTOL), ("v", LEAF_RTOL),
+                         ("m_1d", VECTOR_RTOL), ("v_1d", VECTOR_RTOL)):
+            e, path = err[key]
+            if not e <= tol:
+                bad.append((s, key, e, path))
+            row.append(f"{key} {e:.2e} of its leaf's largest at {path} (tol "
+                       f"{tol:.0e})")
+        if not err["params"] <= PARAM_LR_TOL:
+            bad.append((s, "params", err["params"]))
+        row.append(f"params {err['params']:.2e} lr (tol {PARAM_LR_TOL:.0e})")
+        log(f"[train-parity] step {s}: " + ", ".join(row))
+        ms_free = []
+        for i, fn in enumerate(steps_free):
+            free[i], m = fn(free[i], cpu_batch)
+            ms_free.append(m)
+        log(f"[train-drift] step {s}, free-running: card vs cpu loss rel "
+            f"{_rel(m_gpu['loss'], ms_free[0]['loss']):.2e} grad_norm rel "
+            f"{_rel(m_gpu['grad_norm'], ms_free[0]['grad_norm']):.2e}; cpu "
+            f"autograd vs kernel-order mLSTM backward loss rel "
+            f"{_rel(ms_free[1]['loss'], ms_free[0]['loss']):.2e} grad_norm "
+            f"rel {_rel(ms_free[1]['grad_norm'], ms_free[0]['grad_norm']):.2e}")
+    n_mlstm = sum(spec.mixer == "mlstm" for spec in layer_specs(cfg))
+    want = n_mlstm * TRAIN_PARITY["steps"]
+    log(f"[train-parity] reduced {TRAIN_PARITY['arch']} fp32 B={B} S={S}, "
+        f"{TRAIN_PARITY['steps']} steps: outside tolerance {bad}, mlstm "
+        f"launches {dict(mlstm_ops.launches)}")
+    if bad:
+        raise AssertionError("card and CPU training disagree")
+    if mlstm_ops.launches != {"mlstm_chunk": want, "mlstm_chunk_bwd": want}:
+        raise AssertionError("the card's steps missed an mlstm kernel")
+
+
+def xlstm_serve_path(dev):
+    """Phase 12: xlstm-1.3b served at full width and depth in bf16 through
+    ``launch.serve.run``: prefill and decode carry state, so neither
+    launches the mLSTM kernel (as in the reference)."""
+    arch, B, P, gen = XLSTM_SERVE
+    args = serve.make_parser().parse_args(
+        ["--arch", arch, "--batch", str(B), "--prompt-len", str(P),
+         "--gen", str(gen)])
+    torch.cuda.reset_peak_memory_stats(dev)
+    r = serve.run(args)
+    mem = torch.cuda.max_memory_allocated(dev)
+    log(f"[serve] {arch} bf16 B={B} prompt={P} gen={gen}: prefill "
+        f"{r['prefill_s'] * 1e3:.2f} ms, decode {r['decode_s'] * 1e3:.2f} ms "
+        f"for {gen - 1} steps ({r['decode_tok_s']:.1f} tokens/s), peak "
+        f"memory {mem / 2**30:.2f} GiB, mlstm launches "
+        f"{r['mlstm_launches']}, generated {r['generated_shape']}, sample "
+        f"{r['sample']}")
+    if not r["logits_finite"] or r["generated_shape"] != [B, gen]:
+        raise AssertionError(f"{arch}: non-finite logits or wrong shape")
+    if r["mlstm_launches"] != {"prefill": 0, "decode": 0}:
+        raise AssertionError("serving launched the mlstm kernel")
+
+
+def profile_train(dev):
+    """``--profile``: where a training step's time goes, at full width and
+    one period of depth (7 mLSTM + 1 sLSTM layers), bf16, B 2, S 1024:
+    one untimed step, then one under the profiler."""
+    import dataclasses
+    cfg = dataclasses.replace(get_config(TRAIN["arch"]),
+                              n_layers=len(get_config(TRAIN["arch"]).period))
+    B, S = TRAIN["batch"], TRAIN["seq"]
+    rt = Runtime(ce_chunk=min(S, 512), ssm_chunk=min(S, 256),
+                 remat_policy="none")
+    state = init_train_state(torch.Generator(device=dev).manual_seed(0), cfg,
+                             rt)
+    step = make_train_step(cfg, rt, TrainHyper())
+    data = SyntheticLM(DataConfig(vocab_size=cfg.vocab_size, seq_len=S,
+                                  global_batch=B, seed=1234))
+    batch = {k: torch.as_tensor(a, device=dev)
+             for k, a in data.batch_at(0).items()}
+    step(state, batch)
+    _, wall, prof = _profiled(lambda: step(state, batch))
+    _report_profile(prof, wall, f"{TRAIN['arch']} train step, 8 layers, "
+                                f"B={B} S={S}")
+
+
+# --------------------------------------------------------------------------- #
 # serving (phases 8-9)
 # --------------------------------------------------------------------------- #
 # (arch, batch, prompt length, generated tokens), bf16, full width and depth
@@ -740,14 +1183,6 @@ def serve_path(dev):
     return total
 
 
-def _to_device(tree, dev):
-    if isinstance(tree, dict):
-        return {k: _to_device(v, dev) for k, v in tree.items()}
-    if isinstance(tree, list):
-        return [_to_device(v, dev) for v in tree]
-    return tree.to(dev)
-
-
 def _greedy(params, tokens, cfg, rt, steps, forced=None):
     """Prefill, then ``steps`` greedy decode steps; feeds ``forced`` (B,
     steps) tokens instead of its own picks where given.  Returns the
@@ -775,7 +1210,7 @@ def serve_parity_path(dev):
     cfg = get_config(PARITY["arch"])
     rt = Runtime(param_dtype=torch.float32, compute_dtype=torch.float32)
     params = init_params(torch.Generator(device=dev).manual_seed(0), cfg, rt)
-    params_cpu = _to_device(params, torch.device("cpu"))
+    params_cpu = _copy_to(params, torch.device("cpu"))
     B, P, steps = PARITY["B"], PARITY["P"], PARITY["gen"] - 1
     tokens = torch.as_tensor(np.random.default_rng(0).integers(
         0, cfg.vocab_size, (B, P), dtype=np.int32))
@@ -1205,10 +1640,10 @@ def main(argv) -> int:
         f"cudnn={torch.backends.cudnn.allow_tf32}")
     # one nvcc per suite, started together
     suites = (("gp_acquisition", ops), ("tpe_kde", tpe_ops),
-              ("flash_attention", flash_ops))
+              ("flash_attention", flash_ops), ("mlstm_chunk", mlstm_ops))
     t0 = time.perf_counter()
     with ThreadPoolExecutor(max_workers=len(suites)) as pool:
-        lib, _, flash_lib = [f.result() for f in [
+        lib, _, flash_lib, _ = [f.result() for f in [
             pool.submit(mod.library) for _, mod in suites]]
     log("[setup] built " + ", ".join(
         str(build.library_path(name, mod.SOURCES)) for name, mod in suites)
@@ -1233,6 +1668,7 @@ def main(argv) -> int:
     recs = check_kernels(dev, reps_main=20)
     recs.update(check_tpe_kernels(dev, reps_main=20))
     recs["flash_attention"] = check_flash_kernel(dev, reps_main=20)
+    recs.update(check_mlstm_kernels(dev, reps_main=10))
     bank, launches = fleet_path(dev)
     tpe_bank, launches["tpe_scores"] = tpe_fleet_path(dev)
     launches["parzen_logdens"] = parzen_path(dev)
@@ -1246,10 +1682,21 @@ def main(argv) -> int:
     if "--profile" in argv:
         profile_path(bank, tpe_bank)
         profile_serve(dev)
+    del bank, tpe_bank
+    torch.cuda.empty_cache()
+    counts = train_path(dev)
+    launches["mlstm_chunk"] = counts["mlstm_chunk"]
+    launches["mlstm_chunk_bwd"] = counts["mlstm_chunk_bwd"]
+    train_parity_path(dev)
+    xlstm_serve_path(dev)
+    if "--profile" in argv:
+        profile_train(dev)
     gp_src = "src/repro_torch/kernels/gp_acquisition/csrc/gp_acquisition.cu"
     tpe_src = "src/repro_torch/kernels/tpe_kde/csrc/tpe_kde.cu"
     flash_src = ("src/repro_torch/kernels/flash_attention/csrc/"
                  "flash_attention.cu")
+    mlstm_src = "src/repro_torch/kernels/mlstm_chunk/csrc/"
+    mlstm_tpu = "src/repro/kernels/mlstm_chunk/mlstm_chunk.py:90"
     where = {
         "score_cov": (gp_src, "src/repro/kernels/gp_acquisition/"
                               "gp_acquisition.py:84"),
@@ -1259,7 +1706,9 @@ def main(argv) -> int:
         "parzen_logdens": (tpe_src,
                            "src/repro/kernels/tpe_kde/tpe_kde.py:114"),
         "flash_attention": (flash_src, "src/repro/kernels/flash_attention/"
-                                       "flash_attention.py:90")}
+                                       "flash_attention.py:90"),
+        "mlstm_chunk": (mlstm_src + "mlstm_chunk.cu", mlstm_tpu),
+        "mlstm_chunk_bwd": (mlstm_src + "mlstm_chunk_bwd.cu", mlstm_tpu)}
     kernels = [dict(name=name, route="cuda", source=where[name][0],
                     replaces=where[name][1], launches=launches[name],
                     max_abs_err=r["max_abs_err"], ms=r["ms"],

@@ -1,4 +1,4 @@
-"""Carry state from the JAX package into the port.
+"""Carry state between the JAX package and the port.
 
 The tuner's state is the study ledger (carried by the shared ``.npz``
 checkpoint format, see ``StudyBank.load``) and the GP observation stage.
@@ -7,14 +7,20 @@ checkpoint format, see ``StudyBank.load``) and the GP observation stage.
 returns the port's tensors under the same names, ready for
 ``gp.bank_pick`` / ``gp.bank_absorb``.
 
-The model stack's state is its parameters: ``model_params_from_numpy``
-takes the JAX package's ``init_params`` pytree, fetched to numpy, and
-returns the port's per-layer parameters, so that both packages compute on
-the same weights.
+The model stack's state is its parameters and, in training, the AdamW
+moments and step (and the error-feedback buffer).  The JAX package stacks
+each period position's leaves on a leading ``n_periods`` axis under
+``blocks/pos<i>``; the port keeps one dict per layer in the list
+``blocks`` (layer ``p * P + i`` is period ``p``, position ``i``).
+``to_jax_layout`` and ``from_jax_layout`` move a tree between the two;
+``model_params_from_numpy`` and ``train_state_from_numpy`` build the
+port's tensors from the JAX package's arrays, and ``train_state_to_numpy``
+goes back, so that both packages compute on the same state and a
+checkpoint written by either restores into the other.
 """
 from __future__ import annotations
 
-from typing import Any, Dict
+from typing import Any, Callable, Dict, List
 
 import numpy as np
 import torch
@@ -22,7 +28,9 @@ import torch
 from repro_torch.configs.base import ArchConfig
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models.common import Runtime
-from repro_torch.models.transformer import check_supported
+from repro_torch.models.transformer import check_supported, layer_specs
+from repro_torch.models.xlstm import FP32_PARAMS
+from repro_torch.tree import tree_map
 
 BANK_STATE_KEYS = ("Xs", "z", "mask", "L", "Linv", "ls", "var", "noise")
 
@@ -38,27 +46,132 @@ def bank_state_from_numpy(arrays: Dict[str, np.ndarray],
             for k in BANK_STATE_KEYS}
 
 
+# --------------------------------------------------------------------------- #
+# the stacked (JAX) and per-layer (port) layouts of a parameter tree
+# --------------------------------------------------------------------------- #
+def from_jax_layout(tree: Dict[str, Any], cfg: ArchConfig,
+                    leaf: Callable = lambda path, a: a) -> Dict[str, Any]:
+    """A JAX-layout tree (``blocks/pos<i>`` leaves stacked over periods) to
+    the port's (``blocks`` a list of per-layer dicts).  ``leaf(path, a)``
+    makes each leaf; ``path`` is its path in the port's tree."""
+    P = len(cfg.period)
+    out = {k: tree_map(leaf, v, path=(k,), with_path=True)
+           for k, v in tree.items() if k != "blocks"}
+    out["blocks"] = [
+        tree_map(lambda path, a, p=l // P: leaf(path, np.asarray(a)[p]),
+                 tree["blocks"][f"pos{l % P}"], path=("blocks", l),
+                 with_path=True)
+        for l in range(cfg.n_layers)]
+    return out
+
+
+def to_jax_layout(tree: Dict[str, Any], cfg: ArchConfig,
+                  leaf: Callable[[Any], np.ndarray]) -> Dict[str, Any]:
+    """The port's tree to the JAX layout: ``leaf`` maps each port leaf to a
+    numpy array; block leaves are stacked over the periods."""
+    P = len(cfg.period)
+    out = {k: tree_map(leaf, v) for k, v in tree.items() if k != "blocks"}
+    blocks = tree["blocks"]
+    out["blocks"] = {
+        f"pos{i}": tree_map(lambda *ls: np.stack([leaf(x) for x in ls]),
+                            *blocks[i::P])
+        for i in range(P)}
+    return out
+
+
+def param_dtype(path, cfg: ArchConfig, rt: Runtime) -> torch.dtype:
+    """The dtype the port keeps a parameter in: ``rt.param_dtype``, except
+    the xLSTM gate and recurrent leaves the reference keeps in fp32."""
+    if len(path) == 4 and path[0] == "blocks" and path[2] == "mixer":
+        mixer = layer_specs(cfg)[path[1]].mixer
+        if path[3] in FP32_PARAMS.get(mixer, ()):
+            return torch.float32
+    return rt.param_dtype
+
+
+def numpy_to_tensor(a, dtype: torch.dtype, device) -> torch.Tensor:
+    """A tensor of ``dtype`` on ``device`` from a numpy array: float32 (or
+    any real type), or the raw two-byte void type that numpy gives for the
+    bfloat16 arrays JAX writes to ``.npz`` without ml_dtypes loaded."""
+    a = np.asarray(a)
+    if a.dtype.kind == "V" and a.dtype.itemsize == 2:
+        t = torch.from_numpy(a.view(np.int16).copy()).view(torch.bfloat16)
+        return t.to(device=device, dtype=dtype)
+    return torch.tensor(np.asarray(a, np.float32), device=device).to(dtype)
+
+
+def tensor_to_numpy(t) -> np.ndarray:
+    """float32 numpy of a tensor (bfloat16 widens exactly; JAX casts it back
+    on restore)."""
+    return t.detach().float().cpu().numpy()
+
+
 def model_params_from_numpy(params_np: Dict[str, Any], cfg: ArchConfig,
                             rt: Runtime,
                             device: DeviceLike = None) -> Dict[str, Any]:
     """The port's parameters from the JAX package's ``init_params`` pytree
-    with numpy leaves (float32, or the bfloat16 that JAX fetches; either is
-    cast to ``rt.param_dtype``).  The leading ``n_periods`` axis of
-    ``params_np["blocks"]["pos0"]`` becomes the list ``params["blocks"]``,
-    one dict per layer."""
+    with numpy leaves (float32, or bfloat16 as JAX fetches it), each cast to
+    the dtype the port keeps it in (``param_dtype``)."""
     check_supported(cfg)
     dev = resolve_device(device)
+    return from_jax_layout(
+        params_np, cfg,
+        lambda path, a: numpy_to_tensor(a, param_dtype(path, cfg, rt), dev))
 
-    def tensor(a):
-        return torch.tensor(np.asarray(a, np.float32),
-                            device=dev).to(rt.param_dtype)
 
-    def tree(node, i=None):
-        if isinstance(node, dict):
-            return {k: tree(v, i) for k, v in node.items()}
-        return tensor(node if i is None else np.asarray(node)[i])
+def train_state_from_numpy(state_np: Dict[str, Any], cfg: ArchConfig,
+                           rt: Runtime,
+                           device: DeviceLike = None) -> Dict[str, Any]:
+    """The port's train state from the JAX package's (``params``, ``opt``
+    with ``m``, ``v`` and ``step``, and ``ef`` when present) with numpy
+    leaves."""
+    dev = resolve_device(device)
+    f32 = lambda path, a: numpy_to_tensor(a, torch.float32, dev)  # noqa
+    opt = state_np["opt"]
+    out = {"params": model_params_from_numpy(state_np["params"], cfg, rt,
+                                             dev),
+           "opt": {"m": from_jax_layout(opt["m"], cfg, f32),
+                   "v": from_jax_layout(opt["v"], cfg, f32),
+                   "step": int(np.asarray(opt["step"]))}}
+    if "ef" in state_np:
+        out["ef"] = from_jax_layout(state_np["ef"], cfg, f32)
+    return out
 
-    out = {k: tree(v) for k, v in params_np.items() if k != "blocks"}
-    out["blocks"] = [tree(params_np["blocks"]["pos0"], i)
-                     for i in range(cfg.n_periods)]
+
+def train_state_to_numpy(state: Dict[str, Any],
+                         cfg: ArchConfig) -> Dict[str, Any]:
+    """The port's train state in the JAX package's layout, float32 numpy
+    leaves and an int32 step."""
+    def tree(t):
+        return to_jax_layout(t, cfg, tensor_to_numpy)
+
+    out = {"params": tree(state["params"]),
+           "opt": {"m": tree(state["opt"]["m"]), "v": tree(state["opt"]["v"]),
+                   "step": np.asarray(state["opt"]["step"], np.int32)}}
+    if "ef" in state:
+        out["ef"] = tree(state["ef"])
+    return out
+
+
+def flatten_paths(tree, prefix: str = "") -> Dict[str, Any]:
+    """A nested dict flattened to "/"-joined keys, as the JAX package's
+    checkpoints name their leaves."""
+    flat: Dict[str, Any] = {}
+    for k, v in tree.items():
+        key = f"{prefix}{k}"
+        if isinstance(v, dict):
+            flat.update(flatten_paths(v, key + "/"))
+        else:
+            flat[key] = v
+    return flat
+
+
+def unflatten_paths(flat: Dict[str, Any]) -> Dict[str, Any]:
+    out: Dict[str, Any] = {}
+    for key, v in flat.items():
+        node = out
+        parts: List[str] = key.split("/")
+        for p in parts[:-1]:
+            node = node.setdefault(p, {})
+        node[parts[-1]] = v
     return out

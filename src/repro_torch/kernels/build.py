@@ -1,8 +1,9 @@
 """Build a kernel suite's CUDA sources into one shared library, on first use.
 
 ``nvcc`` compiles every ``csrc/*.cu`` of a suite into ``build/<name>-<hash>.so``
-at the repository root, where the hash covers the sources and the compiler
-flags, so an edited source never reuses a stale library.  The library has a
+at the repository root, where the hash covers the sources, the ``*.cuh``
+headers beside them and the compiler flags, so an edited source never reuses
+a stale library.  The library has a
 plain C interface and is loaded with ``ctypes``; nothing here includes
 PyTorch's headers, so a build takes seconds.  ``ptxas`` register and
 shared-memory usage is kept beside the library (``<name>-<hash>.ptxas.txt``).
@@ -40,8 +41,11 @@ def find_nvcc() -> str:
 
 
 def library_path(name: str, sources: Sequence[Path]) -> Path:
+    """The library's path; its hash covers the flags, the sources and the
+    ``*.cuh`` headers beside them."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in sorted(sources):
+    headers = {p for src in sources for p in src.parent.glob("*.cuh")}
+    for src in sorted(set(sources) | headers):
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"

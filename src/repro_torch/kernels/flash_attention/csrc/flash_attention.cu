@@ -205,7 +205,9 @@ int launch(const void* q, const void* k, const void* v, void* out, int B,
            int Sq, int Sk, int H, int KV, int hd, float scale, int causal,
            cudaStream_t stream) {
   constexpr int bytes = smem_bytes<HD>();
-  static const cudaError_t attr = cudaFuncSetAttribute(
+  // set on every launch: the attribute belongs to the current device's
+  // context, and the call costs next to nothing
+  const cudaError_t attr = cudaFuncSetAttribute(
       flash_kernel<T, HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       bytes);
   if (attr != cudaSuccess) return (int)attr;

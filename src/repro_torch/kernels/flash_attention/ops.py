@@ -8,6 +8,11 @@ version in ``ref``.  Nothing falls back: a CUDA call that cannot build or
 launch raises.  ``launches`` counts kernel launches (CPU calls leave it
 alone), so a run can show that its prefill went through the kernel.
 
+The kernel has no backward yet (ROADMAP queue 1 item 13c), and its output
+carries no ``grad_fn``: on a CUDA tensor, a call under grad with an input
+that requires grad raises ``NotImplementedError`` rather than drop the
+gradient.  On the CPU autograd differentiates the plain version.
+
 Unlike the Pallas kernel, which needs Sq and Sk to be multiples of its
 tiles, the kernel takes any lengths: it masks its ragged last tiles.  Head
 sizes are multiples of 8 up to 128 (the kernel's widest tile), on both
@@ -75,14 +80,22 @@ def _check(q, k, v, causal: bool):
     return B, Sq, Sk, H, KV, hd
 
 
+def _on_card(t: torch.Tensor) -> bool:
+    return t.device.type == "cuda"
+
+
 def sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
          causal: bool = True) -> torch.Tensor:
     """(B, Sq, H, hd) attention output in q's dtype; q (B, Sq, H, hd),
     k and v (B, Sk, KV, hd), one dtype (float32 or bfloat16), contiguous,
     on one device.  The causal mask is k <= q + (Sk - Sq)."""
     B, Sq, Sk, H, KV, hd = _check(q, k, v, causal)
-    if q.device.type == "cpu":
+    if not _on_card(q):
         return ref.attention_ref(q, k, v, causal=causal)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        raise NotImplementedError(
+            "flash_attention has no backward kernel yet (ROADMAP queue 1 "
+            "item 13c): the kernel's output would carry no gradient")
     lib = library()
     out = torch.empty_like(q)
     err = lib.flash_attention_fwd(

@@ -3,7 +3,8 @@
 The counterpart of ``python -m repro.launch.serve``.  It runs on the card
 unless ``--device cpu`` is given, where every kernel runs its plain
 version; without a card the default device raises.  Prefill attention runs
-the flash-attention kernel on the card.  Parameters are random, drawn from
+the flash-attention kernel on the card; xLSTM (``--arch xlstm-1.3b``)
+serves through its plain stateful forms.  Parameters are random, drawn from
 a ``torch.Generator`` seeded with ``--seed`` on the device; prompt tokens
 (and a VLM's stub patch embeddings) come from ``numpy.random.default_rng``
 with the same seed.
@@ -24,6 +25,7 @@ import torch
 from repro_torch.configs import get_config
 from repro_torch.device import resolve_device
 from repro_torch.kernels.flash_attention import ops as flash_ops
+from repro_torch.kernels.mlstm_chunk import ops as mlstm_ops
 from repro_torch.models.common import Runtime
 from repro_torch.models.transformer import init_params
 from repro_torch.train.step import make_decode_step, make_prefill_step
@@ -37,8 +39,10 @@ def _sync(dev: torch.device) -> None:
 def run(args) -> dict:
     """Serve one batch; returns the JAX package's keys (``prefill_s``,
     ``decode_s``, ``decode_tok_s``, ``generated_shape``, ``sample``), the
-    flash-attention launches of each stage and whether every logit was
-    finite."""
+    flash-attention and mLSTM kernel launches of each stage (the mLSTM
+    kernel serves no stage: prefill and decode carry state, which the
+    kernel path does not return, as in the reference) and whether every
+    logit was finite."""
     dev = resolve_device(args.device)
     cfg = get_config(args.arch, reduced=args.reduced)
     dt = torch.float32 if args.fp32 else torch.bfloat16
@@ -59,14 +63,19 @@ def run(args) -> dict:
 
     prefill = make_prefill_step(cfg, rt, cache_size=total)
     decode = make_decode_step(cfg, rt)
-    n0 = flash_ops.launches["flash_attention"]
+
+    def count():
+        return (flash_ops.launches["flash_attention"],
+                mlstm_ops.launches["mlstm_chunk"])
+
+    n0 = count()
 
     _sync(dev)
     t0 = time.perf_counter()
     tok, cache, logits = prefill(params, batch)
     _sync(dev)
     t_prefill = time.perf_counter() - t0
-    n1 = flash_ops.launches["flash_attention"]
+    n1 = count()
 
     out_tokens = [tok]
     finite = torch.isfinite(logits).all()
@@ -78,7 +87,7 @@ def run(args) -> dict:
         finite &= torch.isfinite(logits).all()
     _sync(dev)
     t_decode = time.perf_counter() - t0
-    n2 = flash_ops.launches["flash_attention"]
+    n2 = count()
 
     gen_tokens = torch.stack(out_tokens, dim=1).cpu().numpy()
     return {
@@ -89,7 +98,10 @@ def run(args) -> dict:
         "decode_tok_s": B * (args.gen - 1) / max(t_decode, 1e-9),
         "generated_shape": list(gen_tokens.shape),
         "sample": gen_tokens[0, :10].tolist(),
-        "flash_launches": {"prefill": n1 - n0, "decode": n2 - n1},
+        "flash_launches": {"prefill": n1[0] - n0[0],
+                           "decode": n2[0] - n1[0]},
+        "mlstm_launches": {"prefill": n1[1] - n0[1],
+                           "decode": n2[1] - n1[1]},
         "logits_finite": bool(finite),
     }
 

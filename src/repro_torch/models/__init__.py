@@ -1,7 +1,9 @@
-"""The model stack's serving half: dense attention decoders."""
+"""The model stack: dense attention decoders (served) and xLSTM (served and
+trained)."""
 from repro_torch.models.common import Runtime
-from repro_torch.models.transformer import (forward_decode, forward_prefill,
+from repro_torch.models.transformer import (check_supported, forward_decode,
+                                            forward_prefill, forward_train,
                                             init_cache, init_params)
 
-__all__ = ["Runtime", "forward_decode", "forward_prefill", "init_cache",
-           "init_params"]
+__all__ = ["Runtime", "check_supported", "forward_decode", "forward_prefill",
+           "forward_train", "init_cache", "init_params"]

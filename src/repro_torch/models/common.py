@@ -1,11 +1,10 @@
-"""Shared model machinery for serving: runtime policy, norms, RoPE, init,
-logits.
+"""Shared model machinery: runtime policy, norms, RoPE, init, logits and the
+chunked cross-entropy loss.
 
 The counterpart of ``repro.models.common``, as plain functions on tensors.
-There is no sharding context: the port serves on one card (sharding is
+There is no sharding context: the port runs on one card (sharding is
 ROADMAP queue 1 item 14), and no ``use_pallas`` switch: on the card the
-attention kernel always runs.  ``chunked_cross_entropy`` comes with the
-training slice.
+kernels always run.
 
 Wherever the JAX package multiplies ``compute_dtype`` operands with
 ``preferred_element_type=float32``, the port multiplies the operands,
@@ -21,17 +20,25 @@ from typing import Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 
 @dataclasses.dataclass(frozen=True)
 class Runtime:
-    """Dtype policy threaded through the model functions: parameters are
-    stored in ``param_dtype``, activations computed in ``compute_dtype``,
-    and scores and logits multiplied and summed in ``accum_dtype``."""
+    """Policy threaded through the model functions: parameters are stored in
+    ``param_dtype``, activations computed in ``compute_dtype``, and scores
+    and logits multiplied and summed in ``accum_dtype``; the rest are the
+    training knobs of the reference's ``Runtime`` (the mLSTM kernel's chunk
+    is fixed at 64 tokens, as the Pallas kernel's is)."""
 
     param_dtype: torch.dtype = torch.bfloat16
     compute_dtype: torch.dtype = torch.bfloat16
     accum_dtype: torch.dtype = torch.float32
+    lstm_bf16_states: bool = False     # stash xLSTM outputs in bf16
+    ce_chunk: int = 512                # seq chunk for cross-entropy
+    ssm_chunk: int = 256               # chunk of the stateful mLSTM scan
+    remat_policy: str = "full"         # none | dots | full
+    z_loss: float = 1e-4
 
 
 # --------------------------------------------------------------------------- #
@@ -161,3 +168,43 @@ def logits_for(x: torch.Tensor, w_head: torch.Tensor, rt: Runtime,
     if Vp != vocab_size:
         logits[..., vocab_size:] = -1e30
     return logits
+
+
+# --------------------------------------------------------------------------- #
+# Chunked cross-entropy (never materializes (B, S, V) logits)
+# --------------------------------------------------------------------------- #
+def _ce_chunk(xc, w_head, lc, mc, rt: Runtime, vocab_size: int):
+    logits = accum_product(xc, w_head, rt)
+    if w_head.shape[1] != vocab_size:
+        col = torch.arange(w_head.shape[1], device=logits.device)
+        logits = torch.where(col < vocab_size, logits, -1e30)
+    lse = torch.logsumexp(logits, dim=-1)                       # (B, C)
+    ll = torch.gather(logits, -1, lc.clamp(min=0).long()[..., None])[..., 0]
+    return ((lse - ll) * mc).sum(), (lse.square() * mc).sum()
+
+
+def chunked_cross_entropy(x: torch.Tensor, w_head: torch.Tensor,
+                          labels: torch.Tensor, mask: torch.Tensor,
+                          rt: Runtime, vocab_size: int
+                          ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Mean CE over masked positions + ``rt.z_loss`` times the mean squared
+    log-normalizer; returns (loss, token count).
+
+    x (B, S, d) final hidden; w_head (d, Vp), the padded columns past
+    ``vocab_size`` masked to -1e30; labels, mask (B, S).  Runs over S in
+    ``rt.ce_chunk`` chunks (one chunk of S when S is no multiple), each
+    under ``torch.utils.checkpoint``, so the backward recomputes a chunk's
+    logits instead of keeping them."""
+    B, S, _ = x.shape
+    C = min(rt.ce_chunk, S)
+    if S % C != 0:
+        C = S
+    mf = mask.to(torch.float32)
+    ce_sum = zl_sum = x.new_zeros((), dtype=torch.float32)
+    for s0 in range(0, S, C):
+        sl = slice(s0, s0 + C)
+        ce, zl = checkpoint(_ce_chunk, x[:, sl], w_head, labels[:, sl],
+                            mf[:, sl], rt, vocab_size, use_reentrant=False)
+        ce_sum, zl_sum = ce_sum + ce, zl_sum + zl
+    denom = mf.sum().clamp(min=1.0)
+    return ce_sum / denom + rt.z_loss * zl_sum / denom, denom

@@ -1,60 +1,89 @@
-"""Model assembly for serving the dense decoder family: embeddings -> layers
--> last-position logits and a KV cache.
+"""Model assembly: embeddings -> layers -> loss, or last-position logits and
+a cache.
 
-The counterpart of ``repro.models.transformer`` for configs whose period is
-``LayerSpec("attn", "dense")`` (smollm-135m, phi3-mini-3.8b, yi-34b,
-command-r-35b and internvl2-76b with its stubbed vision prefix).  The JAX
-package stacks every layer's parameters on a leading ``n_periods`` axis and
-scans over it; the port keeps one parameter dict per layer in
-``params["blocks"]`` and one cache dict per layer, and loops.
+The counterpart of ``repro.models.transformer`` for the configs whose
+layers are dense attention decoders (smollm-135m, phi3-mini-3.8b, yi-34b,
+command-r-35b and internvl2-76b with its stubbed vision prefix) or xLSTM
+blocks (xlstm-1.3b: a period of 8 layers, 7 mLSTM and 1 sLSTM, no FFN).
+The JAX package stacks each period position's parameters on a leading
+``n_periods`` axis and scans over it; the port keeps one parameter dict per
+layer in ``params["blocks"]`` (layer l has spec ``cfg.period[l % P]``), one
+cache dict per layer, and loops.
 
 Entry points:
+  * ``forward_train``   -> (loss, metrics)
   * ``forward_prefill`` -> (last-position logits, cache)
   * ``forward_decode``  -> (logits, cache updated in place)
-Mamba, mLSTM, sLSTM, MoE, cross-attention and the audio encoder, and
-``forward_train``, come with the training slice (ROADMAP queue 1 item 13b).
+``check_supported`` says what is served and what is trained: Mamba, MoE,
+cross-attention and the audio encoder come with the next slices, and
+training attention waits for a flash-attention backward.
 """
 from __future__ import annotations
 
+import functools
 from typing import Dict, List, Optional, Tuple
 
 import torch
+from torch.utils import checkpoint as ckpt
 
-from repro_torch.configs.base import ArchConfig
+from repro_torch.configs.base import ArchConfig, LayerSpec
 from repro_torch.models import attention as attn_mod
-from repro_torch.models.common import (Runtime, dense_init, logits_for,
-                                       norm_apply, norm_init,
-                                       sinusoidal_position_at,
+from repro_torch.models import xlstm as xlstm_mod
+from repro_torch.models.common import (Runtime, chunked_cross_entropy,
+                                       dense_init, logits_for, norm_apply,
+                                       norm_init, sinusoidal_position_at,
                                        sinusoidal_positions)
 from repro_torch.models.mlp import mlp, mlp_init
 
+AUX_KEYS = ("moe_lb_loss", "moe_router_z", "moe_drop_frac")
+NEXT_SLICES = ("the rest comes with the next slices of the model stack "
+               "(ROADMAP queue 1 item 13c: jamba's mamba, moe and ssm_scan, "
+               "and a flash-attention backward; item 13d: dense training, "
+               "whisper's encoder and cross-attention)")
 
-def check_supported(cfg: ArchConfig) -> None:
-    """Raise for what this slice of the port does not serve yet."""
-    missing = sorted({what for spec in cfg.period for what, on in (
-        (spec.mixer, spec.mixer != "attn"), ("moe", spec.ffn == "moe"),
-        ("ffn=none", spec.ffn == "none"),
-        ("cross_attn", spec.cross_attn)) if on})
+
+def check_supported(cfg: ArchConfig, train: bool = False) -> None:
+    """Raise ``NotImplementedError`` for what this slice of the port does not
+    serve (``train=False``) or train (``train=True``) yet."""
+    missing = set()
+    for spec in cfg.period:
+        if spec.mixer == "mamba" or (train and spec.mixer == "attn"):
+            missing.add(spec.mixer)
+        if spec.ffn == "moe":
+            missing.add("moe")
+        if spec.cross_attn:
+            missing.add("cross_attn")
     if cfg.encoder_layers:
-        missing.append("encoder_layers")
+        missing.add("encoder_layers")
     if missing:
         raise NotImplementedError(
-            f"{cfg.name}: the port does not serve {', '.join(missing)} yet; "
-            "it serves dense attention decoders, and the rest comes with the "
-            "model-stack training slice (ROADMAP queue 1 item 13b)")
+            f"{cfg.name}: the port does not {'train' if train else 'serve'} "
+            f"{', '.join(sorted(missing))} yet; it serves dense attention "
+            "decoders and xLSTM, and trains xLSTM; " + NEXT_SLICES)
+
+
+def layer_specs(cfg: ArchConfig) -> List[LayerSpec]:
+    """The spec of every layer, in order."""
+    return [cfg.period[i % len(cfg.period)] for i in range(cfg.n_layers)]
 
 
 # --------------------------------------------------------------------------- #
 # Init
 # --------------------------------------------------------------------------- #
-def _layer_init(gen: torch.Generator, cfg: ArchConfig, rt: Runtime) -> dict:
+def _layer_init(gen: torch.Generator, spec: LayerSpec, cfg: ArchConfig,
+                rt: Runtime) -> dict:
     dev = gen.device
-    return {"mixer_norm": norm_init(cfg.norm, cfg.d_model, rt.param_dtype,
-                                    dev),
-            "mixer": attn_mod.attn_init(gen, cfg, rt),
-            "ffn_norm": norm_init(cfg.norm, cfg.d_model, rt.param_dtype,
-                                  dev),
-            "ffn": mlp_init(gen, cfg, rt)}
+    p = {"mixer_norm": norm_init(cfg.norm, cfg.d_model, rt.param_dtype, dev)}
+    if spec.mixer == "attn":
+        p["mixer"] = attn_mod.attn_init(gen, cfg, rt)
+    elif spec.mixer == "mlstm":
+        p["mixer"] = xlstm_mod.mlstm_init(gen, cfg, rt)
+    else:
+        p["mixer"] = xlstm_mod.slstm_init(gen, cfg, rt)
+    if spec.ffn == "dense":
+        p["ffn_norm"] = norm_init(cfg.norm, cfg.d_model, rt.param_dtype, dev)
+        p["ffn"] = mlp_init(gen, cfg, rt)
+    return p
 
 
 def init_params(gen: torch.Generator, cfg: ArchConfig, rt: Runtime) -> dict:
@@ -67,8 +96,8 @@ def init_params(gen: torch.Generator, cfg: ArchConfig, rt: Runtime) -> dict:
     }
     if not cfg.tie_embeddings:
         params["lm_head"] = dense_init(gen, d, (d, Vp), rt.param_dtype)
-    params["blocks"] = [_layer_init(gen, cfg, rt)
-                        for _ in range(cfg.n_layers)]
+    params["blocks"] = [_layer_init(gen, spec, cfg, rt)
+                        for spec in layer_specs(cfg)]
     return params
 
 
@@ -96,14 +125,118 @@ def _uses_sinusoidal(cfg: ArchConfig) -> bool:
 
 
 # --------------------------------------------------------------------------- #
+# Train
+# --------------------------------------------------------------------------- #
+def _apply_block(spec: LayerSpec, p: dict, x: torch.Tensor, cfg: ArchConfig,
+                 rt: Runtime) -> torch.Tensor:
+    h = norm_apply(cfg.norm, x, p["mixer_norm"])
+    if spec.mixer == "attn":
+        mixed = attn_mod.attention(p["mixer"], h, cfg, rt)
+    elif spec.mixer == "mlstm":
+        mixed = xlstm_mod.mlstm(p["mixer"], h, cfg, rt)
+    else:
+        mixed = xlstm_mod.slstm(p["mixer"], h, cfg, rt)
+    x = x + mixed
+    if spec.ffn == "dense":
+        x = x + mlp(p["ffn"], norm_apply(cfg.norm, x, p["ffn_norm"]), cfg,
+                    rt)
+    return x
+
+
+def _apply_period(x: torch.Tensor, layers: List[dict],
+                  specs: List[LayerSpec], cfg: ArchConfig,
+                  rt: Runtime) -> torch.Tensor:
+    for spec, p in zip(specs, layers):
+        x = _apply_block(spec, p, x, cfg, rt)
+    return x
+
+
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    """Keep the outputs of un-batched matrix products, recompute the rest:
+    the counterpart of JAX's ``dots_with_no_batch_dims_saveable``."""
+    from torch.utils.checkpoint import CheckpointPolicy
+    return (CheckpointPolicy.MUST_SAVE if op in _DOTS
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _remat(fn, rt: Runtime):
+    """``none``: keep every activation; ``full``: keep only each period's
+    input and recompute the period in the backward; ``dots``: recompute the
+    period but keep its un-batched matrix products."""
+    if rt.remat_policy == "none":
+        return fn
+    if rt.remat_policy == "full":
+        return functools.partial(ckpt.checkpoint, fn, use_reentrant=False)
+    if rt.remat_policy == "dots":
+        ctx = functools.partial(ckpt.create_selective_checkpoint_contexts,
+                                _dots_policy)
+        return functools.partial(ckpt.checkpoint, fn, use_reentrant=False,
+                                 context_fn=ctx)
+    raise ValueError(f"unknown remat policy {rt.remat_policy!r}")
+
+
+def _run_layers(params: dict, x: torch.Tensor, cfg: ArchConfig,
+                rt: Runtime) -> torch.Tensor:
+    P = len(cfg.period)
+    specs = list(cfg.period)
+    body = _remat(functools.partial(_apply_period, specs=specs, cfg=cfg,
+                                    rt=rt), rt)
+    blocks = params["blocks"]
+    for i in range(0, len(blocks), P):
+        x = body(x, blocks[i:i + P])
+    return x
+
+
+def forward_train(params: dict, batch: Dict[str, torch.Tensor],
+                  cfg: ArchConfig, rt: Runtime
+                  ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Mean next-token loss of ``batch["tokens"]`` against
+    ``batch["labels"]`` (B, S) (labels < 0 masked; a VLM's
+    ``batch["patches"]`` prepended and not scored), plus the z-loss.
+    Returns (loss, metrics): ``loss``, ``ce``, ``tokens`` and the MoE
+    auxiliaries (zero: no config the port runs has MoE)."""
+    check_supported(cfg)
+    tokens, labels = batch["tokens"], batch["labels"]
+    x = _embed_tokens(params, tokens, rt)
+    n_prefix = 0
+    if cfg.vision_tokens:
+        x = torch.cat([batch["patches"].to(rt.compute_dtype), x], dim=1)
+        n_prefix = cfg.vision_tokens
+    if _uses_sinusoidal(cfg):
+        x = _add_sinusoidal(x)
+    x = _run_layers(params, x, cfg, rt)
+    x = norm_apply(cfg.norm, x, params["final_norm"])
+    if n_prefix:
+        x = x[:, n_prefix:]
+    loss, denom = chunked_cross_entropy(
+        x, _head_weights(params, cfg), labels, labels >= 0, rt,
+        cfg.vocab_size)
+    zero = loss.new_zeros(())
+    metrics = {"loss": loss, "ce": loss, "tokens": denom,
+               **{k: zero for k in AUX_KEYS}}
+    return loss, metrics
+
+
+# --------------------------------------------------------------------------- #
 # Prefill / decode (serving)
 # --------------------------------------------------------------------------- #
 def init_cache(cfg: ArchConfig, rt: Runtime, B: int, S: int,
                device) -> List[Dict[str, torch.Tensor]]:
-    """One zeroed {"k", "v"} (B, S, KV, hd) cache per layer."""
+    """One zeroed cache dict per layer: {"k", "v"} (B, S, KV, hd) for
+    attention, the recurrent state for mLSTM and sLSTM."""
     check_supported(cfg)
-    return [attn_mod.attn_cache_init(cfg, rt, B, S, device)
-            for _ in range(cfg.n_layers)]
+    caches = []
+    for spec in layer_specs(cfg):
+        if spec.mixer == "attn":
+            caches.append(attn_mod.attn_cache_init(cfg, rt, B, S, device))
+        elif spec.mixer == "mlstm":
+            caches.append(xlstm_mod.mlstm_cache_init(cfg, rt, B, device))
+        else:
+            caches.append(xlstm_mod.slstm_cache_init(cfg, rt, B, device))
+    return caches
 
 
 def forward_prefill(params: dict, batch: Dict[str, torch.Tensor],
@@ -113,9 +246,10 @@ def forward_prefill(params: dict, batch: Dict[str, torch.Tensor],
     """Run the prompt (``batch["tokens"]`` (B, S), and ``batch["patches"]``
     (B, vision_tokens, d) for a VLM, prepended) through every layer.
 
-    Returns the (B, Vp) fp32 logits of the last position and a cache of
-    ``max(cache_size, prefix + S)`` positions holding the prompt's keys and
-    values (the rest zeros)."""
+    Returns the (B, Vp) fp32 logits of the last position and the cache:
+    for attention ``max(cache_size, prefix + S)`` positions holding the
+    prompt's keys and values (the rest zeros), for mLSTM and sLSTM the
+    state after the last token."""
     check_supported(cfg)
     tokens = batch["tokens"]
     B = tokens.shape[0]
@@ -127,14 +261,23 @@ def forward_prefill(params: dict, batch: Dict[str, torch.Tensor],
 
     S = x.shape[1]
     cache = init_cache(cfg, rt, B, max(cache_size or 0, S), x.device)
-    for p, c in zip(params["blocks"], cache):
+    for spec, p, c in zip(layer_specs(cfg), params["blocks"], cache):
         h = norm_apply(cfg.norm, x, p["mixer_norm"])
-        mixed, (k, v) = attn_mod.attention_with_kv(p["mixer"], h, cfg, rt)
-        c["k"][:, :S] = k
-        c["v"][:, :S] = v
+        if spec.mixer == "attn":
+            mixed, (k, v) = attn_mod.attention_with_kv(p["mixer"], h, cfg,
+                                                       rt)
+            c["k"][:, :S] = k
+            c["v"][:, :S] = v
+        elif spec.mixer == "mlstm":
+            mixed, st = xlstm_mod.mlstm_with_state(p["mixer"], h, cfg, rt)
+            c.update(st)
+        else:
+            mixed, st = xlstm_mod.slstm_with_state(p["mixer"], h, cfg, rt)
+            c.update(st)
         x = x + mixed
-        x = x + mlp(p["ffn"], norm_apply(cfg.norm, x, p["ffn_norm"]), cfg,
-                    rt)
+        if spec.ffn == "dense":
+            x = x + mlp(p["ffn"], norm_apply(cfg.norm, x, p["ffn_norm"]),
+                        cfg, rt)
     x = norm_apply(cfg.norm, x, params["final_norm"])
     logits = logits_for(x[:, -1:], _head_weights(params, cfg), rt,
                         cfg.vocab_size)
@@ -153,11 +296,21 @@ def forward_decode(params: dict, tokens: torch.Tensor,
     if _uses_sinusoidal(cfg):
         pos_row = sinusoidal_position_at(cache_len, x.shape[-1], x.device)
         x = x + pos_row[None, None].to(x.dtype)
-    for p, c in zip(params["blocks"], cache):
+    for spec, p, c in zip(layer_specs(cfg), params["blocks"], cache):
         h = norm_apply(cfg.norm, x, p["mixer_norm"])
-        x = x + attn_mod.attn_decode(p["mixer"], h, c, cache_len, cfg, rt)
-        x = x + mlp(p["ffn"], norm_apply(cfg.norm, x, p["ffn_norm"]), cfg,
-                    rt)
+        if spec.mixer == "attn":
+            mixed = attn_mod.attn_decode(p["mixer"], h, c, cache_len, cfg,
+                                         rt)
+        elif spec.mixer == "mlstm":
+            mixed, st = xlstm_mod.mlstm_decode(p["mixer"], h, c, cfg, rt)
+            c.update(st)
+        else:
+            mixed, st = xlstm_mod.slstm_decode(p["mixer"], h, c, cfg, rt)
+            c.update(st)
+        x = x + mixed
+        if spec.ffn == "dense":
+            x = x + mlp(p["ffn"], norm_apply(cfg.norm, x, p["ffn_norm"]),
+                        cfg, rt)
     x = norm_apply(cfg.norm, x, params["final_norm"])
     logits = logits_for(x, _head_weights(params, cfg), rt, cfg.vocab_size)
     return logits[:, 0], cache

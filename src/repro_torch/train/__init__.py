@@ -1,1 +1,1 @@
-"""Step functions; the serving half (prefill, greedy decode) so far."""
+"""Step functions (train, prefill, greedy decode) and checkpoints."""

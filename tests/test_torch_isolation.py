@@ -1,5 +1,7 @@
 """PyTorch port isolation: the port and ``chip_smoke.py`` import nothing of JAX
-or of the JAX package, and entry points never fall back to the CPU."""
+or of the JAX package (the tuner, serving and training entry points run in
+a process that blocks both), and entry points never fall back to the
+CPU."""
 import subprocess
 import sys
 import textwrap
@@ -34,6 +36,10 @@ _BLOCKED_RUN = textwrap.dedent("""
     import repro_torch.core.tpe, repro_torch.core.async_tuner
     import repro_torch.configs, repro_torch.models, repro_torch.launch.serve
     import repro_torch.kernels.flash_attention.ops, repro_torch.train.step
+    import repro_torch.kernels.mlstm_chunk.ops, repro_torch.models.xlstm
+    import repro_torch.launch.train, repro_torch.train.checkpoint
+    import repro_torch.optim.adamw, repro_torch.optim.compression
+    import repro_torch.data.pipeline, repro_torch.tree
     import chip_smoke
     from repro_torch.core import StudyBank
     for opt in ("bayesian", "tpe", ["bayesian", "tpe"]):
@@ -48,6 +54,11 @@ _BLOCKED_RUN = textwrap.dedent("""
     r = serve.run(serve.make_parser().parse_args(
         ["--device", "cpu", "--reduced", "--batch", "2", "--gen", "3"]))
     assert r["generated_shape"] == [2, 3] and r["logits_finite"]
+    from repro_torch.launch import train
+    r = train.run(train.make_parser().parse_args(
+        ["--device", "cpu", "--reduced", "--steps", "1", "--batch", "2",
+         "--seq", "8"]))
+    assert r["losses"][0] == r["losses"][0]
     bad = [m for m in sys.modules
            if m.split(".")[0] in ("jax", "jaxlib", "repro")]
     assert not bad, bad
@@ -102,7 +113,7 @@ def test_cpu_is_used_only_when_asked():
 
 
 @pytest.mark.parametrize("suite", ["gp_acquisition", "tpe_kde",
-                                   "flash_attention"])
+                                   "flash_attention", "mlstm_chunk"])
 def test_kernel_wrappers_have_no_fallback(suite):
     """A CUDA tensor reaches the kernel or an exception: the dispatch code
     holds no ``try`` around a launch."""

@@ -41,8 +41,11 @@ import chip_smoke  # noqa: E402
 
 DENSE = ["smollm-135m", "phi3-mini-3.8b", "yi-34b", "command-r-35b",
          "internvl2-76b"]
-UNPORTED = ["jamba-v0.1-52b", "xlstm-1.3b", "whisper-large-v3",
-            "qwen2-moe-a2.7b", "olmoe-1b-7b"]
+UNPORTED = ["jamba-v0.1-52b", "whisper-large-v3", "qwen2-moe-a2.7b",
+            "olmoe-1b-7b"]
+# one config per mixer or FFN the port serves or not but does not train yet
+UNTRAINED = {"attn": "smollm-135m", "mamba": "jamba-v0.1-52b",
+             "moe": "olmoe-1b-7b"}
 RT32 = Runtime(param_dtype=torch.float32, compute_dtype=torch.float32)
 RT16 = Runtime()
 TOL32 = 5e-5
@@ -184,6 +187,29 @@ def test_sdpa_cpu_calls_do_not_count_as_launches():
     q, k, v = (torch.as_tensor(a) for a in _qkv(1, 2, 2, 8, 8, 32))
     flash_ops.sdpa(q, k, v, causal=True)
     assert flash_ops.launches["flash_attention"] == n0
+
+
+def test_sdpa_under_grad_raises_on_the_card(monkeypatch):
+    """The kernel has no backward and its output no ``grad_fn``: on a CUDA
+    tensor (stubbed: the device check says cuda for these CPU tensors) a
+    call under grad with an input that requires grad raises before any
+    build or launch, naming the ROADMAP item; without grad, or with no
+    input requiring grad, the call goes on to the kernel."""
+    def no_build():
+        raise LookupError("reached the kernel build")
+
+    monkeypatch.setattr(flash_ops, "_on_card", lambda t: True)
+    monkeypatch.setattr(flash_ops, "library", no_build)
+    q, k, v = (torch.as_tensor(a) for a in _qkv(1, 2, 2, 8, 8, 32))
+    for grad_in in ((q.clone().requires_grad_(), k, v),
+                    (q, k, v.clone().requires_grad_())):
+        with pytest.raises(NotImplementedError,
+                           match="ROADMAP queue 1 item 13c"):
+            flash_ops.sdpa(*grad_in, causal=True)
+        with torch.no_grad(), pytest.raises(LookupError):
+            flash_ops.sdpa(*grad_in, causal=True)
+    with pytest.raises(LookupError):
+        flash_ops.sdpa(q, k, v, causal=True)
 
 
 # --------------------------------------------------------------------------- #
@@ -411,11 +437,30 @@ def test_init_params_layout_and_cache():
 @pytest.mark.parametrize("arch", UNPORTED)
 def test_unported_families_raise(arch):
     cfg = get_config(arch, reduced=True)
-    with pytest.raises(NotImplementedError, match="item 13b"):
+    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 13"):
         init_params(torch.Generator(), cfg, RT32)
     with pytest.raises(NotImplementedError):
         forward_prefill({}, {"tokens": torch.zeros(1, 4, dtype=torch.int32)},
                         cfg, RT32)
+
+
+@pytest.mark.parametrize("what", sorted(UNTRAINED))
+def test_training_unported_mixers_raises(what):
+    """Training raises for attention (no flash-attention backward yet),
+    Mamba and MoE, on any device, and names the next slices; serving a
+    dense decoder still works."""
+    from repro_torch.train.step import (TrainHyper, init_train_state,
+                                        make_train_step)
+    from repro_torch.models import check_supported
+    cfg = get_config(UNTRAINED[what], reduced=True)
+    for call in (lambda: make_train_step(cfg, RT32, TrainHyper()),
+                 lambda: init_train_state(torch.Generator(), cfg, RT32),
+                 lambda: check_supported(cfg, train=True)):
+        with pytest.raises(NotImplementedError,
+                           match=f"not train .*{what}.*item 13c"):
+            call()
+    if what == "attn":
+        check_supported(cfg)
 
 
 # --------------------------------------------------------------------------- #
@@ -433,3 +478,22 @@ def test_cuda_flash_kernel_matches_plain_version(shape):
     err, tol, _ = chip_smoke.flash_error(shape, torch.device("cuda"))
     assert flash_ops.launches["flash_attention"] == n0 + 1
     assert err <= tol, (shape, err, tol)
+
+
+@pytest.mark.cuda
+def test_cuda_sdpa_under_grad_raises():
+    """On the card a call under grad with an input that requires grad
+    raises instead of returning an output without gradient; under
+    ``no_grad`` the kernel runs."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    q, k, v = (torch.as_tensor(a, device="cuda")
+               for a in _qkv(1, 2, 2, 64, 64, 32))
+    n0 = flash_ops.launches["flash_attention"]
+    with pytest.raises(NotImplementedError, match="item 13c"):
+        flash_ops.sdpa(q.requires_grad_(), k, v, causal=True)
+    assert flash_ops.launches["flash_attention"] == n0
+    with torch.no_grad():
+        out = flash_ops.sdpa(q, k, v, causal=True)
+    assert out.grad_fn is None
+    assert flash_ops.launches["flash_attention"] == n0 + 1

@@ -71,8 +71,18 @@ def test_parser_has_the_reference_flags():
 
 
 def test_run_rejects_unported_families():
-    with pytest.raises(NotImplementedError, match="item 13b"):
+    with pytest.raises(NotImplementedError, match="item 13d: .*whisper"):
         serve.run(_args("--arch", "whisper-large-v3"))
+
+
+def test_run_serves_xlstm():
+    """The reduced xLSTM serves through the driver: stateful prefill and
+    decode, finite logits, and no mLSTM kernel launch in either stage."""
+    r = serve.run(_args("--arch", "xlstm-1.3b", "--batch", "2",
+                        "--prompt-len", "70", "--gen", "3"))
+    assert r["logits_finite"] and r["generated_shape"] == [2, 3]
+    assert r["mlstm_launches"] == {"prefill": 0, "decode": 0}
+    assert r["flash_launches"] == {"prefill": 0, "decode": 0}
 
 
 @pytest.mark.parametrize("arch", ["smollm-135m", "internvl2-76b"])
