@@ -6,17 +6,22 @@
                                           # serving and training steps
 
 Phases:
-  1. setup: card name and power limit, build the CUDA kernels of the four
+  1. setup: card name and power limit, build the CUDA kernels of the five
      suites (``src/repro_torch/kernels/{gp_acquisition,tpe_kde,
-     flash_attention,mlstm_chunk}/csrc``) with nvcc (sm_90a), one nvcc
-     each, started together, and print what ptxas says about them;
+     flash_attention,mlstm_chunk,ssm_scan}/csrc``) with nvcc (sm_90a), one
+     nvcc each, started together, and print what ptxas says about them;
   2. each kernel against its plain PyTorch version on the card, with
      timings: the tuner kernels at the fleet path's shapes, at a ragged
      small shape and at a large bucket; flash attention at the served
      models' prefill shapes, yi-34b's width, a ragged and a cross shape,
      beside ``scaled_dot_product_attention`` as a yardstick; the mLSTM
      forward and backward kernels at xlstm-1.3b's training shape, a reduced
-     head size, a ragged length and a case where the clamp decides;
+     head size, a ragged length and a case where the clamp decides; the
+     selective-scan forward (with and without the final state) and backward
+     kernels at jamba's training shape, a reduced width, a ragged length,
+     the kernel tests' decaying draw and an Abar near zero; the flash
+     backward at jamba's attention shape, phi3-mini's prefill shape, a
+     ragged length and head size 16, beside the library's backward;
   3. the GP fleet: a 64-study ``StudyBank`` over Hartmann-6 with the default
      candidate budget, 200 observations each, three rounds of ask_all(4) ->
      tell, with the kernels' launch counts read around the run;
@@ -48,7 +53,18 @@ Phases:
      run on the CPU plain path from a copy of the card's state: losses and
      grad norms within a tolerance;
  12. xlstm-1.3b served at full width and depth in bf16 (B 2, a 256-token
-     prompt, 8 tokens): stateful prefill and decode, no kernel.
+     prompt, 8 tokens): stateful prefill and decode, no kernel;
+ 13. training: jamba-v0.1-52b at full width, its period cut to one Mamba +
+     dense, one Mamba + MoE and one attention + dense layer, bf16, B 1,
+     S 2048, four AdamW steps with finite losses and grad norms; per step
+     the scan's forward and backward kernels launch once per Mamba layer
+     and the flash forward and backward once per attention layer;
+ 14. the reduced jamba trained 5 fp32 steps on the card, each step also
+     run on the CPU plain path from a copy of the card's state, with phase
+     11's tolerances;
+ 15. the cut jamba served in bf16 (B 2, a 1024-token prompt, 16 tokens):
+     one scan launch per Mamba layer and one flash launch in prefill, none
+     in decode; then the reduced fp32 jamba's logits card vs CPU.
 
 The second-to-last line is a JSON object with one entry per kernel; the last
 line is ``{"ok": true, "device": {...}}``.  Any failure exits non-zero before
@@ -82,6 +98,8 @@ from repro_torch.kernels.flash_attention import ref as flash_ref  # noqa
 from repro_torch.kernels.gp_acquisition import ops, ref  # noqa: E402
 from repro_torch.kernels.mlstm_chunk import ops as mlstm_ops  # noqa: E402
 from repro_torch.kernels.mlstm_chunk import ref as mlstm_ref  # noqa: E402
+from repro_torch.kernels.ssm_scan import ops as ssm_ops  # noqa: E402
+from repro_torch.kernels.ssm_scan import ref as ssm_ref  # noqa: E402
 from repro_torch.kernels.tpe_kde import ops as tpe_ops  # noqa: E402
 from repro_torch.kernels.tpe_kde import ref as tpe_ref  # noqa: E402
 from repro_torch.data.pipeline import DataConfig, SyntheticLM  # noqa
@@ -869,6 +887,292 @@ def check_mlstm_kernels(dev, reps_main: int):
 
 
 # --------------------------------------------------------------------------- #
+# selective-scan kernels, forward and backward (phase 2)
+# --------------------------------------------------------------------------- #
+# (tag, B, S, di, N, inputs): jamba's training shape (one Mamba layer at
+# B 1, S 2048, d_inner 8192, N 16), the reduced config's width, a ragged
+# length with a d_inner whose 16 x 200 states fill no whole block, the
+# kernel-test draw (Abar in [0.5, 0.999], as tests/test_kernels.py draws
+# it) and an Abar near zero (the backward never divides by it).  "model"
+# inputs are the discretisation the mixer makes: Abar = exp(delta A) with
+# delta = softplus(N(-4.6, 1)) and A = -(1..N), Bx = delta x B.
+SSM_SHAPES = [
+    ("jamba train", 1, 2048, 8192, 16, "model"),
+    ("reduced", 2, 256, 128, 8, "model"),
+    ("ragged", 2, 1000, 200, 16, "model"),
+    ("decay", 2, 512, 256, 16, "decay"),
+    ("tiny Abar", 1, 300, 64, 16, "tiny"),
+]
+SSM_MAIN = "jamba train"
+# small shapes for the card test (tests/test_torch_mamba.py)
+SSM_CARD_TEST_SHAPES = [
+    ("reduced-ragged", 2, 130, 128, 8, "model"),
+    ("decay-n4", 1, 200, 40, 4, "decay"),
+    ("tiny-n32", 1, 70, 16, 32, "tiny"),
+]
+# max abs error of each output over the largest magnitude of the plain
+# version's: both walk the same recurrence in fp32, the kernel with fused
+# multiply-adds and its own order of the sums over N (y) and over d_inner
+# (dC); with Abar near 1 a rounding lives ~1/(1 - Abar) steps
+SSM_RTOL = 5e-5
+SSM_OUTPUTS = ("y", "h_S", "dAbar", "dBx", "dC")
+
+
+def ssm_inputs(shape, dev, seed=0):
+    """Abar, Bx (B, S, di, N), C (B, S, N), an upstream gradient dy (B, S,
+    di) and dh_S (B, di, N), fp32, drawn on ``dev`` from ``seed``."""
+    _, B, S, di, N, kind = shape
+    g = torch.Generator(device=dev).manual_seed(seed)
+
+    def randn(*size):
+        return torch.randn(size, generator=g, device=dev)
+
+    C, dy, dhS = randn(B, S, N), randn(B, S, di), randn(B, di, N)
+    if kind == "model":
+        delta = torch.nn.functional.softplus(randn(B, S, di) - 4.6)
+        A = -torch.arange(1, N + 1, dtype=torch.float32, device=dev)
+        Abar = torch.exp(delta[..., None] * A)
+        Bx = (delta * randn(B, S, di))[..., None] * randn(B, S, 1, N)
+    else:
+        hi = 1e-3 if kind == "tiny" else 0.999
+        lo = 0.0 if kind == "tiny" else 0.5
+        Abar = lo + (hi - lo) * torch.rand((B, S, di, N), generator=g,
+                                           device=dev)
+        Bx = 0.1 * randn(B, S, di, N)
+    return Abar, Bx, C, dy, dhS
+
+
+def ssm_error(shape, dev, seed=0):
+    """Both kernels against the plain versions on the same inputs at one
+    shape: y and h_S against ``ref.ssm_scan_ref`` (the forward with h_S
+    and the chunk states kept for the backward, and again without either,
+    which must give the same y bit for bit), the gradients for dy and dh_S
+    against ``ref.ssm_scan_bwd_ref``.  Returns ({output: (max_abs_err,
+    tolerance)}, inputs, chunk states)."""
+    A, X, C, dy, dhS = ssm_inputs(shape, dev, seed)
+    y, hS, hck = ssm_ops.forward(A, X, C, return_state=True, keep=True)
+    y2, no_state, no_chunks = ssm_ops.forward(A, X, C)
+    if not torch.equal(y, y2) or no_state is not None or \
+            no_chunks is not None:
+        raise AssertionError("the forward kernel's y depends on writing "
+                             "h_S and the chunk states")
+    grads = ssm_ops.backward(A, X, C, hck, dy, dhS)
+    want_y, want_h = ssm_ref.ssm_scan_ref(A, X, C, return_state=True)
+    want = (want_y, want_h) + ssm_ref.ssm_scan_bwd_ref(A, X, C, dy, dhS)
+    errs = {}
+    for name, got, ref_t in zip(SSM_OUTPUTS, (y, hS) + grads, want):
+        assert bool(torch.isfinite(got).all()), name
+        errs[name] = (_max_err(got, ref_t),
+                      SSM_RTOL * float(ref_t.abs().max()))
+    return errs, (A, X, C, dy, dhS), hck
+
+
+def ssm_bound(shape):
+    """Least time of each direction at one shape, by bytes: Abar and Bx
+    read once and y written once (with C) in the forward; Abar, Bx, C and
+    dy read once and dAbar, dBx and dC written once in the backward.  The
+    operations (2 flops per state element and step for the update and 2 for
+    y; 6 in the backward) are far below the fp32 rate's share.  Returns
+    {direction: (bound_ms, by, flops, bytes)}."""
+    _, B, S, di, N, _ = shape
+    big, c, y = B * S * di * N, B * S * N, B * S * di
+    out = {}
+    for name, flops, nbytes in (
+            ("forward", 4 * big, 4 * (2 * big + c + y)),
+            ("backward", 6 * big, 4 * (4 * big + 2 * c + y))):
+        t_ops, t_bytes = flops / PEAK_FP32, nbytes / PEAK_BYTES
+        out[name] = (max(t_ops, t_bytes) * 1e3,
+                     "operations" if t_ops >= t_bytes else "bytes", flops,
+                     nbytes)
+    return out
+
+
+def check_ssm_kernels(dev, reps_main: int):
+    """Phase 2, selective scan: both kernels against the plain versions at
+    the ``SSM_SHAPES``, each timed beside the plain version (the sequential
+    recurrence, and autograd of it) and the bound (no single PyTorch call
+    computes the scan: library_ms null).  Returns the records of the kernels
+    line (worst error over all shapes; times and bound at ``SSM_MAIN``)."""
+    recs = {"ssm_scan": {"max_abs_err": 0.0},
+            "ssm_scan_bwd": {"max_abs_err": 0.0}}
+    for shape in SSM_SHAPES:
+        tag, B, S, di, N, kind = shape
+        errs, (A, X, C, dy, dhS), hck = ssm_error(shape, dev)
+        torch.cuda.synchronize()
+        desc = f"B={B} S={S} di={di} N={N} ({kind} inputs)"
+        for name, (err, tol) in errs.items():
+            ok = err <= tol
+            log(f"[ssm] {tag} {desc} {name}: max_abs_err={err:.3e} "
+                f"tol={tol:.3e} {'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise AssertionError(f"ssm {tag} {name} outside tolerance")
+            kern = "ssm_scan" if name in ("y", "h_S") else "ssm_scan_bwd"
+            recs[kern]["max_abs_err"] = max(recs[kern]["max_abs_err"], err)
+        reps = reps_main if tag == SSM_MAIN else 5
+        xs = [t.clone().requires_grad_() for t in (A, X, C)]
+        graph = ssm_ref.ssm_scan_ref(*xs)
+        times = {
+            "forward": (
+                cuda_ms(lambda: ssm_ops.forward(A, X, C, keep=True), reps),
+                cuda_ms(lambda: ssm_ref.ssm_scan_ref(A, X, C), 3, warmup=1)),
+            "backward": (
+                cuda_ms(lambda: ssm_ops.backward(A, X, C, hck, dy), reps),
+                cuda_ms(lambda: torch.autograd.grad(graph, xs, dy,
+                                                    retain_graph=True),
+                        3, warmup=1))}
+        for (direction, (ms, plain)), (_, (b_ms, by, flops, nbytes)) in zip(
+                times.items(), ssm_bound(shape).items()):
+            log(f"[ssm] {tag} {direction}: kernel {ms:.4f} ms, plain "
+                f"{plain:.4f} ms, bound {b_ms:.4f} ms ({by}: "
+                f"{nbytes / 1e9:.3f} GB at 3.35 TB/s, {flops / 1e9:.2f} "
+                f"GFLOP at 67 (fp32) TFLOP/s); kernel at "
+                f"{nbytes / ms / 1e9:.1f} GB/s")
+            if tag == SSM_MAIN:
+                kern = "ssm_scan" if direction == "forward" else \
+                    "ssm_scan_bwd"
+                recs[kern].update(ms=ms, plain_ms=plain, library_ms=None,
+                                  bound_ms=b_ms, bound_by=by)
+        del A, X, C, dy, dhS, hck, xs, graph
+        torch.cuda.empty_cache()
+    return recs
+
+
+# --------------------------------------------------------------------------- #
+# flash attention, backward (phase 2)
+# --------------------------------------------------------------------------- #
+# jamba's attention layer in training (B 1, S 2048, 32 heads over 8 KV
+# heads of 128, bf16), phi3-mini's prefill shape, a ragged length and a
+# head size of 16
+FLASH_BWD_SHAPES = [
+    ("jamba attention", 1, 2048, 2048, 32, 8, 128, True, torch.bfloat16),
+    ("phi3-mini-3.8b prefill", 4, 2048, 2048, 32, 32, 96, True,
+     torch.bfloat16),
+    ("ragged causal", 2, 1000, 1000, 9, 3, 64, True, torch.float32),
+    ("hd 16", 2, 300, 300, 4, 2, 16, True, torch.float32),
+]
+FLASH_BWD_MAIN = "jamba attention"
+# small shapes for the card test (tests/test_torch_models.py)
+FLASH_BWD_CARD_TEST_SHAPES = [
+    ("bf16-gqa-hd64", 2, 256, 256, 9, 3, 64, True, torch.bfloat16),
+    ("fp32-ragged-hd96", 1, 200, 200, 4, 4, 96, True, torch.float32),
+    ("fp32-rect-causal-hd24", 2, 77, 300, 4, 2, 24, True, torch.float32),
+    ("fp32-cross-hd32", 2, 77, 130, 4, 1, 32, False, torch.float32),
+]
+# the gradients against autograd of the plain version, over the largest
+# magnitude of each: fp32, 1e-4 (both compute in fp32; a gradient sums
+# up to Sk products of terms of both signs in another order).  bf16 adds
+# 2^-7: the kernel rounds its output to bf16 before D = rowsum(dO o O),
+# where autograd of the plain version uses the unrounded fp32 output, and
+# rounds the gradients to bf16
+FLASH_BWD_RTOL = 1e-4
+FLASH_BWD_RTOL_BF16 = 2.0 ** -7
+
+
+def flash_bwd_error(shape, dev, seed=0):
+    """The forward kernel's log-sum-exp and the backward kernel's
+    gradients against the plain versions on the same inputs at one shape:
+    lse against ``ref.attention_lse_ref``, (dq, dk, dv) against autograd of
+    ``ref.attention_ref``.  Returns ({output: (max_abs_err, tolerance)},
+    (q, k, v, out, lse, dout))."""
+    q, k, v = flash_inputs(shape, dev, seed)
+    causal = shape[7]
+    g = torch.Generator(device=dev).manual_seed(seed + 1)
+    dout = torch.randn(q.shape, generator=g, device=dev).to(q.dtype)
+    out, lse = flash_ops.forward(q, k, v, causal, with_lse=True)
+    grads = flash_ops.backward(q, k, v, out, lse, dout, causal)
+    xs = [t.clone().requires_grad_() for t in (q, k, v)]
+    want = torch.autograd.grad(flash_ref.attention_ref(*xs, causal=causal),
+                               xs, dout)
+    _, want_lse = flash_ref.attention_lse_ref(q, k, v, causal=causal)
+    rtol = FLASH_BWD_RTOL + (FLASH_BWD_RTOL_BF16
+                             if q.dtype == torch.bfloat16 else 0.0)
+    errs = {"lse": (_max_err(lse, want_lse),
+                    FLASH_BWD_RTOL * float(want_lse.abs().max()))}
+    for name, got, w in zip(("dq", "dk", "dv"), grads, want):
+        assert bool(torch.isfinite(got).all()), name
+        errs[name] = (_max_err(got.float(), w.float()),
+                      rtol * float(w.float().abs().max()))
+    return errs, (q, k, v, out, lse, dout)
+
+
+def flash_bwd_bound(shape):
+    """Least time of one backward call: five products of the unmasked
+    (q, k) pairs (S, dP, dV, dK, dQ; 2 hd flops each per pair and head)
+    over the dense bf16 tensor-core rate (the fp32 rate for fp32 inputs),
+    and q, k, v, out, dout and lse read once and dq, dk, dv written once
+    over the memory rate.  Returns (bound_ms, by, flops, bytes)."""
+    _, B, Sq, Sk, H, KV, hd, causal, dtype = shape
+    _, _, fwd_flops, _ = flash_bound(shape)
+    flops = fwd_flops * 5 / 2
+    es = 2 if dtype == torch.bfloat16 else 4
+    nbytes = es * (4 * B * Sq * H * hd + 4 * B * Sk * KV * hd) \
+        + 4 * B * H * Sq
+    t_ops = flops / (PEAK_BF16 if dtype == torch.bfloat16 else PEAK_FP32)
+    t_bytes = nbytes / PEAK_BYTES
+    return (max(t_ops, t_bytes) * 1e3,
+            "operations" if t_ops >= t_bytes else "bytes", flops, nbytes)
+
+
+def library_sdpa_bwd(q, k, v, dout, causal):
+    """The backward alone of ``scaled_dot_product_attention`` under
+    autograd on the same inputs (its graph built once); a yardstick timed
+    here only, never called by the port."""
+    import torch.nn.functional as F
+    xs = [t.transpose(1, 2).contiguous().requires_grad_() for t in (q, k, v)]
+    out = F.scaled_dot_product_attention(*xs, is_causal=causal,
+                                         enable_gqa=True)
+    g = dout.transpose(1, 2).contiguous()
+    return lambda: torch.autograd.grad(out, xs, g, retain_graph=True)
+
+
+def check_flash_bwd_kernel(dev, reps_main: int):
+    """Phase 2, flash attention backward: the kernel against autograd of
+    the plain version at the ``FLASH_BWD_SHAPES``, each timed beside that
+    plain backward, the library's backward and the bound.  Returns the
+    record of the kernels line (worst error over all shapes; times and
+    bound at ``FLASH_BWD_MAIN``)."""
+    rec = {"max_abs_err": 0.0}
+    for shape in FLASH_BWD_SHAPES:
+        tag, B, Sq, Sk, H, KV, hd, causal, dtype = shape
+        errs, (q, k, v, out, lse, dout) = flash_bwd_error(shape, dev)
+        torch.cuda.synchronize()
+        desc = (f"B={B} Sq={Sq} Sk={Sk} H={H} KV={KV} hd={hd} "
+                f"{'causal' if causal else 'non-causal'} "
+                f"{str(dtype).split('.')[-1]}")
+        for name, (err, tol) in errs.items():
+            ok = err <= tol
+            log(f"[flash-bwd] {tag} {desc} {name}: max_abs_err={err:.3e} "
+                f"tol={tol:.3e} {'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise AssertionError(f"flash bwd {tag} {name} outside "
+                                     "tolerance")
+            if name != "lse":
+                rec["max_abs_err"] = max(rec["max_abs_err"], err)
+        reps = reps_main if tag == FLASH_BWD_MAIN else 5
+        ms = cuda_ms(lambda: flash_ops.backward(q, k, v, out, lse, dout,
+                                                causal), reps)
+        xs = [t.clone().requires_grad_() for t in (q, k, v)]
+        graph = flash_ref.attention_ref(*xs, causal=causal)
+        plain = cuda_ms(lambda: torch.autograd.grad(graph, xs, dout,
+                                                    retain_graph=True),
+                        3, warmup=1)
+        lib = cuda_ms(library_sdpa_bwd(q, k, v, dout, causal), reps)
+        b_ms, by, flops, nbytes = flash_bwd_bound(shape)
+        log(f"[flash-bwd] {tag}: kernel {ms:.4f} ms, plain {plain:.4f} ms, "
+            f"library backward {lib:.4f} ms, bound {b_ms:.4f} ms ({by}: "
+            f"{flops / 1e9:.2f} GFLOP at "
+            f"{'989 (bf16 tensor)' if dtype == torch.bfloat16 else '67 (fp32)'}"
+            f" TFLOP/s, {nbytes / 1e6:.1f} MB at 3.35 TB/s); kernel at "
+            f"{flops / ms / 1e9:.1f} TFLOP/s")
+        if tag == FLASH_BWD_MAIN:
+            rec.update(ms=ms, plain_ms=plain, library_ms=lib, bound_ms=b_ms,
+                       bound_by=by)
+        del q, k, v, out, lse, dout, xs, graph
+        torch.cuda.empty_cache()
+    return rec
+
+
+# --------------------------------------------------------------------------- #
 # xLSTM training and serving (phases 10-12)
 # --------------------------------------------------------------------------- #
 # full width and depth, bf16: B 2 x S 1024 (2,048 tokens a step) fits the
@@ -984,6 +1288,34 @@ def _state_errors(got, want, lr):
     return err
 
 
+def _step_rows(s, m_gpu, m_cpu, state_gpu, state_cpu, bad):
+    """Step ``s`` of the card against the same step on the CPU from the same
+    state: loss and grad norm, AdamW m and v, the parameters where |m| is
+    not near zero, each against its tolerance.  Appends what is outside to
+    ``bad``; returns the printed pieces."""
+    row = []
+    for key, tol in (("loss", TRAIN_LOSS_RTOL),
+                     ("grad_norm", TRAIN_GNORM_RTOL)):
+        a, b = float(m_gpu[key]), float(m_cpu[key])
+        rel = _rel(a, b)
+        if not (math.isfinite(a) and rel <= tol):
+            bad.append((s, key, rel))
+        row.append(f"{key} {a:.7f} card / {b:.7f} cpu (rel {rel:.2e}, "
+                   f"tol {tol:.0e})")
+    err = _state_errors(state_gpu, state_cpu, float(m_cpu["lr"]))
+    for key, tol in (("m", LEAF_RTOL), ("v", LEAF_RTOL),
+                     ("m_1d", VECTOR_RTOL), ("v_1d", VECTOR_RTOL)):
+        e, path = err[key]
+        if not e <= tol:
+            bad.append((s, key, e, path))
+        row.append(f"{key} {e:.2e} of its leaf's largest at {path} (tol "
+                   f"{tol:.0e})")
+    if not err["params"] <= PARAM_LR_TOL:
+        bad.append((s, "params", err["params"]))
+    row.append(f"params {err['params']:.2e} lr (tol {PARAM_LR_TOL:.0e})")
+    return row
+
+
 class _KernelOrderMixer(torch.autograd.Function):
     """The plain chunkwise mLSTM whose backward is the backward kernel's
     decomposition in plain PyTorch: the same function and gradient as
@@ -1046,26 +1378,7 @@ def train_parity_path(dev):
         state_cpu, m_cpu = step_cpu(state_cpu, cpu_batch)
         state_gpu, m_gpu = step_gpu(state_gpu, {
             k: torch.as_tensor(a, device=dev) for k, a in batch.items()})
-        row = []
-        for key, tol in (("loss", TRAIN_LOSS_RTOL),
-                         ("grad_norm", TRAIN_GNORM_RTOL)):
-            a, b = float(m_gpu[key]), float(m_cpu[key])
-            rel = _rel(a, b)
-            if not (math.isfinite(a) and rel <= tol):
-                bad.append((s, key, rel))
-            row.append(f"{key} {a:.7f} card / {b:.7f} cpu (rel {rel:.2e}, "
-                       f"tol {tol:.0e})")
-        err = _state_errors(state_gpu, state_cpu, float(m_cpu["lr"]))
-        for key, tol in (("m", LEAF_RTOL), ("v", LEAF_RTOL),
-                         ("m_1d", VECTOR_RTOL), ("v_1d", VECTOR_RTOL)):
-            e, path = err[key]
-            if not e <= tol:
-                bad.append((s, key, e, path))
-            row.append(f"{key} {e:.2e} of its leaf's largest at {path} (tol "
-                       f"{tol:.0e})")
-        if not err["params"] <= PARAM_LR_TOL:
-            bad.append((s, "params", err["params"]))
-        row.append(f"params {err['params']:.2e} lr (tol {PARAM_LR_TOL:.0e})")
+        row = _step_rows(s, m_gpu, m_cpu, state_gpu, state_cpu, bad)
         log(f"[train-parity] step {s}: " + ", ".join(row))
         ms_free = []
         for i, fn in enumerate(steps_free):
@@ -1135,6 +1448,215 @@ def profile_train(dev):
 
 
 # --------------------------------------------------------------------------- #
+# jamba training and serving (phases 13-15)
+# --------------------------------------------------------------------------- #
+# jamba-v0.1-52b at full width (d 4096, 32 heads over 8 KV heads of 128,
+# d_ff 14336, d_inner 8192, N 16, 16 experts top-2 of 14336, vocab 65,536),
+# its period cut to one layer of each kind it has (its positions 0, 1 and
+# 4): 3,960,356,864 parameters, which with AdamW's fp32 moments and the
+# fp32 accumulated gradients fit one 80 GB card at B 1 x S 2048
+JAMBA_TRAIN = dict(arch="jamba-v0.1-52b", batch=1, seq=2048, steps=4)
+# fp32 card-vs-CPU parity on the reduced jamba (7 Mamba + 1 attention
+# layers, MoE on every other, d 64, d_inner 128, N 8), a ragged length; the
+# tolerances of phase 11.  A token whose router probabilities are near-tied
+# may pick another expert on the card than on the CPU; the phase prints the
+# smallest gap between a token's k-th and (k+1)-th router probabilities
+JAMBA_PARITY = dict(arch="jamba-v0.1-52b", batch=4, seq=130, steps=5)
+JAMBA_SERVE = dict(arch="jamba-v0.1-52b", batch=2, prompt=1024, gen=16)
+JAMBA_SERVE_PARITY = dict(arch="jamba-v0.1-52b", reduced=True, B=2, P=130,
+                          gen=8)
+
+
+def jamba_cut():
+    """jamba-v0.1-52b at full width, one Mamba + dense, one Mamba + MoE and
+    one attention + dense layer."""
+    import dataclasses
+    from repro_torch.configs.base import LayerSpec
+    return dataclasses.replace(
+        get_config(JAMBA_TRAIN["arch"]), n_layers=3,
+        period=(LayerSpec("mamba", "dense"), LayerSpec("mamba", "moe"),
+                LayerSpec("attn", "dense")))
+
+
+def _mixers(cfg, kind):
+    return sum(spec.mixer == kind for spec in layer_specs(cfg))
+
+
+def jamba_train_path(dev):
+    """Phase 13: the cut jamba at full width, bf16, through
+    ``launch.train.run``.  The scan and flash counters are set to 0 just
+    before the run and read just after: each step launches the scan's
+    forward and backward kernels once per Mamba layer and the flash
+    forward and backward kernels once per attention layer.  Returns the
+    counts."""
+    cfg = jamba_cut()
+    n_mamba, n_attn = _mixers(cfg, "mamba"), _mixers(cfg, "attn")
+    T = JAMBA_TRAIN
+    args = train.make_parser().parse_args(
+        ["--arch", T["arch"], "--batch", str(T["batch"]), "--seq",
+         str(T["seq"]), "--steps", str(T["steps"]), "--remat", "none",
+         "--print-every", "1"])
+    _reset(ssm_ops.launches, flash_ops.launches, mlstm_ops.launches)
+    r = train.run(args, cfg=cfg)
+    counts = {**ssm_ops.launches, **flash_ops.launches}
+    toks = T["batch"] * T["seq"]
+    want = {"ssm_launches": {"forward": n_mamba, "backward": n_mamba},
+            "flash_launches": {"forward": n_attn, "backward": n_attn},
+            "mlstm_launches": {"forward": 0, "backward": 0}}
+    for i, (loss, gn, st, drop) in enumerate(zip(
+            r["losses"], r["grad_norms"], r["step_s"], r["moe_drop_frac"])):
+        got = {k: r[k][i] for k in want}
+        log(f"[jamba-train] {cfg.name} cut to 3 layers, bf16 B={T['batch']} "
+            f"S={T['seq']} step {i}: loss {loss:.5f} grad_norm {gn:.4f} step "
+            f"{st * 1e3:.1f} ms ({toks / st:.0f} tokens/s, host clock, "
+            f"synchronized), moe_drop_frac {drop:.4f}, launches {got}")
+        if not (math.isfinite(loss) and math.isfinite(gn)):
+            raise AssertionError("non-finite loss or grad norm")
+        if got != want:
+            raise AssertionError(f"step {i}: launches {got}, expected {want}")
+    steady = r["step_s"][1:] or r["step_s"]
+    log(f"[jamba-train] {r['n_params']:,} parameters; steps after the "
+        f"first: {1e3 * sum(steady) / len(steady):.1f} ms mean "
+        f"({toks * len(steady) / sum(steady):.0f} tokens/s); peak memory "
+        f"{r['peak_mem_gib']:.2f} GiB of "
+        f"{torch.cuda.get_device_properties(dev).total_memory / 2**30:.2f}; "
+        f"launches in the run {counts}")
+    n = T["steps"]
+    if counts != {"ssm_scan": n_mamba * n, "ssm_scan_bwd": n_mamba * n,
+                  "flash_attention": n_attn * n,
+                  "flash_attention_bwd": n_attn * n}:
+        raise AssertionError(f"main path launches {counts}")
+    del r
+    torch.cuda.empty_cache()
+    return counts
+
+
+def _router_gap(state, batch, cfg, rt):
+    """The smallest gap, over tokens and MoE layers, between a token's k-th
+    and (k+1)-th router probability in the forward of ``batch`` (CPU):
+    below a few ulps, the two devices may route the token differently."""
+    from repro_torch.models import moe as moe_mod
+    gaps = []
+    real = moe_mod.moe
+
+    def spy(p, x, cfg_, rt_):
+        probs = torch.softmax(x.float() @ p["router"], dim=-1)
+        top = torch.topk(probs, cfg_.top_k + 1, dim=-1).values
+        gaps.append(float((top[..., -2] - top[..., -1]).min()))
+        return real(p, x, cfg_, rt_)
+
+    from repro_torch.models import transformer as tr
+    tr.moe = spy
+    try:
+        with torch.no_grad():
+            tr.forward_train(state["params"], batch, cfg, rt)
+    finally:
+        tr.moe = real
+    return min(gaps)
+
+
+def jamba_parity_path(dev):
+    """Phase 14: the reduced jamba trained for ``JAMBA_PARITY["steps"]``
+    fp32 steps on the card; before each step the CPU plain path takes a
+    copy of the card's state and runs the same step on the same batch.
+    Losses, grad norms, AdamW moments and the well-conditioned parameters
+    agree within phase 11's tolerances, and every card step runs the scan
+    and flash kernels, forward and backward."""
+    cfg = get_config(JAMBA_PARITY["arch"], reduced=True)
+    B, S = JAMBA_PARITY["batch"], JAMBA_PARITY["seq"]
+    rt = Runtime(param_dtype=torch.float32, compute_dtype=torch.float32,
+                 ce_chunk=min(S, 512), remat_policy="none")
+    hyper = TrainHyper(opt=AdamWConfig(lr=3e-3, warmup_steps=2,
+                                       total_steps=JAMBA_PARITY["steps"]))
+    state_gpu = init_train_state(torch.Generator(device=dev).manual_seed(0),
+                                 cfg, rt)
+    data = SyntheticLM(DataConfig(vocab_size=cfg.vocab_size, seq_len=S,
+                                  global_batch=B, seed=1234))
+    step = make_train_step(cfg, rt, hyper)
+    _reset(ssm_ops.launches, flash_ops.launches)
+    bad = []
+    for s in range(JAMBA_PARITY["steps"]):
+        batch = data.batch_at(s)
+        cpu_batch = {k: torch.as_tensor(a) for k, a in batch.items()}
+        state_cpu = _copy_to(state_gpu, torch.device("cpu"))
+        gap = _router_gap(state_cpu, cpu_batch, cfg, rt)
+        state_cpu, m_cpu = step(state_cpu, cpu_batch)
+        state_gpu, m_gpu = step(state_gpu, {
+            k: torch.as_tensor(a, device=dev) for k, a in batch.items()})
+        row = _step_rows(s, m_gpu, m_cpu, state_gpu, state_cpu, bad)
+        for key in ("moe_drop_frac", "moe_lb_loss"):
+            row.append(f"{key} {float(m_gpu[key]):.6f} card / "
+                       f"{float(m_cpu[key]):.6f} cpu")
+        row.append(f"smallest router gap {gap:.3e}")
+        log(f"[jamba-parity] step {s}: " + ", ".join(row))
+    n_mamba, n_attn = _mixers(cfg, "mamba"), _mixers(cfg, "attn")
+    n = JAMBA_PARITY["steps"]
+    counts = {**ssm_ops.launches, **flash_ops.launches}
+    log(f"[jamba-parity] reduced {cfg.name} fp32 B={B} S={S}, {n} steps: "
+        f"outside tolerance {bad}, launches {counts}")
+    if bad:
+        raise AssertionError("card and CPU training disagree")
+    if counts != {"ssm_scan": n_mamba * n, "ssm_scan_bwd": n_mamba * n,
+                  "flash_attention": n_attn * n,
+                  "flash_attention_bwd": n_attn * n}:
+        raise AssertionError("the card's steps missed a kernel")
+
+
+def jamba_serve_path(dev):
+    """Phase 15: the cut jamba served in bf16 through ``launch.serve.run``:
+    one scan launch per Mamba layer and one flash launch per attention
+    layer in prefill, none in decode; then the reduced fp32 jamba card vs
+    CPU logits (``serve_parity_path``)."""
+    cfg = jamba_cut()
+    T = JAMBA_SERVE
+    args = serve.make_parser().parse_args(
+        ["--arch", T["arch"], "--batch", str(T["batch"]), "--prompt-len",
+         str(T["prompt"]), "--gen", str(T["gen"])])
+    torch.cuda.reset_peak_memory_stats(dev)
+    r = serve.run(args, cfg=cfg)
+    mem = torch.cuda.max_memory_allocated(dev)
+    log(f"[jamba-serve] {cfg.name} cut to 3 layers, bf16 B={T['batch']} "
+        f"prompt={T['prompt']} gen={T['gen']}: prefill "
+        f"{r['prefill_s'] * 1e3:.2f} ms, decode {r['decode_s'] * 1e3:.2f} ms "
+        f"for {T['gen'] - 1} steps ({r['decode_tok_s']:.1f} tokens/s), peak "
+        f"memory {mem / 2**30:.2f} GiB, ssm launches {r['ssm_launches']}, "
+        f"flash launches {r['flash_launches']}, generated "
+        f"{r['generated_shape']}, sample {r['sample']}")
+    if r["ssm_launches"] != {"prefill": _mixers(cfg, "mamba"), "decode": 0} \
+            or r["flash_launches"] != {"prefill": _mixers(cfg, "attn"),
+                                       "decode": 0}:
+        raise AssertionError("jamba prefill missed a kernel, or decode "
+                             "launched one")
+    if not r["logits_finite"] or r["generated_shape"] != [T["batch"],
+                                                          T["gen"]]:
+        raise AssertionError("jamba: non-finite logits or wrong shape")
+    torch.cuda.empty_cache()
+    serve_parity_path(dev, JAMBA_SERVE_PARITY)
+
+
+def profile_jamba_train(dev):
+    """``--profile``: where a step of phase 13's training goes (the cut
+    jamba, bf16, B 1, S 2048): one untimed step, then one under the
+    profiler."""
+    cfg = jamba_cut()
+    B, S = JAMBA_TRAIN["batch"], JAMBA_TRAIN["seq"]
+    rt = Runtime(ce_chunk=min(S, 512), remat_policy="none")
+    state = init_train_state(torch.Generator(device=dev).manual_seed(0), cfg,
+                             rt)
+    step = make_train_step(cfg, rt, TrainHyper())
+    data = SyntheticLM(DataConfig(vocab_size=cfg.vocab_size, seq_len=S,
+                                  global_batch=B, seed=1234))
+    batch = {k: torch.as_tensor(a, device=dev)
+             for k, a in data.batch_at(0).items()}
+    step(state, batch)
+    _, wall, prof = _profiled(lambda: step(state, batch))
+    _report_profile(prof, wall, f"{cfg.name} train step, 3 layers, B={B} "
+                                f"S={S}")
+    del state
+    torch.cuda.empty_cache()
+
+
+# --------------------------------------------------------------------------- #
 # serving (phases 8-9)
 # --------------------------------------------------------------------------- #
 # (arch, batch, prompt length, generated tokens), bf16, full width and depth
@@ -1201,35 +1723,39 @@ def _greedy(params, tokens, cfg, rt, steps, forced=None):
     return lg, lg.argmax(-1)
 
 
-def serve_parity_path(dev):
-    """Phase 9: fp32 smollm-135m at full width and depth from the same
-    generator-made parameters on the card and on the CPU plain path.  The
-    CPU decodes greedily; the card is fed the CPU's picks, so both compute
-    on the same tokens at every step.  Logits must agree within LOGIT_TOL
-    and the card's picks equal the CPU's except on near-ties."""
-    cfg = get_config(PARITY["arch"])
+def serve_parity_path(dev, spec=PARITY):
+    """Phase 9 (and phase 15's second half): an fp32 config (``spec``:
+    smollm-135m at full width and depth, or the reduced jamba) from the
+    same generator-made parameters on the card and on the CPU plain path.
+    The CPU decodes greedily; the card is fed the CPU's picks, so both
+    compute on the same tokens at every step.  The card's prefill launches
+    the flash kernel once per attention layer and the scan kernel once per
+    Mamba layer.  Logits must agree within LOGIT_TOL and the card's picks
+    equal the CPU's except on near-ties."""
+    cfg = get_config(spec["arch"], reduced=spec.get("reduced", False))
     rt = Runtime(param_dtype=torch.float32, compute_dtype=torch.float32)
     params = init_params(torch.Generator(device=dev).manual_seed(0), cfg, rt)
     params_cpu = _copy_to(params, torch.device("cpu"))
-    B, P, steps = PARITY["B"], PARITY["P"], PARITY["gen"] - 1
+    B, P, steps = spec["B"], spec["P"], spec["gen"] - 1
     tokens = torch.as_tensor(np.random.default_rng(0).integers(
         0, cfg.vocab_size, (B, P), dtype=np.int32))
     t0 = time.perf_counter()
     lg_cpu, pick_cpu = _greedy(params_cpu, tokens, cfg, rt, steps)
     t_cpu = time.perf_counter() - t0
-    flash_ops.launches["flash_attention"] = 0
+    _reset(flash_ops.launches, ssm_ops.launches)
     lg_gpu, pick_gpu = _greedy(params, tokens.to(dev), cfg, rt, steps,
                                forced=torch.as_tensor(pick_cpu[:steps].T,
                                                       device=dev))
-    if flash_ops.launches["flash_attention"] != cfg.n_layers:
-        raise AssertionError("the card's prefill missed the flash kernel")
+    if flash_ops.launches["flash_attention"] != _mixers(cfg, "attn") or \
+            ssm_ops.launches["ssm_scan"] != _mixers(cfg, "mamba"):
+        raise AssertionError("the card's prefill missed a kernel")
     err = float(np.abs(lg_gpu - lg_cpu).max())
     top2 = np.sort(lg_cpu, axis=-1)[..., -2:]
     gap = top2[..., 1] - top2[..., 0]
     differ = pick_gpu != pick_cpu
     ties = int((differ & (gap < NEAR_TIE_LOGIT)).sum())
     bad = int((differ & (gap >= NEAR_TIE_LOGIT)).sum())
-    log(f"[serve-parity] {PARITY['arch']} fp32 B={B} prompt={P} "
+    log(f"[serve-parity] {cfg.name} fp32 B={B} prompt={P} "
         f"steps={steps + 1}: max |logit| {np.abs(lg_cpu).max():.3f}, max "
         f"card-vs-cpu logit error {err:.3e} (tol {LOGIT_TOL:.0e}), picks "
         f"{int((~differ).sum())}/{differ.size} equal, near-ties {ties}, "
@@ -1549,18 +2075,34 @@ def _profiled(fn):
     return out, wall, prof
 
 
+# substrings of the port's own kernels' names (CUDA C++ entry functions)
+PORT_KERNELS = ("score_cov", "var_downdate", "tpe_kde", "flash_", "mlstm",
+                "ssm_")
+
+
 def _report_profile(prof, wall, tag):
-    """Device busy share of ``wall`` and the kernels and host ops that take
-    the most time."""
-    dev_time = "self_device_time_total"
+    """Device busy share of ``wall`` and the device rows and host ops that
+    take the most time, the port's own kernels listed apart.  Only device
+    rows (kernels, copies, memsets) are summed: an operator's row repeats
+    the device time of the kernels it launched."""
+    from torch.autograd import DeviceType
     ka = prof.key_averages()
-    busy = sum(getattr(e, dev_time) for e in ka) / 1e3
+    rows = [e for e in ka if e.device_type == DeviceType.CUDA]
+
+    def ms(e):
+        return e.self_device_time_total / 1e3
+
+    busy = sum(ms(e) for e in rows)
+    mine = [e for e in rows if any(k in e.key for k in PORT_KERNELS)]
     log(f"[profile] {tag}: wall {wall:.1f} ms under the profiler, "
-        f"device busy {busy:.2f} ms ({100 * busy / wall:.1f}% of wall)")
-    for e in sorted(ka, key=lambda e: -getattr(e, dev_time))[:8]:
-        log(f"[profile]   device {e.key[:56]:56s} "
-            f"{getattr(e, dev_time) / 1e3:9.3f} ms x{e.count}")
-    for e in sorted(ka, key=lambda e: -e.self_cpu_time_total)[:8]:
+        f"device busy {busy:.2f} ms ({100 * busy / wall:.1f}% of wall) over "
+        f"{sum(e.count for e in rows)} device rows; the port's kernels "
+        f"{sum(ms(e) for e in mine):.2f} ms")
+    for e in sorted(rows, key=ms, reverse=True)[:8]:
+        log(f"[profile]   device {e.key[:56]:56s} {ms(e):9.3f} ms x{e.count}")
+    for e in sorted(mine, key=ms, reverse=True)[:6]:
+        log(f"[profile]   kernel {e.key[:56]:56s} {ms(e):9.3f} ms x{e.count}")
+    for e in sorted(ka, key=lambda e: -e.self_cpu_time_total)[:6]:
         log(f"[profile]   host   {e.key[:56]:56s} "
             f"{e.self_cpu_time_total / 1e3:9.3f} ms x{e.count}")
 
@@ -1640,10 +2182,11 @@ def main(argv) -> int:
         f"cudnn={torch.backends.cudnn.allow_tf32}")
     # one nvcc per suite, started together
     suites = (("gp_acquisition", ops), ("tpe_kde", tpe_ops),
-              ("flash_attention", flash_ops), ("mlstm_chunk", mlstm_ops))
+              ("flash_attention", flash_ops), ("mlstm_chunk", mlstm_ops),
+              ("ssm_scan", ssm_ops))
     t0 = time.perf_counter()
     with ThreadPoolExecutor(max_workers=len(suites)) as pool:
-        lib, _, flash_lib, _ = [f.result() for f in [
+        lib, _, flash_lib, _, ssm_lib = [f.result() for f in [
             pool.submit(mod.library) for _, mod in suites]]
     log("[setup] built " + ", ".join(
         str(build.library_path(name, mod.SOURCES)) for name, mod in suites)
@@ -1655,7 +2198,12 @@ def main(argv) -> int:
     log("[setup] flash_attention dynamic shared memory per block at hd "
         "32/64/96/128: " + "/".join(
             str(flash_lib.flash_attention_smem_bytes(hd))
-            for hd in (32, 64, 96, 128)) + " bytes")
+            for hd in (32, 64, 96, 128)) + " bytes (backward: " + "/".join(
+            str(flash_lib.flash_attention_bwd_smem_bytes(hd))
+            for hd in (32, 64, 96, 128)) + ")")
+    log("[setup] ssm_scan backward dynamic shared memory per block at N "
+        "8/16/32: " + "/".join(str(ssm_lib.ssm_scan_bwd_smem_bytes(n))
+                               for n in (8, 16, 32)) + " bytes")
     for na, dp in ((16, 24), (256, 8), (1024, 8)):
         blocks = ctypes.c_int(0)
         err = lib.gp_score_cov_blocks_per_sm(na, dp, ctypes.byref(blocks))
@@ -1669,6 +2217,8 @@ def main(argv) -> int:
     recs.update(check_tpe_kernels(dev, reps_main=20))
     recs["flash_attention"] = check_flash_kernel(dev, reps_main=20)
     recs.update(check_mlstm_kernels(dev, reps_main=10))
+    recs.update(check_ssm_kernels(dev, reps_main=10))
+    recs["flash_attention_bwd"] = check_flash_bwd_kernel(dev, reps_main=10)
     bank, launches = fleet_path(dev)
     tpe_bank, launches["tpe_scores"] = tpe_fleet_path(dev)
     launches["parzen_logdens"] = parzen_path(dev)
@@ -1691,12 +2241,23 @@ def main(argv) -> int:
     xlstm_serve_path(dev)
     if "--profile" in argv:
         profile_train(dev)
+    torch.cuda.empty_cache()
+    counts = jamba_train_path(dev)
+    for name in ("ssm_scan", "ssm_scan_bwd", "flash_attention_bwd"):
+        launches[name] = counts[name]
+    jamba_parity_path(dev)
+    jamba_serve_path(dev)
+    if "--profile" in argv:
+        profile_jamba_train(dev)
     gp_src = "src/repro_torch/kernels/gp_acquisition/csrc/gp_acquisition.cu"
     tpe_src = "src/repro_torch/kernels/tpe_kde/csrc/tpe_kde.cu"
     flash_src = ("src/repro_torch/kernels/flash_attention/csrc/"
                  "flash_attention.cu")
     mlstm_src = "src/repro_torch/kernels/mlstm_chunk/csrc/"
     mlstm_tpu = "src/repro/kernels/mlstm_chunk/mlstm_chunk.py:90"
+    ssm_src = "src/repro_torch/kernels/ssm_scan/csrc/"
+    ssm_tpu = "src/repro/kernels/ssm_scan/ssm_scan.py:60"
+    flash_tpu = "src/repro/kernels/flash_attention/flash_attention.py:90"
     where = {
         "score_cov": (gp_src, "src/repro/kernels/gp_acquisition/"
                               "gp_acquisition.py:84"),
@@ -1705,10 +2266,13 @@ def main(argv) -> int:
         "tpe_scores": (tpe_src, "src/repro/kernels/tpe_kde/tpe_kde.py:70"),
         "parzen_logdens": (tpe_src,
                            "src/repro/kernels/tpe_kde/tpe_kde.py:114"),
-        "flash_attention": (flash_src, "src/repro/kernels/flash_attention/"
-                                       "flash_attention.py:90"),
+        "flash_attention": (flash_src, flash_tpu),
         "mlstm_chunk": (mlstm_src + "mlstm_chunk.cu", mlstm_tpu),
-        "mlstm_chunk_bwd": (mlstm_src + "mlstm_chunk_bwd.cu", mlstm_tpu)}
+        "mlstm_chunk_bwd": (mlstm_src + "mlstm_chunk_bwd.cu", mlstm_tpu),
+        "ssm_scan": (ssm_src + "ssm_scan.cu", ssm_tpu),
+        "ssm_scan_bwd": (ssm_src + "ssm_scan_bwd.cu", ssm_tpu),
+        "flash_attention_bwd": (flash_src.replace(".cu", "_bwd.cu"),
+                                flash_tpu)}
     kernels = [dict(name=name, route="cuda", source=where[name][0],
                     replaces=where[name][1], launches=launches[name],
                     max_abs_err=r["max_abs_err"], ms=r["ms"],

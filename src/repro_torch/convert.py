@@ -28,8 +28,8 @@ import torch
 from repro_torch.configs.base import ArchConfig
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models.common import Runtime
+from repro_torch.models import mamba, moe, xlstm
 from repro_torch.models.transformer import check_supported, layer_specs
-from repro_torch.models.xlstm import FP32_PARAMS
 from repro_torch.tree import tree_map
 
 BANK_STATE_KEYS = ("Xs", "z", "mask", "L", "Linv", "ls", "var", "noise")
@@ -79,12 +79,22 @@ def to_jax_layout(tree: Dict[str, Any], cfg: ArchConfig,
     return out
 
 
+# per block sub-tree ("mixer" by mixer kind, "ffn" by FFN kind), the leaves
+# the reference keeps in fp32 whatever the parameter dtype
+FP32_PARAMS = {("mixer", "mlstm"): xlstm.FP32_PARAMS["mlstm"],
+               ("mixer", "slstm"): xlstm.FP32_PARAMS["slstm"],
+               ("mixer", "mamba"): mamba.FP32_PARAMS,
+               ("ffn", "moe"): moe.FP32_PARAMS}
+
+
 def param_dtype(path, cfg: ArchConfig, rt: Runtime) -> torch.dtype:
     """The dtype the port keeps a parameter in: ``rt.param_dtype``, except
-    the xLSTM gate and recurrent leaves the reference keeps in fp32."""
-    if len(path) == 4 and path[0] == "blocks" and path[2] == "mixer":
-        mixer = layer_specs(cfg)[path[1]].mixer
-        if path[3] in FP32_PARAMS.get(mixer, ()):
+    the leaves the reference keeps in fp32: the xLSTM gate and recurrent
+    leaves, Mamba's ``dt_bias``, ``A_log`` and ``D``, and the MoE router."""
+    if len(path) == 4 and path[0] == "blocks":
+        spec = layer_specs(cfg)[path[1]]
+        kind = spec.mixer if path[2] == "mixer" else spec.ffn
+        if path[3] in FP32_PARAMS.get((path[2], kind), ()):
             return torch.float32
     return rt.param_dtype
 

@@ -35,6 +35,11 @@
 // columns past hd load as zeros, which leaves every dot product as it is,
 // and are not stored.
 //
+// Training: given a pointer for it, the kernel also writes each row's
+// log-sum-exp of the scaled scores, lse = m + log l (B, H, Sq) fp32, which
+// the backward (flash_attention_bwd.cu) reads to recompute P; serving passes
+// none.
+//
 // Arithmetic: fp32 FMAs on bf16 or fp32 operands, accurate expf, P in fp32,
 // the numerics of the Pallas kernel.  No tensor cores: on this card that
 // bounds the kernel by the fp32 rate (67 TFLOP/s), far above the bf16
@@ -43,22 +48,11 @@
 #include <cuda_runtime.h>
 #include <math.h>
 
+#include "flash_attention.cuh"
+
 namespace {
 
-constexpr int BQ = 64;         // query rows per block
-constexpr int BK = 64;         // key rows per shared-memory tile
-constexpr int NTHREADS = 256;  // 16 x 16
-constexpr int RQ = BQ / 16;    // query rows per thread
-constexpr int CK = BK / 16;    // key columns per thread
-
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-__device__ __forceinline__ void store(float* p, float x) { *p = x; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float x) {
-  *p = __float2bfloat16(x);
-}
+using namespace flash;
 
 template <int HD>
 constexpr int smem_bytes() {
@@ -69,8 +63,8 @@ constexpr int smem_bytes() {
 template <typename T, int HD>
 __global__ void __launch_bounds__(NTHREADS) flash_kernel(
     const T* __restrict__ q, const T* __restrict__ k,
-    const T* __restrict__ v, T* __restrict__ out, int Sq, int Sk, int H,
-    int KV, int hd, float scale, int causal) {
+    const T* __restrict__ v, T* __restrict__ out, float* __restrict__ lse,
+    int Sq, int Sk, int H, int KV, int hd, float scale, int causal) {
   extern __shared__ float smem[];
   constexpr int QS = HD + 1, PS = BK + 1, NC = HD / 16;
   float* sq = smem;
@@ -192,6 +186,9 @@ __global__ void __launch_bounds__(NTHREADS) flash_kernel(
   for (int r = 0; r < RQ; ++r) {
     const int s = q0 + ty + 16 * r;
     if (s >= Sq) continue;
+    if (lse != nullptr && tx == 0)  // a row that saw no key: P = 0
+      lse[((size_t)b * H + h) * Sq + s] =
+          l[r] > 0.0f ? m[r] + logf(l[r]) : INFINITY;
     const float lm = fmaxf(l[r], 1e-30f);
     T* o = out + (((size_t)b * Sq + s) * H + h) * hd;
 #pragma unroll
@@ -201,9 +198,9 @@ __global__ void __launch_bounds__(NTHREADS) flash_kernel(
 }
 
 template <typename T, int HD>
-int launch(const void* q, const void* k, const void* v, void* out, int B,
-           int Sq, int Sk, int H, int KV, int hd, float scale, int causal,
-           cudaStream_t stream) {
+int launch(const void* q, const void* k, const void* v, void* out,
+           float* lse, int B, int Sq, int Sk, int H, int KV, int hd,
+           float scale, int causal, cudaStream_t stream) {
   constexpr int bytes = smem_bytes<HD>();
   // set on every launch: the attribute belongs to the current device's
   // context, and the call costs next to nothing
@@ -214,27 +211,18 @@ int launch(const void* q, const void* k, const void* v, void* out, int B,
   const dim3 grid((Sq + BQ - 1) / BQ, H, B);
   flash_kernel<T, HD><<<grid, NTHREADS, bytes, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(out), Sq, Sk, H, KV, hd,
-      scale, causal);
+      static_cast<const T*>(v), static_cast<T*>(out), lse, Sq, Sk, H, KV,
+      hd, scale, causal);
   return (int)cudaGetLastError();
 }
 
 template <typename T>
-int dispatch(const void* q, const void* k, const void* v, void* out, int B,
-             int Sq, int Sk, int H, int KV, int hd, float scale, int causal,
-             cudaStream_t stream) {
-  if (hd < 8 || hd > 128 || hd % 8) return (int)cudaErrorInvalidValue;
-  if (hd <= 32)
-    return launch<T, 32>(q, k, v, out, B, Sq, Sk, H, KV, hd, scale, causal,
-                         stream);
-  if (hd <= 64)
-    return launch<T, 64>(q, k, v, out, B, Sq, Sk, H, KV, hd, scale, causal,
-                         stream);
-  if (hd <= 96)
-    return launch<T, 96>(q, k, v, out, B, Sq, Sk, H, KV, hd, scale, causal,
-                         stream);
-  return launch<T, 128>(q, k, v, out, B, Sq, Sk, H, KV, hd, scale, causal,
-                        stream);
+int dispatch(const void* q, const void* k, const void* v, void* out,
+             float* lse, int B, int Sq, int Sk, int H, int KV, int hd,
+             float scale, int causal, cudaStream_t stream) {
+  FLASH_DISPATCH_HD(hd, return launch<T, HDT>(q, k, v, out, lse, B, Sq, Sk,
+                                              H, KV, hd, scale, causal,
+                                              stream))
 }
 
 }  // namespace
@@ -243,28 +231,25 @@ extern "C" {
 
 // q (B, Sq, H, hd), k and v (B, Sk, KV, hd), out (B, Sq, H, hd), contiguous,
 // all fp32 (is_bf16 = 0) or all bf16 (is_bf16 = 1); hd a multiple of 8 in
-// [8, 128];
-// H % KV == 0; 1 <= Sk, and Sq <= Sk when causal; scale = hd^-1/2.  Returns
-// a cudaError_t.
+// [8, 128]; H % KV == 0; 1 <= Sk, and Sq <= Sk when causal; scale =
+// hd^-1/2.  lse (B, H, Sq) fp32 may be null.  Returns a cudaError_t.
 int flash_attention_fwd(const void* q, const void* k, const void* v,
-                        void* out, int B, int Sq, int Sk, int H, int KV,
-                        int hd, float scale, int is_bf16, int causal,
+                        void* out, void* lse, int B, int Sq, int Sk, int H,
+                        int KV, int hd, float scale, int is_bf16, int causal,
                         void* stream) {
   if (B == 0 || Sq == 0) return 0;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return is_bf16 ? dispatch<__nv_bfloat16>(q, k, v, out, B, Sq, Sk, H, KV,
-                                           hd, scale, causal, st)
-                 : dispatch<float>(q, k, v, out, B, Sq, Sk, H, KV, hd, scale,
-                                   causal, st);
+  float* ls = static_cast<float*>(lse);
+  return is_bf16 ? dispatch<__nv_bfloat16>(q, k, v, out, ls, B, Sq, Sk, H,
+                                           KV, hd, scale, causal, st)
+                 : dispatch<float>(q, k, v, out, ls, B, Sq, Sk, H, KV, hd,
+                                   scale, causal, st);
 }
 
 // dynamic shared memory of one block at head size hd (-1: unsupported)
 int flash_attention_smem_bytes(int hd) {
   if (hd < 8 || hd > 128 || hd % 8) return -1;
-  if (hd <= 32) return smem_bytes<32>();
-  if (hd <= 64) return smem_bytes<64>();
-  if (hd <= 96) return smem_bytes<96>();
-  return smem_bytes<128>();
+  FLASH_DISPATCH_HD(hd, return smem_bytes<HDT>())
 }
 
 const char* flash_error_string(int code) {

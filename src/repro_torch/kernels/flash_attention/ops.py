@@ -1,17 +1,19 @@
-"""Dispatch for the flash-attention kernel.
+"""Dispatch for the flash-attention kernels, forward and backward.
 
 ``sdpa`` is the counterpart of ``repro.kernels.flash_attention.ops.sdpa`` in
-the model layout, q (B, Sq, H, hd) and k/v (B, Sk, KV, hd).  A CUDA tensor
-launches the hand-written kernel in ``csrc/flash_attention.cu`` (built at
-first use, see ``repro_torch.kernels.build``); a CPU tensor runs the plain
-version in ``ref``.  Nothing falls back: a CUDA call that cannot build or
-launch raises.  ``launches`` counts kernel launches (CPU calls leave it
-alone), so a run can show that its prefill went through the kernel.
-
-The kernel has no backward yet (ROADMAP queue 1 item 13c), and its output
-carries no ``grad_fn``: on a CUDA tensor, a call under grad with an input
-that requires grad raises ``NotImplementedError`` rather than drop the
-gradient.  On the CPU autograd differentiates the plain version.
+the model layout, q (B, Sq, H, hd) and k/v (B, Sk, KV, hd):
+  * a CUDA tensor launches the hand-written kernel in
+    ``csrc/flash_attention.cu``; under grad with an input that requires
+    grad it runs through ``FlashAttention``, a ``torch.autograd.Function``
+    whose forward also keeps the row log-sum-exp and whose backward is the
+    kernel in ``csrc/flash_attention_bwd.cu`` (both built at first use, see
+    ``repro_torch.kernels.build``);
+  * a CPU tensor runs the plain version in ``ref``, which autograd
+    differentiates.
+Nothing falls back: a CUDA call that cannot build or launch raises.
+``launches`` counts the calls of each kernel entry point (CPU calls leave
+it alone), so a run can show that its prefill and its training steps went
+through the kernels.
 
 Unlike the Pallas kernel, which needs Sq and Sk to be multiples of its
 tiles, the kernel takes any lengths: it masks its ragged last tiles.  Head
@@ -29,11 +31,12 @@ from repro_torch.kernels import build
 from repro_torch.kernels.checks import check_tensor
 from repro_torch.kernels.flash_attention import ref
 
-SOURCES = (Path(__file__).resolve().parent / "csrc" / "flash_attention.cu",)
+_CSRC = Path(__file__).resolve().parent / "csrc"
+SOURCES = (_CSRC / "flash_attention.cu", _CSRC / "flash_attention_bwd.cu")
 MAX_HEAD_DIM = 128
 DTYPES = (torch.float32, torch.bfloat16)
 
-launches = {"flash_attention": 0}
+launches = {"flash_attention": 0, "flash_attention_bwd": 0}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -42,11 +45,16 @@ _I = ctypes.c_int
 def library() -> ctypes.CDLL:
     lib = build.load("flash_attention", SOURCES)
     if not getattr(lib, "_typed", False):
-        lib.flash_attention_fwd.argtypes = ([_P] * 4 + [_I] * 6
+        lib.flash_attention_fwd.argtypes = ([_P] * 5 + [_I] * 6
                                             + [ctypes.c_float, _I, _I, _P])
         lib.flash_attention_fwd.restype = _I
-        lib.flash_attention_smem_bytes.argtypes = [_I]
-        lib.flash_attention_smem_bytes.restype = _I
+        lib.flash_attention_bwd.argtypes = ([_P] * 10 + [_I] * 6
+                                            + [ctypes.c_float, _I, _I, _P])
+        lib.flash_attention_bwd.restype = _I
+        for fn in (lib.flash_attention_smem_bytes,
+                   lib.flash_attention_bwd_smem_bytes):
+            fn.argtypes = [_I]
+            fn.restype = _I
         lib.flash_error_string.argtypes = [_I]
         lib.flash_error_string.restype = ctypes.c_char_p
         lib._typed = True
@@ -84,26 +92,87 @@ def _on_card(t: torch.Tensor) -> bool:
     return t.device.type == "cuda"
 
 
+def _stream(t: torch.Tensor) -> int:
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def _raise(lib, err: int, what: str) -> None:
+    if err:
+        raise RuntimeError(f"{what} launch failed: "
+                           f"{lib.flash_error_string(err).decode()}")
+
+
+def forward(q, k, v, causal: bool = True, with_lse: bool = False):
+    """The forward kernel on CUDA tensors: (out, lse), the row
+    log-sum-exp (B, H, Sq) fp32 that the backward reads (None unless
+    ``with_lse``)."""
+    B, Sq, Sk, H, KV, hd = _check(q, k, v, causal)
+    if not _on_card(q):
+        raise ValueError("the flash kernels take CUDA tensors")
+    lib = library()
+    out = torch.empty_like(q)
+    lse = (torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
+           if with_lse else None)
+    err = lib.flash_attention_fwd(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        None if lse is None else lse.data_ptr(), B, Sq, Sk, H, KV, hd,
+        hd ** -0.5, int(q.dtype == torch.bfloat16), int(causal), _stream(q))
+    _raise(lib, err, "flash_attention")
+    launches["flash_attention"] += 1
+    return out, lse
+
+
+def backward(q, k, v, out, lse, dout, causal: bool = True):
+    """The backward kernel on CUDA tensors: (dq, dk, dv) in the inputs'
+    dtype for the upstream gradient dout, from the forward's inputs, output
+    and log-sum-exp."""
+    B, Sq, Sk, H, KV, hd = _check(q, k, v, causal)
+    if not _on_card(q):
+        raise ValueError("the flash kernels take CUDA tensors")
+    check_tensor("out", out, q.shape, q.device, q.dtype)
+    check_tensor("dout", dout, q.shape, q.device, q.dtype)
+    check_tensor("lse", lse, (B, H, Sq), q.device)
+    lib = library()
+    dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
+    D = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
+    err = lib.flash_attention_bwd(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        dout.data_ptr(), lse.data_ptr(), D.data_ptr(), dq.data_ptr(),
+        dk.data_ptr(), dv.data_ptr(), B, Sq, Sk, H, KV, hd, hd ** -0.5,
+        int(q.dtype == torch.bfloat16), int(causal), _stream(q))
+    _raise(lib, err, "flash_attention_bwd")
+    launches["flash_attention_bwd"] += 1
+    return dq, dk, dv
+
+
+class FlashAttention(torch.autograd.Function):
+    """Attention by the forward kernel, its gradient by the backward kernel
+    (CUDA tensors only)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal):
+        out, lse = forward(q, k, v, causal, with_lse=True)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.causal = causal
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        q, k, v, out, lse = ctx.saved_tensors
+        dq, dk, dv = backward(q, k, v, out, lse,
+                              g.to(q.dtype).contiguous(), ctx.causal)
+        return dq, dk, dv, None
+
+
 def sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
          causal: bool = True) -> torch.Tensor:
     """(B, Sq, H, hd) attention output in q's dtype; q (B, Sq, H, hd),
     k and v (B, Sk, KV, hd), one dtype (float32 or bfloat16), contiguous,
-    on one device.  The causal mask is k <= q + (Sk - Sq)."""
-    B, Sq, Sk, H, KV, hd = _check(q, k, v, causal)
+    on one device.  The causal mask is k <= q + (Sk - Sq).  Differentiable
+    on both devices."""
+    _check(q, k, v, causal)
     if not _on_card(q):
         return ref.attention_ref(q, k, v, causal=causal)
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
-        raise NotImplementedError(
-            "flash_attention has no backward kernel yet (ROADMAP queue 1 "
-            "item 13c): the kernel's output would carry no gradient")
-    lib = library()
-    out = torch.empty_like(q)
-    err = lib.flash_attention_fwd(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, Sq, Sk,
-        H, KV, hd, hd ** -0.5, int(q.dtype == torch.bfloat16), int(causal),
-        torch.cuda.current_stream(q.device).cuda_stream)
-    if err:
-        raise RuntimeError("flash_attention launch failed: "
-                           f"{lib.flash_error_string(err).decode()}")
-    launches["flash_attention"] += 1
-    return out
+        return FlashAttention.apply(q, k, v, causal)
+    return forward(q, k, v, causal)[0]

@@ -1,29 +1,77 @@
-"""Plain PyTorch version of the flash-attention kernel.
+"""Plain PyTorch versions of the flash-attention kernels, forward and
+backward.
 
-The counterpart of ``repro.kernels.flash_attention.ref.attention_ref``, in
-the model layout: q (B, Sq, H, hd), k/v (B, Sk, KV, hd).  Query head h reads
-KV head h // G (G = H // KV) through a reshape, never a copy to H heads.
-Scores, softmax and P.V are float32 on the inputs' values; the output is
-cast to the input dtype.  The causal mask is aligned bottom-right,
-k <= q + (Sk - Sq), as the reference's oracle has it.
+``attention_ref`` is the counterpart of ``repro.kernels.flash_attention.
+ref.attention_ref``, in the model layout: q (B, Sq, H, hd), k/v (B, Sk, KV,
+hd).  Query head h reads KV head h // G (G = H // KV) through a reshape,
+never a copy to H heads.  Scores, softmax and P.V are float32 on the
+inputs' values; the output is cast to the input dtype.  The causal mask is
+aligned bottom-right, k <= q + (Sk - Sq), as the reference's oracle has it.
+
+``attention_lse_ref`` adds the row log-sum-exp of the scaled scores that
+the forward kernel writes for training, and ``attention_bwd_ref`` writes out
+the backward kernel's decomposition (``csrc/flash_attention_bwd.cu``): P
+recomputed from the log-sum-exp, D = rowsum(dO o O), dS = P o (dP - D).
 """
 from __future__ import annotations
 
+from typing import Tuple
+
 import torch
+
+
+def _scores(q: torch.Tensor, k: torch.Tensor, causal: bool) -> torch.Tensor:
+    """(B, KV, G, Sq, Sk) fp32 scaled scores, -inf where masked."""
+    B, Sq, H, hd = q.shape
+    Sk, KV = k.shape[1], k.shape[2]
+    qf = q.float().reshape(B, Sq, KV, H // KV, hd)
+    scores = torch.einsum("bqkgd,bskd->bkgqs", qf, k.float()) * (hd ** -0.5)
+    if causal:
+        iq = torch.arange(Sq, device=q.device)[:, None]
+        ik = torch.arange(Sk, device=q.device)[None, :]
+        scores = scores.masked_fill(ik > iq + (Sk - Sq), float("-inf"))
+    return scores
 
 
 def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                   causal: bool = True) -> torch.Tensor:
     """(B, Sq, H, hd) attention output in q's dtype."""
     B, Sq, H, hd = q.shape
-    Sk, KV = k.shape[1], k.shape[2]
-    G = H // KV
-    qf = q.float().reshape(B, Sq, KV, G, hd)
-    scores = torch.einsum("bqkgd,bskd->bkgqs", qf, k.float()) * (hd ** -0.5)
-    if causal:
-        iq = torch.arange(Sq, device=q.device)[:, None]
-        ik = torch.arange(Sk, device=q.device)[None, :]
-        scores = scores.masked_fill(ik > iq + (Sk - Sq), float("-inf"))
-    w = torch.softmax(scores, dim=-1)
+    w = torch.softmax(_scores(q, k, causal), dim=-1)
     out = torch.einsum("bkgqs,bskd->bqkgd", w, v.float())
     return out.reshape(B, Sq, H, hd).to(q.dtype)
+
+
+def attention_lse_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                      causal: bool = True
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The output and the row log-sum-exp (B, H, Sq) fp32 of the scaled
+    scores."""
+    B, Sq, H, _ = q.shape
+    lse = torch.logsumexp(_scores(q, k, causal), dim=-1)
+    return attention_ref(q, k, v, causal=causal), lse.reshape(B, H, Sq)
+
+
+def attention_bwd_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                      out: torch.Tensor, lse: torch.Tensor,
+                      dout: torch.Tensor, *, causal: bool = True
+                      ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(dq, dk, dv) in the inputs' dtype for the upstream gradient dout
+    (B, Sq, H, hd), from the forward's inputs, output and log-sum-exp:
+    P = exp(S - lse), D = rowsum(dO o O), dS = P o (dO V^T - D),
+    dV = P^T dO, dK = dS^T Q scale, dQ = dS K scale, fp32 throughout."""
+    B, Sq, H, hd = q.shape
+    KV = k.shape[2]
+    G, scale = H // KV, hd ** -0.5
+    p = torch.exp(_scores(q, k, causal)
+                  - lse.reshape(B, KV, G, Sq)[..., None])
+    do = dout.float().reshape(B, Sq, KV, G, hd)
+    D = (do * out.float().reshape(B, Sq, KV, G, hd)).sum(-1)
+    dp = torch.einsum("bqkgd,bskd->bkgqs", do, v.float())
+    ds = p * (dp - D.permute(0, 2, 3, 1)[..., None])
+    dv = torch.einsum("bkgqs,bqkgd->bskd", p, do)
+    dk = torch.einsum("bkgqs,bqkgd->bskd", ds,
+                      q.float().reshape(B, Sq, KV, G, hd)) * scale
+    dq = torch.einsum("bkgqs,bskd->bqkgd", ds, k.float()) * scale
+    return (dq.reshape(B, Sq, H, hd).to(q.dtype), dk.to(k.dtype),
+            dv.to(v.dtype))

@@ -2,9 +2,12 @@
 
 The counterpart of ``python -m repro.launch.serve``.  It runs on the card
 unless ``--device cpu`` is given, where every kernel runs its plain
-version; without a card the default device raises.  Prefill attention runs
-the flash-attention kernel on the card; xLSTM (``--arch xlstm-1.3b``)
-serves through its plain stateful forms.  Parameters are random, drawn from
+version; without a card the default device raises.  On the card prefill
+attention runs the flash-attention kernel and a Mamba layer's prefill the
+scan kernel (which also returns the final state); xLSTM serves through its
+plain stateful forms, and decode is plain PyTorch throughout.  A Python
+caller may pass its own ``ArchConfig`` to ``run`` (``cfg=``), e.g. a config
+cut in depth; ``--arch`` then only names it.  Parameters are random, drawn from
 a ``torch.Generator`` seeded with ``--seed`` on the device; prompt tokens
 (and a VLM's stub patch embeddings) come from ``numpy.random.default_rng``
 with the same seed.
@@ -26,6 +29,7 @@ from repro_torch.configs import get_config
 from repro_torch.device import resolve_device
 from repro_torch.kernels.flash_attention import ops as flash_ops
 from repro_torch.kernels.mlstm_chunk import ops as mlstm_ops
+from repro_torch.kernels.ssm_scan import ops as ssm_ops
 from repro_torch.models.common import Runtime
 from repro_torch.models.transformer import init_params
 from repro_torch.train.step import make_decode_step, make_prefill_step
@@ -36,15 +40,15 @@ def _sync(dev: torch.device) -> None:
         torch.cuda.synchronize(dev)
 
 
-def run(args) -> dict:
-    """Serve one batch; returns the JAX package's keys (``prefill_s``,
-    ``decode_s``, ``decode_tok_s``, ``generated_shape``, ``sample``), the
-    flash-attention and mLSTM kernel launches of each stage (the mLSTM
-    kernel serves no stage: prefill and decode carry state, which the
-    kernel path does not return, as in the reference) and whether every
-    logit was finite."""
+def run(args, cfg=None) -> dict:
+    """Serve one batch of ``args.arch`` (or of ``cfg``); returns the JAX
+    package's keys (``prefill_s``, ``decode_s``, ``decode_tok_s``,
+    ``generated_shape``, ``sample``), the flash-attention, Mamba-scan and
+    mLSTM kernel launches of each stage (the mLSTM kernel serves no stage:
+    prefill and decode carry state, which its kernel path does not return,
+    as in the reference) and whether every logit was finite."""
     dev = resolve_device(args.device)
-    cfg = get_config(args.arch, reduced=args.reduced)
+    cfg = cfg or get_config(args.arch, reduced=args.reduced)
     dt = torch.float32 if args.fp32 else torch.bfloat16
     rt = Runtime(param_dtype=dt, compute_dtype=dt)
     gen = torch.Generator(device=dev).manual_seed(args.seed)
@@ -66,7 +70,8 @@ def run(args) -> dict:
 
     def count():
         return (flash_ops.launches["flash_attention"],
-                mlstm_ops.launches["mlstm_chunk"])
+                mlstm_ops.launches["mlstm_chunk"],
+                ssm_ops.launches["ssm_scan"])
 
     n0 = count()
 
@@ -102,6 +107,8 @@ def run(args) -> dict:
                            "decode": n2[0] - n1[0]},
         "mlstm_launches": {"prefill": n1[1] - n0[1],
                            "decode": n2[1] - n1[1]},
+        "ssm_launches": {"prefill": n1[2] - n0[2],
+                         "decode": n2[2] - n1[2]},
         "logits_finite": bool(finite),
     }
 

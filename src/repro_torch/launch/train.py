@@ -6,19 +6,23 @@ added).  It runs on the card unless ``--device cpu`` is given, where every
 kernel runs its plain version; without a card the default device raises.
 Parameters are random, drawn from a ``torch.Generator`` seeded with
 ``--seed`` on the device; batches come from the synthetic Markov pipeline
-(``--data-seed``), bit for bit the JAX package's.  Training runs for
-xLSTM in this slice (``check_supported(cfg, train=True)``).
+(``--data-seed``), bit for bit the JAX package's.  Every config but
+whisper trains (``check_supported(cfg, train=True)``).  A Python caller may
+pass its own ``ArchConfig`` to ``run`` (``cfg=``), e.g. a config cut in
+depth; ``--arch`` then only names it.
 
   PYTHONPATH=src python -m repro_torch.launch.train --arch xlstm-1.3b \\
       --batch 2 --seq 1024 --steps 4 --remat none
-  PYTHONPATH=src python -m repro_torch.launch.train --arch xlstm-1.3b \\
+  PYTHONPATH=src python -m repro_torch.launch.train --arch jamba-v0.1-52b \\
       --reduced --device cpu --steps 20 --batch 4 --seq 64
 
 The printed JSON holds the reference's keys (``final_loss``,
 ``first_loss``, ``n_params``, ``wall_s``) and the port's own: per step the
-grad norm, the host-clock step time (ended by a synchronize) and the mLSTM
-kernel launches (forward and backward), tokens per second, and the peak
-device memory.
+grad norm, the host-clock step time (ended by a synchronize), the share of
+MoE token slots dropped at capacity (summed over MoE layers, as the
+reference sums it), and the launches of each kernel entry point, forward and backward (mLSTM, the
+Mamba scan, flash attention), tokens per second, and the peak device
+memory.
 """
 from __future__ import annotations
 
@@ -32,7 +36,9 @@ import torch
 from repro_torch.configs import get_config
 from repro_torch.data.pipeline import DataConfig, SyntheticLM
 from repro_torch.device import resolve_device
+from repro_torch.kernels.flash_attention import ops as flash_ops
 from repro_torch.kernels.mlstm_chunk import ops as mlstm_ops
+from repro_torch.kernels.ssm_scan import ops as ssm_ops
 from repro_torch.models.common import Runtime
 from repro_torch.models.transformer import check_supported
 from repro_torch.optim.adamw import AdamWConfig
@@ -42,8 +48,17 @@ from repro_torch.train.step import (TrainHyper, init_train_state,
 from repro_torch.tree import tree_leaves
 
 
-def build(args):
-    cfg = get_config(args.arch, reduced=args.reduced)
+# per-step launch records: (record key, counter dict, forward entry point,
+# backward entry point)
+LAUNCH_RECORDS = (
+    ("mlstm_launches", mlstm_ops.launches, "mlstm_chunk", "mlstm_chunk_bwd"),
+    ("ssm_launches", ssm_ops.launches, "ssm_scan", "ssm_scan_bwd"),
+    ("flash_launches", flash_ops.launches, "flash_attention",
+     "flash_attention_bwd"))
+
+
+def build(args, cfg=None):
+    cfg = cfg or get_config(args.arch, reduced=args.reduced)
     dt = torch.float32 if args.fp32 else torch.bfloat16
     rt = Runtime(param_dtype=dt, compute_dtype=dt,
                  ce_chunk=min(args.seq, 512), ssm_chunk=min(args.seq, 256),
@@ -61,9 +76,10 @@ def _sync(dev: torch.device) -> None:
         torch.cuda.synchronize(dev)
 
 
-def run(args) -> dict:
+def run(args, cfg=None) -> dict:
+    """Train for ``args.steps`` steps of ``args.arch`` (or of ``cfg``)."""
     dev = resolve_device(args.device)
-    cfg, rt, hyper = build(args)
+    cfg, rt, hyper = build(args, cfg)
     check_supported(cfg, train=True)
     data = SyntheticLM(DataConfig(vocab_size=cfg.vocab_size,
                                   seq_len=args.seq, global_batch=args.batch,
@@ -82,8 +98,8 @@ def run(args) -> dict:
 
     step_fn = make_train_step(cfg, rt, hyper, n_microbatches=args.micro)
     log_path = Path(args.log) if args.log else None
-    rec = {k: [] for k in ("losses", "grad_norms", "step_s",
-                           "mlstm_launches")}
+    rec = {k: [] for k in ("losses", "grad_norms", "step_s", "moe_drop_frac",
+                           *(r[0] for r in LAUNCH_RECORDS))}
     if dev.type == "cuda":
         torch.cuda.reset_peak_memory_stats(dev)
     t0 = time.time()
@@ -91,21 +107,20 @@ def run(args) -> dict:
         batch = {k: torch.as_tensor(v, device=dev)
                  for k, v in data.batch_at(step).items()}
         data.step = step + 1
-        n0 = dict(mlstm_ops.launches)
+        n0 = [dict(r[1]) for r in LAUNCH_RECORDS]
         _sync(dev)
         ts = time.perf_counter()
         state, metrics = step_fn(state, batch)
         _sync(dev)
         rec["step_s"].append(time.perf_counter() - ts)
-        rec["mlstm_launches"].append(
-            {"forward": mlstm_ops.launches["mlstm_chunk"]
-             - n0["mlstm_chunk"],
-             "backward": mlstm_ops.launches["mlstm_chunk_bwd"]
-             - n0["mlstm_chunk_bwd"]})
+        for (key, counts, fwd, bwd), c0 in zip(LAUNCH_RECORDS, n0):
+            rec[key].append({"forward": counts[fwd] - c0[fwd],
+                             "backward": counts[bwd] - c0[bwd]})
         loss = float(metrics["loss"])
         gnorm = float(metrics["grad_norm"])
         rec["losses"].append(loss)
         rec["grad_norms"].append(gnorm)
+        rec["moe_drop_frac"].append(float(metrics["moe_drop_frac"]))
         if log_path:
             with open(log_path, "a") as f:
                 f.write(json.dumps(

@@ -1,5 +1,5 @@
-"""The model stack: dense attention decoders (served) and xLSTM (served and
-trained)."""
+"""The model stack: dense attention and MoE decoders, jamba (Mamba +
+attention + MoE) and xLSTM, served and trained."""
 from repro_torch.models.common import Runtime
 from repro_torch.models.transformer import (check_supported, forward_decode,
                                             forward_prefill, forward_train,

@@ -28,8 +28,10 @@ class Runtime:
     """Policy threaded through the model functions: parameters are stored in
     ``param_dtype``, activations computed in ``compute_dtype``, and scores
     and logits multiplied and summed in ``accum_dtype``; the rest are the
-    training knobs of the reference's ``Runtime`` (the mLSTM kernel's chunk
-    is fixed at 64 tokens, as the Pallas kernel's is)."""
+    training and routing knobs of the reference's ``Runtime`` (the mLSTM
+    kernel's chunk is fixed at 64 tokens, as the Pallas kernel's is; the
+    Mamba scan has no chunk: its kernel and plain version walk every
+    step)."""
 
     param_dtype: torch.dtype = torch.bfloat16
     compute_dtype: torch.dtype = torch.bfloat16
@@ -37,6 +39,7 @@ class Runtime:
     lstm_bf16_states: bool = False     # stash xLSTM outputs in bf16
     ce_chunk: int = 512                # seq chunk for cross-entropy
     ssm_chunk: int = 256               # chunk of the stateful mLSTM scan
+    moe_capacity_factor: float = 0.0   # 0 -> use cfg.capacity_factor
     remat_policy: str = "full"         # none | dots | full
     z_loss: float = 1e-4
 

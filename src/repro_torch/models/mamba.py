@@ -1,11 +1,51 @@
-"""Mamba pieces the port needs so far: the depthwise causal convolution that
-the mLSTM block shares (``repro.models.mamba._causal_conv``).  The Mamba
-mixer itself comes with the jamba slice (ROADMAP queue 1 item 13c)."""
+"""Mamba selective-SSM mixer (Jamba's sequence layer).
+
+The counterpart of ``repro.models.mamba``.  The recurrence over the
+(d_inner, N) state goes to ``kernels.ssm_scan.ops.selective_scan``: the
+hand-written kernels on the card, the plain sequential version (which
+autograd differentiates) on the CPU.
+  * ``mamba`` (training and the loss forward) runs the scan kernel, and its
+    gradient the backward kernel.  This is the JAX package's kernel path
+    (``use_pallas``), which its training cannot take (``pallas_call`` has
+    no transpose); the two compute the same recurrence.
+  * ``mamba_with_state`` (prefill) runs the same kernel and takes the final
+    state from it.  The reference's prefill reaches no kernel: it scans in
+    jnp chunks, because its Pallas kernel returns no state.
+  * ``mamba_decode`` is the one-step plain update on both devices, as in the
+    reference.
+The prefill's conv state is the last Kc - 1 inputs, zero-padded in front
+for a prompt shorter than that (the reference slices past the start there).
+"""
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
+import torch.nn.functional as F
+
+from repro_torch.configs.base import ArchConfig
+from repro_torch.kernels.ssm_scan import ops as ssm_ops
+from repro_torch.models.common import Runtime, dense_init
+
+# leaves the reference keeps in fp32 whatever the parameter dtype
+FP32_PARAMS = ("dt_bias", "A_log", "D")
+
+
+def mamba_init(gen: torch.Generator, cfg: ArchConfig, rt: Runtime) -> dict:
+    d, di = cfg.d_model, cfg.ssm_d_inner
+    r, N, Kc = cfg.dt_rank, cfg.ssm_state_dim, cfg.ssm_conv_dim
+    dev = gen.device
+    A = torch.arange(1, N + 1, dtype=torch.float32, device=dev).repeat(di, 1)
+    return {
+        "w_in": dense_init(gen, d, (d, 2 * di), rt.param_dtype),
+        "conv_w": dense_init(gen, Kc, (Kc, di), rt.param_dtype),
+        "w_x": dense_init(gen, di, (di, r + 2 * N), rt.param_dtype),
+        "w_dt": dense_init(gen, r, (r, di), rt.param_dtype),
+        "dt_bias": torch.full((di,), -4.6, device=dev),  # softplus^-1(~0.01)
+        "A_log": torch.log(A),
+        "D": torch.ones((di,), device=dev),
+        "w_out": dense_init(gen, di, (di, d), rt.param_dtype),
+    }
 
 
 def _causal_conv(x: torch.Tensor, w: torch.Tensor,
@@ -22,3 +62,74 @@ def _causal_conv(x: torch.Tensor, w: torch.Tensor,
     for i in range(Kc):
         out = out + xp[:, i:i + S].float() * w[i].float()
     return out.to(x.dtype)
+
+
+def _ssm_inputs(p: dict, xz: torch.Tensor, cfg: ArchConfig, rt: Runtime,
+                conv_state: Optional[torch.Tensor] = None):
+    """Shared pre-scan computation.  xz (B, S, 2 di) -> (x_c, z, Abar, Bx,
+    Cc, x_in): the discretised Abar = exp(delta A) and Bx = delta x B
+    (B, S, di, N) fp32, and C (B, S, N) fp32."""
+    cd = rt.compute_dtype
+    r, N = cfg.dt_rank, cfg.ssm_state_dim
+    x_in, z = xz.chunk(2, dim=-1)
+    x_c = F.silu(_causal_conv(x_in, p["conv_w"], conv_state))
+    xdb = (x_c @ p["w_x"].to(cd)).float()
+    dt_r, Bc, Cc = xdb.split([r, N, N], dim=-1)
+    delta = F.softplus(dt_r @ p["w_dt"].float() + p["dt_bias"])
+    A = -torch.exp(p["A_log"])                                   # (di, N)
+    Abar = torch.exp(delta[..., None] * A)                       # (B,S,di,N)
+    Bx = (delta * x_c.float())[..., None] * Bc[:, :, None, :]
+    return x_c, z, Abar, Bx, Cc.contiguous(), x_in
+
+
+def _out(p: dict, y_ssm: torch.Tensor, x_c: torch.Tensor, z: torch.Tensor,
+         rt: Runtime) -> torch.Tensor:
+    cd = rt.compute_dtype
+    y = y_ssm + p["D"] * x_c.float()
+    return (y.to(cd) * F.silu(z)) @ p["w_out"].to(cd)
+
+
+def mamba(p: dict, x: torch.Tensor, cfg: ArchConfig, rt: Runtime, *,
+          return_state: bool = False):
+    """Full-sequence selective scan of x (B, S, d) -> (B, S, d); with
+    ``return_state`` also the decode state {"conv", "h"}."""
+    cd = rt.compute_dtype
+    xz = x.to(cd) @ p["w_in"].to(cd)
+    x_c, z, Abar, Bx, Cc, x_in = _ssm_inputs(p, xz, cfg, rt)
+    if not return_state:
+        return _out(p, ssm_ops.selective_scan(Abar, Bx, Cc), x_c, z, rt)
+    y_ssm, h_last = ssm_ops.selective_scan(Abar, Bx, Cc, return_state=True)
+    Kc = cfg.ssm_conv_dim
+    conv = torch.cat([x_in.new_zeros(x_in.shape[0], Kc - 1, x_in.shape[2]),
+                      x_in], dim=1)[:, x_in.shape[1]:]
+    return _out(p, y_ssm, x_c, z, rt), {"conv": conv, "h": h_last}
+
+
+def mamba_with_state(p: dict, x: torch.Tensor, cfg: ArchConfig,
+                     rt: Runtime):
+    return mamba(p, x, cfg, rt, return_state=True)
+
+
+# --------------------------------------------------------------------------- #
+# Decode
+# --------------------------------------------------------------------------- #
+def mamba_cache_init(cfg: ArchConfig, rt: Runtime, B: int, device) -> dict:
+    di, N, Kc = cfg.ssm_d_inner, cfg.ssm_state_dim, cfg.ssm_conv_dim
+    return {
+        "conv": torch.zeros((B, Kc - 1, di), dtype=rt.compute_dtype,
+                            device=device),
+        "h": torch.zeros((B, di, N), dtype=torch.float32, device=device),
+    }
+
+
+def mamba_decode(p: dict, x: torch.Tensor, cache: dict, cfg: ArchConfig,
+                 rt: Runtime) -> Tuple[torch.Tensor, dict]:
+    """One-token step.  x (B, 1, d) -> (B, 1, d) and the new state."""
+    cd = rt.compute_dtype
+    xz = x.to(cd) @ p["w_in"].to(cd)
+    x_c, z, Abar, Bx, Cc, x_in = _ssm_inputs(p, xz, cfg, rt,
+                                             conv_state=cache["conv"])
+    h = Abar[:, 0] * cache["h"] + Bx[:, 0]                        # (B, di, N)
+    y = torch.einsum("bin,bn->bi", h, Cc[:, 0])[:, None]
+    new_conv = torch.cat([cache["conv"][:, 1:], x_in], dim=1)
+    return _out(p, y, x_c, z, rt), {"conv": new_conv, "h": h}

@@ -1,22 +1,22 @@
 """Model assembly: embeddings -> layers -> loss, or last-position logits and
 a cache.
 
-The counterpart of ``repro.models.transformer`` for the configs whose
-layers are dense attention decoders (smollm-135m, phi3-mini-3.8b, yi-34b,
-command-r-35b and internvl2-76b with its stubbed vision prefix) or xLSTM
-blocks (xlstm-1.3b: a period of 8 layers, 7 mLSTM and 1 sLSTM, no FFN).
-The JAX package stacks each period position's parameters on a leading
-``n_periods`` axis and scans over it; the port keeps one parameter dict per
-layer in ``params["blocks"]`` (layer l has spec ``cfg.period[l % P]``), one
-cache dict per layer, and loops.
+The counterpart of ``repro.models.transformer`` for every config but
+whisper: dense attention decoders (smollm-135m, phi3-mini-3.8b, yi-34b,
+command-r-35b and internvl2-76b with its stubbed vision prefix), MoE
+decoders (qwen2-moe-a2.7b, olmoe-1b-7b), the Mamba + attention hybrid with
+MoE (jamba-v0.1-52b) and xLSTM (xlstm-1.3b: a period of 8 layers, 7 mLSTM
+and 1 sLSTM, no FFN).  The JAX package stacks each period position's
+parameters on a leading ``n_periods`` axis and scans over it; the port
+keeps one parameter dict per layer in ``params["blocks"]`` (layer l has
+spec ``cfg.period[l % P]``), one cache dict per layer, and loops.
 
 Entry points:
   * ``forward_train``   -> (loss, metrics)
   * ``forward_prefill`` -> (last-position logits, cache)
   * ``forward_decode``  -> (logits, cache updated in place)
-``check_supported`` says what is served and what is trained: Mamba, MoE,
-cross-attention and the audio encoder come with the next slices, and
-training attention waits for a flash-attention backward.
+``check_supported`` says what is not served or trained yet: whisper's
+cross-attention and audio encoder.
 """
 from __future__ import annotations
 
@@ -28,38 +28,33 @@ from torch.utils import checkpoint as ckpt
 
 from repro_torch.configs.base import ArchConfig, LayerSpec
 from repro_torch.models import attention as attn_mod
+from repro_torch.models import mamba as mamba_mod
 from repro_torch.models import xlstm as xlstm_mod
 from repro_torch.models.common import (Runtime, chunked_cross_entropy,
                                        dense_init, logits_for, norm_apply,
                                        norm_init, sinusoidal_position_at,
                                        sinusoidal_positions)
 from repro_torch.models.mlp import mlp, mlp_init
+from repro_torch.models.moe import moe, moe_init
 
 AUX_KEYS = ("moe_lb_loss", "moe_router_z", "moe_drop_frac")
-NEXT_SLICES = ("the rest comes with the next slices of the model stack "
-               "(ROADMAP queue 1 item 13c: jamba's mamba, moe and ssm_scan, "
-               "and a flash-attention backward; item 13d: dense training, "
-               "whisper's encoder and cross-attention)")
+NEXT_SLICES = ("the rest comes with the next slice of the model stack "
+               "(ROADMAP queue 1 item 13d: whisper's encoder and "
+               "cross-attention)")
 
 
 def check_supported(cfg: ArchConfig, train: bool = False) -> None:
-    """Raise ``NotImplementedError`` for what this slice of the port does not
-    serve (``train=False``) or train (``train=True``) yet."""
-    missing = set()
-    for spec in cfg.period:
-        if spec.mixer == "mamba" or (train and spec.mixer == "attn"):
-            missing.add(spec.mixer)
-        if spec.ffn == "moe":
-            missing.add("moe")
-        if spec.cross_attn:
-            missing.add("cross_attn")
+    """Raise ``NotImplementedError`` for what the port does not serve
+    (``train=False``) or train (``train=True``) yet; both are the same
+    set today."""
+    missing = {"cross_attn" for spec in cfg.period if spec.cross_attn}
     if cfg.encoder_layers:
         missing.add("encoder_layers")
     if missing:
         raise NotImplementedError(
             f"{cfg.name}: the port does not {'train' if train else 'serve'} "
-            f"{', '.join(sorted(missing))} yet; it serves dense attention "
-            "decoders and xLSTM, and trains xLSTM; " + NEXT_SLICES)
+            f"{', '.join(sorted(missing))} yet; it serves and trains "
+            "attention, Mamba, MoE and xLSTM layers; " + NEXT_SLICES)
 
 
 def layer_specs(cfg: ArchConfig) -> List[LayerSpec]:
@@ -76,13 +71,16 @@ def _layer_init(gen: torch.Generator, spec: LayerSpec, cfg: ArchConfig,
     p = {"mixer_norm": norm_init(cfg.norm, cfg.d_model, rt.param_dtype, dev)}
     if spec.mixer == "attn":
         p["mixer"] = attn_mod.attn_init(gen, cfg, rt)
+    elif spec.mixer == "mamba":
+        p["mixer"] = mamba_mod.mamba_init(gen, cfg, rt)
     elif spec.mixer == "mlstm":
         p["mixer"] = xlstm_mod.mlstm_init(gen, cfg, rt)
     else:
         p["mixer"] = xlstm_mod.slstm_init(gen, cfg, rt)
-    if spec.ffn == "dense":
+    if spec.ffn != "none":
         p["ffn_norm"] = norm_init(cfg.norm, cfg.d_model, rt.param_dtype, dev)
-        p["ffn"] = mlp_init(gen, cfg, rt)
+        p["ffn"] = (mlp_init(gen, cfg, rt) if spec.ffn == "dense"
+                    else moe_init(gen, cfg, rt))
     return p
 
 
@@ -127,28 +125,46 @@ def _uses_sinusoidal(cfg: ArchConfig) -> bool:
 # --------------------------------------------------------------------------- #
 # Train
 # --------------------------------------------------------------------------- #
+def _ffn(spec: LayerSpec, p: dict, x: torch.Tensor, cfg: ArchConfig,
+         rt: Runtime) -> Tuple[torch.Tensor, Optional[Dict[str, torch.Tensor]]]:
+    """x plus the layer's FFN (dense or MoE) of its normed input, and the
+    MoE auxiliaries (None for a dense FFN or none)."""
+    if spec.ffn == "none":
+        return x, None
+    h = norm_apply(cfg.norm, x, p["ffn_norm"])
+    if spec.ffn == "dense":
+        return x + mlp(p["ffn"], h, cfg, rt), None
+    y, aux = moe(p["ffn"], h, cfg, rt)
+    return x + y, aux
+
+
 def _apply_block(spec: LayerSpec, p: dict, x: torch.Tensor, cfg: ArchConfig,
-                 rt: Runtime) -> torch.Tensor:
+                 rt: Runtime
+                 ) -> Tuple[torch.Tensor, Optional[Dict[str, torch.Tensor]]]:
     h = norm_apply(cfg.norm, x, p["mixer_norm"])
     if spec.mixer == "attn":
         mixed = attn_mod.attention(p["mixer"], h, cfg, rt)
+    elif spec.mixer == "mamba":
+        mixed = mamba_mod.mamba(p["mixer"], h, cfg, rt)
     elif spec.mixer == "mlstm":
         mixed = xlstm_mod.mlstm(p["mixer"], h, cfg, rt)
     else:
         mixed = xlstm_mod.slstm(p["mixer"], h, cfg, rt)
-    x = x + mixed
-    if spec.ffn == "dense":
-        x = x + mlp(p["ffn"], norm_apply(cfg.norm, x, p["ffn_norm"]), cfg,
-                    rt)
-    return x
+    return _ffn(spec, p, x + mixed, cfg, rt)
 
 
 def _apply_period(x: torch.Tensor, layers: List[dict],
                   specs: List[LayerSpec], cfg: ArchConfig,
-                  rt: Runtime) -> torch.Tensor:
+                  rt: Runtime) -> Tuple[torch.Tensor, Tuple[torch.Tensor,
+                                                            ...]]:
+    """The period's layers in order; returns x and the MoE auxiliaries
+    (``AUX_KEYS``, fp32) summed over its layers."""
+    aux = [x.new_zeros((), dtype=torch.float32) for _ in AUX_KEYS]
     for spec, p in zip(specs, layers):
-        x = _apply_block(spec, p, x, cfg, rt)
-    return x
+        x, a = _apply_block(spec, p, x, cfg, rt)
+        if a is not None:
+            aux = [t + a[k].float() for t, k in zip(aux, AUX_KEYS)]
+    return x, tuple(aux)
 
 
 _DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
@@ -179,15 +195,19 @@ def _remat(fn, rt: Runtime):
 
 
 def _run_layers(params: dict, x: torch.Tensor, cfg: ArchConfig,
-                rt: Runtime) -> torch.Tensor:
+                rt: Runtime) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Every period in order; returns x and the MoE auxiliaries summed over
+    all layers, as the reference's scan carries them."""
     P = len(cfg.period)
     specs = list(cfg.period)
     body = _remat(functools.partial(_apply_period, specs=specs, cfg=cfg,
                                     rt=rt), rt)
     blocks = params["blocks"]
+    aux = [x.new_zeros((), dtype=torch.float32) for _ in AUX_KEYS]
     for i in range(0, len(blocks), P):
-        x = body(x, blocks[i:i + P])
-    return x
+        x, a = body(x, blocks[i:i + P])
+        aux = [t + u for t, u in zip(aux, a)]
+    return x, dict(zip(AUX_KEYS, aux))
 
 
 def forward_train(params: dict, batch: Dict[str, torch.Tensor],
@@ -196,8 +216,9 @@ def forward_train(params: dict, batch: Dict[str, torch.Tensor],
     """Mean next-token loss of ``batch["tokens"]`` against
     ``batch["labels"]`` (B, S) (labels < 0 masked; a VLM's
     ``batch["patches"]`` prepended and not scored), plus the z-loss.
-    Returns (loss, metrics): ``loss``, ``ce``, ``tokens`` and the MoE
-    auxiliaries (zero: no config the port runs has MoE)."""
+    Returns (loss, metrics): ``loss`` = ce + 0.01 lb + 0.001 z, as the
+    reference weights the MoE auxiliaries, ``ce``, ``tokens`` and the
+    auxiliaries summed over layers (zero without MoE)."""
     check_supported(cfg)
     tokens, labels = batch["tokens"], batch["labels"]
     x = _embed_tokens(params, tokens, rt)
@@ -207,16 +228,15 @@ def forward_train(params: dict, batch: Dict[str, torch.Tensor],
         n_prefix = cfg.vision_tokens
     if _uses_sinusoidal(cfg):
         x = _add_sinusoidal(x)
-    x = _run_layers(params, x, cfg, rt)
+    x, aux = _run_layers(params, x, cfg, rt)
     x = norm_apply(cfg.norm, x, params["final_norm"])
     if n_prefix:
         x = x[:, n_prefix:]
-    loss, denom = chunked_cross_entropy(
+    loss_ce, denom = chunked_cross_entropy(
         x, _head_weights(params, cfg), labels, labels >= 0, rt,
         cfg.vocab_size)
-    zero = loss.new_zeros(())
-    metrics = {"loss": loss, "ce": loss, "tokens": denom,
-               **{k: zero for k in AUX_KEYS}}
+    loss = loss_ce + 0.01 * aux["moe_lb_loss"] + 0.001 * aux["moe_router_z"]
+    metrics = {"loss": loss, "ce": loss_ce, "tokens": denom, **aux}
     return loss, metrics
 
 
@@ -226,12 +246,14 @@ def forward_train(params: dict, batch: Dict[str, torch.Tensor],
 def init_cache(cfg: ArchConfig, rt: Runtime, B: int, S: int,
                device) -> List[Dict[str, torch.Tensor]]:
     """One zeroed cache dict per layer: {"k", "v"} (B, S, KV, hd) for
-    attention, the recurrent state for mLSTM and sLSTM."""
+    attention, the recurrent state for Mamba, mLSTM and sLSTM."""
     check_supported(cfg)
     caches = []
     for spec in layer_specs(cfg):
         if spec.mixer == "attn":
             caches.append(attn_mod.attn_cache_init(cfg, rt, B, S, device))
+        elif spec.mixer == "mamba":
+            caches.append(mamba_mod.mamba_cache_init(cfg, rt, B, device))
         elif spec.mixer == "mlstm":
             caches.append(xlstm_mod.mlstm_cache_init(cfg, rt, B, device))
         else:
@@ -248,8 +270,8 @@ def forward_prefill(params: dict, batch: Dict[str, torch.Tensor],
 
     Returns the (B, Vp) fp32 logits of the last position and the cache:
     for attention ``max(cache_size, prefix + S)`` positions holding the
-    prompt's keys and values (the rest zeros), for mLSTM and sLSTM the
-    state after the last token."""
+    prompt's keys and values (the rest zeros), for Mamba, mLSTM and sLSTM
+    the state after the last token."""
     check_supported(cfg)
     tokens = batch["tokens"]
     B = tokens.shape[0]
@@ -268,16 +290,13 @@ def forward_prefill(params: dict, batch: Dict[str, torch.Tensor],
                                                        rt)
             c["k"][:, :S] = k
             c["v"][:, :S] = v
-        elif spec.mixer == "mlstm":
-            mixed, st = xlstm_mod.mlstm_with_state(p["mixer"], h, cfg, rt)
-            c.update(st)
         else:
-            mixed, st = xlstm_mod.slstm_with_state(p["mixer"], h, cfg, rt)
+            with_state = {"mamba": mamba_mod.mamba_with_state,
+                          "mlstm": xlstm_mod.mlstm_with_state,
+                          "slstm": xlstm_mod.slstm_with_state}[spec.mixer]
+            mixed, st = with_state(p["mixer"], h, cfg, rt)
             c.update(st)
-        x = x + mixed
-        if spec.ffn == "dense":
-            x = x + mlp(p["ffn"], norm_apply(cfg.norm, x, p["ffn_norm"]),
-                        cfg, rt)
+        x, _ = _ffn(spec, p, x + mixed, cfg, rt)
     x = norm_apply(cfg.norm, x, params["final_norm"])
     logits = logits_for(x[:, -1:], _head_weights(params, cfg), rt,
                         cfg.vocab_size)
@@ -301,16 +320,13 @@ def forward_decode(params: dict, tokens: torch.Tensor,
         if spec.mixer == "attn":
             mixed = attn_mod.attn_decode(p["mixer"], h, c, cache_len, cfg,
                                          rt)
-        elif spec.mixer == "mlstm":
-            mixed, st = xlstm_mod.mlstm_decode(p["mixer"], h, c, cfg, rt)
-            c.update(st)
         else:
-            mixed, st = xlstm_mod.slstm_decode(p["mixer"], h, c, cfg, rt)
+            decode = {"mamba": mamba_mod.mamba_decode,
+                      "mlstm": xlstm_mod.mlstm_decode,
+                      "slstm": xlstm_mod.slstm_decode}[spec.mixer]
+            mixed, st = decode(p["mixer"], h, c, cfg, rt)
             c.update(st)
-        x = x + mixed
-        if spec.ffn == "dense":
-            x = x + mlp(p["ffn"], norm_apply(cfg.norm, x, p["ffn_norm"]),
-                        cfg, rt)
+        x, _ = _ffn(spec, p, x + mixed, cfg, rt)
     x = norm_apply(cfg.norm, x, params["final_norm"])
     logits = logits_for(x, _head_weights(params, cfg), rt, cfg.vocab_size)
     return logits[:, 0], cache

@@ -5,7 +5,7 @@ The counterpart of ``repro.train.step``.  ``make_train_step`` returns a
 fp32 over microbatches, optional int8 error-feedback compression, global
 norm clipping and AdamW.  The state is updated in place (parameters and
 moments are not copied); the same dict is returned.  Training runs for the
-configs ``check_supported(cfg, train=True)`` accepts (xLSTM in this slice).
+configs ``check_supported(cfg, train=True)`` accepts (all but whisper).
 
 The serving steps return the greedy next token (int32, argmax of the
 logits), the cache, and the fp32 logits it was chosen from, so a caller can

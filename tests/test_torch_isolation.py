@@ -40,6 +40,8 @@ _BLOCKED_RUN = textwrap.dedent("""
     import repro_torch.launch.train, repro_torch.train.checkpoint
     import repro_torch.optim.adamw, repro_torch.optim.compression
     import repro_torch.data.pipeline, repro_torch.tree
+    import repro_torch.kernels.ssm_scan.ops, repro_torch.kernels.ssm_scan.ref
+    import repro_torch.models.mamba, repro_torch.models.moe
     import chip_smoke
     from repro_torch.core import StudyBank
     for opt in ("bayesian", "tpe", ["bayesian", "tpe"]):
@@ -59,6 +61,14 @@ _BLOCKED_RUN = textwrap.dedent("""
         ["--device", "cpu", "--reduced", "--steps", "1", "--batch", "2",
          "--seq", "8"]))
     assert r["losses"][0] == r["losses"][0]
+    r = train.run(train.make_parser().parse_args(
+        ["--device", "cpu", "--reduced", "--arch", "jamba-v0.1-52b",
+         "--steps", "1", "--batch", "2", "--seq", "8"]))
+    assert r["losses"][0] == r["losses"][0]
+    r = serve.run(serve.make_parser().parse_args(
+        ["--device", "cpu", "--reduced", "--arch", "qwen2-moe-a2.7b",
+         "--batch", "2", "--gen", "2"]))
+    assert r["logits_finite"]
     bad = [m for m in sys.modules
            if m.split(".")[0] in ("jax", "jaxlib", "repro")]
     assert not bad, bad
@@ -113,7 +123,8 @@ def test_cpu_is_used_only_when_asked():
 
 
 @pytest.mark.parametrize("suite", ["gp_acquisition", "tpe_kde",
-                                   "flash_attention", "mlstm_chunk"])
+                                   "flash_attention", "mlstm_chunk",
+                                   "ssm_scan"])
 def test_kernel_wrappers_have_no_fallback(suite):
     """A CUDA tensor reaches the kernel or an exception: the dispatch code
     holds no ``try`` around a launch."""

@@ -32,6 +32,7 @@ import torch
 from repro_torch.configs import ARCH_IDS, SHAPES, get_config
 from repro_torch.convert import model_params_from_numpy
 from repro_torch.kernels.flash_attention import ops as flash_ops
+from repro_torch.kernels.flash_attention import ref as flash_ref
 from repro_torch.models import (Runtime, common, forward_decode,
                                 forward_prefill, init_cache, init_params)
 from repro_torch.models import mlp as mlp_mod
@@ -41,11 +42,10 @@ import chip_smoke  # noqa: E402
 
 DENSE = ["smollm-135m", "phi3-mini-3.8b", "yi-34b", "command-r-35b",
          "internvl2-76b"]
-UNPORTED = ["jamba-v0.1-52b", "whisper-large-v3", "qwen2-moe-a2.7b",
-            "olmoe-1b-7b"]
-# one config per mixer or FFN the port serves or not but does not train yet
-UNTRAINED = {"attn": "smollm-135m", "mamba": "jamba-v0.1-52b",
-             "moe": "olmoe-1b-7b"}
+UNPORTED = ["whisper-large-v3"]
+# what the port does not train yet, and a config that has it
+UNTRAINED = {"cross_attn": "whisper-large-v3",
+             "encoder_layers": "whisper-large-v3"}
 RT32 = Runtime(param_dtype=torch.float32, compute_dtype=torch.float32)
 RT16 = Runtime()
 TOL32 = 5e-5
@@ -189,27 +189,69 @@ def test_sdpa_cpu_calls_do_not_count_as_launches():
     assert flash_ops.launches["flash_attention"] == n0
 
 
-def test_sdpa_under_grad_raises_on_the_card(monkeypatch):
-    """The kernel has no backward and its output no ``grad_fn``: on a CUDA
-    tensor (stubbed: the device check says cuda for these CPU tensors) a
-    call under grad with an input that requires grad raises before any
-    build or launch, naming the ROADMAP item; without grad, or with no
-    input requiring grad, the call goes on to the kernel."""
-    def no_build():
-        raise LookupError("reached the kernel build")
+def test_sdpa_on_the_card_carries_the_plain_gradient(monkeypatch):
+    """Under grad, the card path runs the autograd Function whose forward
+    keeps the log-sum-exp and whose backward is the backward kernel: with
+    the device check stubbed to say cuda for these CPU tensors and the two
+    kernel entry points stubbed by their plain versions, the output carries
+    a ``grad_fn`` and the gradient equals autograd of the plain version;
+    without grad, or with no input requiring grad, no log-sum-exp is asked
+    for."""
+    asked = []
+
+    def fwd(q, k, v, causal=True, with_lse=False):
+        asked.append(with_lse)
+        out, lse = flash_ref.attention_lse_ref(q, k, v, causal=causal)
+        return out, (lse if with_lse else None)
+
+    def bwd(q, k, v, out, lse, dout, causal=True):
+        return flash_ref.attention_bwd_ref(q, k, v, out, lse, dout,
+                                           causal=causal)
 
     monkeypatch.setattr(flash_ops, "_on_card", lambda t: True)
-    monkeypatch.setattr(flash_ops, "library", no_build)
-    q, k, v = (torch.as_tensor(a) for a in _qkv(1, 2, 2, 8, 8, 32))
-    for grad_in in ((q.clone().requires_grad_(), k, v),
-                    (q, k, v.clone().requires_grad_())):
-        with pytest.raises(NotImplementedError,
-                           match="ROADMAP queue 1 item 13c"):
-            flash_ops.sdpa(*grad_in, causal=True)
-        with torch.no_grad(), pytest.raises(LookupError):
-            flash_ops.sdpa(*grad_in, causal=True)
-    with pytest.raises(LookupError):
-        flash_ops.sdpa(q, k, v, causal=True)
+    monkeypatch.setattr(flash_ops, "forward", fwd)
+    monkeypatch.setattr(flash_ops, "backward", bwd)
+    q, k, v = (torch.as_tensor(a) for a in _qkv(2, 4, 2, 20, 20, 16))
+    g = torch.as_tensor(_qkv(2, 4, 2, 20, 20, 16, seed=1)[0])
+    xs = [t.clone().requires_grad_() for t in (q, k, v)]
+    out = flash_ops.sdpa(*xs, causal=True)
+    assert out.grad_fn is not None and asked == [True]
+    got = torch.autograd.grad(out, xs, g)
+    ys = [t.clone().requires_grad_() for t in (q, k, v)]
+    want = torch.autograd.grad(flash_ref.attention_ref(*ys), ys, g)
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-5)
+    with torch.no_grad():
+        flash_ops.sdpa(*xs, causal=True)
+    flash_ops.sdpa(q, k, v, causal=True)
+    assert asked == [True, False, False]
+
+
+@pytest.mark.parametrize("B,H,KV,Sq,Sk,hd,causal", [
+    (2, 4, 2, 37, 37, 16, True),     # GQA, ragged
+    (1, 6, 1, 20, 33, 8, True),      # MQA, causal Sq < Sk
+    (2, 4, 4, 19, 29, 24, False),    # non-causal cross shape
+], ids=["gqa", "mqa-rect", "cross"])
+def test_attention_bwd_ref_matches_autograd(B, H, KV, Sq, Sk, hd, causal):
+    """The backward kernel's decomposition (P from the log-sum-exp,
+    D = rowsum(dO o O), dS = P o (dP - D)) against autograd of
+    ``attention_ref`` in fp32: 1e-5 of each gradient's largest magnitude
+    (the same products summed in another order).  The log-sum-exp comes
+    with the output unchanged."""
+    q, k, v = (torch.as_tensor(a) for a in _qkv(B, H, KV, Sq, Sk, hd))
+    g = torch.as_tensor(np.random.default_rng(2).standard_normal(
+        (B, Sq, H, hd), dtype=np.float32))
+    out, lse = flash_ref.attention_lse_ref(q, k, v, causal=causal)
+    assert torch.equal(out, flash_ref.attention_ref(q, k, v, causal=causal))
+    assert lse.shape == (B, H, Sq)
+    xs = [t.clone().requires_grad_() for t in (q, k, v)]
+    want = torch.autograd.grad(flash_ref.attention_ref(*xs, causal=causal),
+                               xs, g)
+    got = flash_ref.attention_bwd_ref(q, k, v, out, lse, g, causal=causal)
+    for a, b in zip(got, want):
+        assert a.shape == b.shape
+        np.testing.assert_allclose(a.numpy(), b.numpy(),
+                                   atol=1e-5 * float(b.abs().max()))
 
 
 # --------------------------------------------------------------------------- #
@@ -446,9 +488,9 @@ def test_unported_families_raise(arch):
 
 @pytest.mark.parametrize("what", sorted(UNTRAINED))
 def test_training_unported_mixers_raises(what):
-    """Training raises for attention (no flash-attention backward yet),
-    Mamba and MoE, on any device, and names the next slices; serving a
-    dense decoder still works."""
+    """Training raises for whisper's cross-attention and audio encoder, on
+    any device, and names the next slice; every other config trains (the
+    flash-attention backward, Mamba and MoE came with item 13c)."""
     from repro_torch.train.step import (TrainHyper, init_train_state,
                                         make_train_step)
     from repro_torch.models import check_supported
@@ -457,10 +499,11 @@ def test_training_unported_mixers_raises(what):
                  lambda: init_train_state(torch.Generator(), cfg, RT32),
                  lambda: check_supported(cfg, train=True)):
         with pytest.raises(NotImplementedError,
-                           match=f"not train .*{what}.*item 13c"):
+                           match=f"not train .*{what}.*item 13d"):
             call()
-    if what == "attn":
-        check_supported(cfg)
+    for arch in ("smollm-135m", "jamba-v0.1-52b", "olmoe-1b-7b",
+                 "qwen2-moe-a2.7b", "xlstm-1.3b"):
+        check_supported(get_config(arch, reduced=True), train=True)
 
 
 # --------------------------------------------------------------------------- #
@@ -481,19 +524,44 @@ def test_cuda_flash_kernel_matches_plain_version(shape):
 
 
 @pytest.mark.cuda
-def test_cuda_sdpa_under_grad_raises():
-    """On the card a call under grad with an input that requires grad
-    raises instead of returning an output without gradient; under
-    ``no_grad`` the kernel runs."""
+def test_cuda_sdpa_gradient_matches_plain_version():
+    """On the card a call under grad runs the forward kernel with the
+    log-sum-exp and, in the backward, the backward kernel: the gradient
+    equals autograd of the plain version within ``chip_smoke``'s fp32
+    tolerance; under ``no_grad`` the forward kernel runs alone."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     q, k, v = (torch.as_tensor(a, device="cuda")
-               for a in _qkv(1, 2, 2, 64, 64, 32))
-    n0 = flash_ops.launches["flash_attention"]
-    with pytest.raises(NotImplementedError, match="item 13c"):
-        flash_ops.sdpa(q.requires_grad_(), k, v, causal=True)
-    assert flash_ops.launches["flash_attention"] == n0
+               for a in _qkv(1, 4, 2, 100, 100, 32))
+    g = torch.as_tensor(_qkv(1, 4, 2, 100, 100, 32, seed=1)[0],
+                        device="cuda")
+    n0 = dict(flash_ops.launches)
+    xs = [t.clone().requires_grad_() for t in (q, k, v)]
+    got = torch.autograd.grad(flash_ops.sdpa(*xs, causal=True), xs, g)
+    assert flash_ops.launches == {
+        "flash_attention": n0["flash_attention"] + 1,
+        "flash_attention_bwd": n0["flash_attention_bwd"] + 1}
+    ys = [t.clone().requires_grad_() for t in (q, k, v)]
+    want = torch.autograd.grad(flash_ref.attention_ref(*ys), ys, g)
+    for a, b in zip(got, want):
+        assert float((a - b).abs().max()) <= \
+            chip_smoke.FLASH_BWD_RTOL * float(b.abs().max())
     with torch.no_grad():
         out = flash_ops.sdpa(q, k, v, causal=True)
     assert out.grad_fn is None
-    assert flash_ops.launches["flash_attention"] == n0 + 1
+    assert flash_ops.launches["flash_attention"] == \
+        n0["flash_attention"] + 2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", chip_smoke.FLASH_BWD_CARD_TEST_SHAPES,
+                         ids=lambda s: s[0])
+def test_cuda_flash_bwd_kernel_matches_plain_version(shape):
+    """The backward kernel (and the forward's log-sum-exp) against the
+    plain versions on the card, with the tolerances
+    ``chip_smoke.flash_bwd_error`` states."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    errs, _ = chip_smoke.flash_bwd_error(shape, torch.device("cuda"))
+    for name, (err, tol) in errs.items():
+        assert err <= tol, (shape, name, err, tol)

@@ -21,6 +21,7 @@ from repro_torch.train.step import make_decode_step, make_prefill_step
 
 DENSE = ["smollm-135m", "phi3-mini-3.8b", "yi-34b", "command-r-35b",
          "internvl2-76b"]
+MOE = ["jamba-v0.1-52b", "qwen2-moe-a2.7b", "olmoe-1b-7b"]
 NEAR_TIE = 1e-4
 
 
@@ -75,6 +76,22 @@ def test_run_rejects_unported_families():
         serve.run(_args("--arch", "whisper-large-v3"))
 
 
+@pytest.mark.parametrize("arch", MOE)
+def test_run_serves_jamba_and_moe(arch):
+    """jamba (Mamba + attention + MoE), qwen2-moe and olmoe serve through
+    the driver on the CPU: finite logits, the per-stage launch counts of
+    every kernel (none on the CPU); a caller's config (``cfg=``, here the
+    reduced config cut to one period) replaces ``--arch``'s."""
+    cfg = get_config(arch, reduced=True)
+    args = _args("--arch", arch, "--batch", "2", "--prompt-len", "9",
+                 "--gen", "3")
+    for c in (None, dataclasses.replace(cfg, n_layers=len(cfg.period))):
+        r = serve.run(args, cfg=c)
+        assert r["logits_finite"] and r["generated_shape"] == [2, 3]
+        for key in ("ssm_launches", "flash_launches", "mlstm_launches"):
+            assert r[key] == {"prefill": 0, "decode": 0}, key
+
+
 def test_run_serves_xlstm():
     """The reduced xLSTM serves through the driver: stateful prefill and
     decode, finite logits, and no mLSTM kernel launch in either stage."""
@@ -85,7 +102,7 @@ def test_run_serves_xlstm():
     assert r["flash_launches"] == {"prefill": 0, "decode": 0}
 
 
-@pytest.mark.parametrize("arch", ["smollm-135m", "internvl2-76b"])
+@pytest.mark.parametrize("arch", ["smollm-135m", "internvl2-76b", *MOE])
 def test_greedy_tokens_match_reference(arch):
     """Prefill, then five greedy decode steps, in both packages from the
     same parameters and prompt (fp32; JAX through its Pallas kernel in

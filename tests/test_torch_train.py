@@ -35,6 +35,7 @@ from repro_torch.tree import tree_items
 
 DENSE = ["smollm-135m", "phi3-mini-3.8b", "yi-34b", "command-r-35b",
          "internvl2-76b"]
+MOE_KEYS = ("moe_lb_loss", "moe_router_z", "moe_drop_frac")
 LOSS_RTOL = 1e-5
 LEAF_RTOL = 1e-4
 T = torch.as_tensor
@@ -58,6 +59,25 @@ def _cut(cfg):
     """The reduced xLSTM cut to one mLSTM and one sLSTM layer (a period of
     two), which keeps the JAX package's train-step compile short."""
     return dataclasses.replace(cfg, n_layers=2, period=cfg.period[2:4])
+
+
+def _jamba_cut(cfg):
+    """The reduced jamba cut to one layer of each kind its period has (its
+    positions 0, 1 and 4: Mamba + dense, Mamba + MoE, attention + dense),
+    as ``chip_smoke`` cuts the full-width one; either package's
+    ``LayerSpec``s are taken from its own config."""
+    return dataclasses.replace(cfg, n_layers=3, period=tuple(
+        cfg.period[i] for i in (0, 1, 4)))
+
+
+def _first(cfg):
+    """A dense reduced config cut to its first two layers."""
+    return dataclasses.replace(cfg, n_layers=2)
+
+
+# (arch, cut) of the train-step tests
+STEP_CONFIGS = {"xlstm-1.3b": _cut, "jamba-v0.1-52b": _jamba_cut,
+                "phi3-mini-3.8b": _first}
 
 
 def _np(tree):
@@ -133,9 +153,18 @@ def _batch(cfg, B, S, seed, jnp, dtype=torch.float32):
     ("xlstm-1.3b", 64, True, False),   # the JAX package's mLSTM kernel path
     ("xlstm-1.3b", 70, False, False),  # its jnp chunked path, ragged
     ("xlstm-1.3b", 70, False, True),   # xLSTM outputs stashed in bf16
+    ("jamba-v0.1-52b", 16, True, False),   # its ssm_scan kernel path
+    ("jamba-v0.1-52b", 37, False, False),  # its chunked scan, ragged
+    ("qwen2-moe-a2.7b", 16, True, False),
+    ("olmoe-1b-7b", 16, True, False),
 ], ids=[*DENSE, "xlstm-1.3b-kernel", "xlstm-1.3b-ragged",
-        "xlstm-1.3b-bf16-states"])
+        "xlstm-1.3b-bf16-states", "jamba-v0.1-52b-kernel",
+        "jamba-v0.1-52b-ragged", "qwen2-moe-a2.7b", "olmoe-1b-7b"])
 def test_forward_train_loss_matches_reference(arch, S, pallas, bf16_states):
+    """The loss (ce + 0.01 lb + 0.001 z), the cross-entropy and the MoE
+    auxiliaries summed over layers against the JAX package's; the
+    auxiliaries are zero, and the loss is the cross-entropy, without
+    MoE."""
     jax, jnp = _jax()
     from repro.configs import get_config as jget
     from repro.models import forward_train as jforward
@@ -152,7 +181,15 @@ def test_forward_train_loss_matches_reference(arch, S, pallas, bf16_states):
     # bf16 step (2^-8 relative) apart in the two packages
     assert _rel(loss, jl) < (10 * LOSS_RTOL if bf16_states else LOSS_RTOL)
     assert float(m["tokens"]) == float(jm["tokens"])
-    assert float(m["ce"]) == float(loss)
+    if not any(spec.ffn == "moe" for spec in cfg.period):
+        assert float(m["ce"]) == float(loss)
+        assert all(float(m[k]) == 0.0 for k in MOE_KEYS)
+        return
+    assert _rel(m["ce"], jm["ce"]) < LOSS_RTOL
+    for k in MOE_KEYS[:2]:
+        assert _rel(m[k], jm[k]) < LOSS_RTOL, k
+    assert float(m["moe_drop_frac"]) == pytest.approx(
+        float(jm["moe_drop_frac"]), abs=1e-6)
 
 
 @pytest.mark.parametrize("policy", ["full", "dots"])
@@ -188,16 +225,18 @@ def test_schedule_matches_reference(schedule):
         assert schedule_lr(AdamWConfig(**kw), step) == want, step
 
 
-def _step_both(compression, n_micro=2):
-    """One train step of the cut xLSTM in both packages from the same state
-    and batch (JAX: its differentiable path, jitted).  Returns (port state,
-    port metrics, JAX state in the port's layout, JAX metrics)."""
+def _step_both(compression, n_micro=2, arch="xlstm-1.3b"):
+    """One train step of the cut config (``STEP_CONFIGS``) in both packages
+    from the same state and batch (JAX: its differentiable path, jitted).
+    Returns (port state, port metrics, JAX state in the port's layout, JAX
+    metrics)."""
     jax, jnp = _jax()
     from repro.configs import get_config as jget
     from repro.optim.adamw import AdamWConfig as JCfg
     from repro.train import step as jstep
-    cfg = _cut(get_config("xlstm-1.3b", True))
-    jcfg = _cut(jget("xlstm-1.3b", True))
+    cut = STEP_CONFIGS[arch]
+    cfg = cut(get_config(arch, True))
+    jcfg = cut(jget(arch, True))
     rt, jrt = _rts(jnp, ce_chunk=8, ssm_chunk=4, remat_policy="none")
     opt = dict(lr=3e-3, warmup_steps=2, total_steps=10, weight_decay=0.1)
     jst = jstep.init_train_state(jax.random.PRNGKey(2), jcfg, jrt,
@@ -228,14 +267,9 @@ def _leaves(state, *keys):
     return dict(tree_items(state))
 
 
-def test_train_step_matches_reference():
-    """One ``make_train_step`` step (two interleaved microbatches, AdamW
-    with weight decay) against the JAX package's: loss, grad norm,
-    learning rate, step count, AdamW m and v, and the parameters where the
-    gradient is not near zero (which also holds the reference's decay rule:
-    every block leaf decays, norm scales included, the top-level final norm
-    does not)."""
-    state, _, want, _ = _step_both("none")
+def _check_step(state, want):
+    """AdamW m and v of every leaf, and the parameters where the gradient
+    is not near zero, against the JAX package's step."""
     for key in ("m", "v"):
         theirs = _leaves(want, "opt", key)
         for path, leaf in tree_items(state["opt"][key]):
@@ -247,6 +281,32 @@ def test_train_step_matches_reference():
         sure = gl > 1e-3 * float(gl.max())
         np.testing.assert_allclose(leaf[sure].numpy(),
                                    theirs[path][sure].numpy(), atol=1e-6)
+
+
+def test_train_step_matches_reference():
+    """One ``make_train_step`` step (two interleaved microbatches, AdamW
+    with weight decay) against the JAX package's: loss, grad norm,
+    learning rate, step count, AdamW m and v, and the parameters where the
+    gradient is not near zero (which also holds the reference's decay rule:
+    every block leaf decays, norm scales included, the top-level final norm
+    does not)."""
+    state, _, want, _ = _step_both("none")
+    _check_step(state, want)
+
+
+@pytest.mark.parametrize("arch", ["jamba-v0.1-52b", "phi3-mini-3.8b"])
+def test_train_step_matches_reference_with_attention_mamba_and_moe(arch):
+    """The same step of the cut reduced jamba (Mamba with and without MoE,
+    attention through the flash backward's plain version) and of a dense
+    config, now that attention trains: loss (ce plus the weighted MoE
+    auxiliaries), grad norm, AdamW m and v, parameters."""
+    state, m, want, jm = _step_both("none", arch=arch)
+    for k in MOE_KEYS:
+        assert float(m[k]) == pytest.approx(float(jm[k]), rel=LOSS_RTOL,
+                                            abs=1e-6), k
+    if arch.startswith("jamba"):
+        assert float(m["moe_lb_loss"]) > 0.0
+    _check_step(state, want)
 
 
 def test_int8_ef_train_step_matches_reference():
@@ -345,18 +405,17 @@ def test_synthetic_lm_is_bit_identical_to_reference():
                                   theirs.batch_at(1)["tokens"])
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
-                         ids=["fp32", "bf16"])
-def test_checkpoints_cross_both_ways(tmp_path, dtype):
-    """A JAX checkpoint restores into the port bit for bit (bf16 leaves
-    too), and a port checkpoint restores into the JAX package; both use
-    the JAX key layout."""
+def _checkpoints_cross(tmp_path, dtype, arch):
+    """A JAX checkpoint of the cut config restored into the port and the
+    port's written back and restored into the JAX package; returns the
+    port's checkpoint arrays and the config."""
     jax, jnp = _jax()
     from repro.configs import get_config as jget
     from repro.train import step as jstep
     from repro.train.checkpoint import Checkpointer as JCkpt
-    cfg = _cut(get_config("xlstm-1.3b", True))
-    jcfg = _cut(jget("xlstm-1.3b", True))
+    cut = STEP_CONFIGS[arch]
+    cfg = cut(get_config(arch, True))
+    jcfg = cut(jget(arch, True))
     rt, jrt = _rts(jnp, dtype)
     jst = jstep.init_train_state(jax.random.PRNGKey(4), jcfg, jrt,
                                  grad_compression="int8_ef")
@@ -376,18 +435,41 @@ def test_checkpoints_cross_both_ways(tmp_path, dtype):
     # the port's checkpoint, restored by the JAX package
     got["opt"]["step"] = 12
     ck = Checkpointer(str(tmp_path / "port"), cfg, async_save=False)
-    ck.save(12, got, extra={"arch": "xlstm-1.3b"})
+    ck.save(12, got, extra={"arch": arch})
     back, meta = JCkpt(str(tmp_path / "port")).restore(None, jst)
-    assert meta["arch"] == "xlstm-1.3b" and int(back["opt"]["step"]) == 12
+    assert meta["arch"] == arch and int(back["opt"]["step"]) == 12
     for a, b in zip(jax.tree.leaves(back), jax.tree.leaves(jst)):
         if a.ndim:
             assert a.dtype == b.dtype
             np.testing.assert_array_equal(np.asarray(a, np.float32),
                                           np.asarray(b, np.float32))
-    flat = np.load(tmp_path / "port" / "step_00000012.npz")
+    assert train_state_to_numpy(got, cfg)["opt"]["step"].dtype == np.int32
+    return np.load(tmp_path / "port" / "step_00000012.npz"), cfg
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+def test_checkpoints_cross_both_ways(tmp_path, dtype):
+    """A JAX checkpoint restores into the port bit for bit (bf16 leaves
+    too), and a port checkpoint restores into the JAX package; both use
+    the JAX key layout."""
+    flat, cfg = _checkpoints_cross(tmp_path, dtype, "xlstm-1.3b")
     assert "params/blocks/pos1/mixer/r" in flat.files
     assert flat["params/blocks/pos0/mixer/wq"].shape[0] == cfg.n_periods
-    assert train_state_to_numpy(got, cfg)["opt"]["step"].dtype == np.int32
+
+
+def test_jamba_checkpoints_cross_both_ways(tmp_path):
+    """The same for the cut jamba in bf16: the Mamba, MoE (router in fp32
+    whatever the parameter dtype) and attention leaves, both ways."""
+    flat, cfg = _checkpoints_cross(tmp_path, torch.bfloat16,
+                                   "jamba-v0.1-52b")
+    for key in ("params/blocks/pos0/mixer/A_log",
+                "params/blocks/pos1/ffn/router", "params/blocks/pos1/ffn/wg",
+                "opt/m/blocks/pos1/ffn/wd", "opt/v/blocks/pos0/mixer/w_dt",
+                "params/blocks/pos2/mixer/wq"):
+        assert key in flat.files, key
+    assert flat["params/blocks/pos1/ffn/wg"].shape == (
+        cfg.n_periods, cfg.n_experts, cfg.d_model, cfg.moe_d_ff)
 
 
 def test_checkpointer_keeps_the_last_few(tmp_path):
@@ -428,6 +510,31 @@ def test_train_driver_resumes_bit_for_bit(tmp_path):
     assert full["mlstm_launches"] == [{"forward": 0, "backward": 0}] * 4
     assert json.dumps({k: v for k, v in full.items() if k != "losses"})
     assert train.make_parser().parse_args([]).device == "cuda"
+
+
+def test_train_driver_runs_jamba_and_records_every_kernel():
+    """The reduced jamba trains through ``launch.train.run`` on the CPU,
+    and a caller's config (``cfg=``) replaces ``--arch``'s: finite losses,
+    the MoE drop share and, per step, the launches of every kernel entry
+    point (none on the CPU)."""
+    from repro_torch.launch import train
+    args = train.make_parser().parse_args(
+        ["--arch", "jamba-v0.1-52b", "--reduced", "--device", "cpu",
+         "--batch", "2", "--seq", "24", "--steps", "2", "--warmup", "1"])
+    r = train.run(args)
+    cut = _jamba_cut(get_config("jamba-v0.1-52b", True))
+    rc = train.run(args, cfg=cut)
+    # the analytic count leaves out the norm scales (d each) and Mamba's
+    # dt_bias (d_inner per Mamba layer)
+    norms = (2 * cut.n_layers + 1) * cut.d_model
+    dt_bias = 2 * cut.ssm_d_inner
+    assert rc["n_params"] == cut.param_count()["total"] + norms + dt_bias
+    assert rc["n_params"] < r["n_params"]
+    for out in (r, rc):
+        assert all(np.isfinite(out["losses"] + out["grad_norms"]))
+        assert len(out["moe_drop_frac"]) == 2
+        for key in ("mlstm_launches", "ssm_launches", "flash_launches"):
+            assert out[key] == [{"forward": 0, "backward": 0}] * 2, key
 
 
 def test_train_driver_defaults_to_cuda_and_never_falls_back():
