@@ -9,19 +9,25 @@ Phases:
   1. setup: card name and power limit, build the CUDA kernels of the five
      suites (``src/repro_torch/kernels/{gp_acquisition,tpe_kde,
      flash_attention,mlstm_chunk,ssm_scan}/csrc``) with nvcc (sm_90a), one
-     nvcc each, started together, and print what ptxas says about them;
+     nvcc each, started together, and print what ptxas says about them and
+     each flash kernel's registers, spills and shared memory;
   2. each kernel against its plain PyTorch version on the card, with
      timings: the tuner kernels at the fleet path's shapes, at a ragged
      small shape and at a large bucket; flash attention at the served
-     models' prefill shapes, yi-34b's width, a ragged and a cross shape,
-     beside ``scaled_dot_product_attention`` as a yardstick; the mLSTM
+     models' prefill shapes, yi-34b's width, a ragged and a cross shape in
+     fp32 (the FMA kernel) and bf16 (the tensor-core kernel), causal
+     Sq < Sk at hd 24, MQA at hd 128 and whisper-large-v3's encoder,
+     beside ``scaled_dot_product_attention`` as a yardstick, each bf16
+     shape run twice and required bitwise equal; the mLSTM
      forward and backward kernels at xlstm-1.3b's training shape, a reduced
      head size, a ragged length and a case where the clamp decides; the
      selective-scan forward (with and without the final state) and backward
      kernels at jamba's training shape, a reduced width, a ragged length,
      the kernel tests' decaying draw and an Abar near zero; the flash
      backward at jamba's attention shape, phi3-mini's prefill shape, a
-     ragged length and head size 16, beside the library's backward;
+     ragged length and head size 16 (fp32 and bf16) and a non-causal cross
+     shape, beside the library's backward, bf16 runs required bitwise
+     equal;
   3. the GP fleet: a 64-study ``StudyBank`` over Hartmann-6 with the default
      candidate budget, 200 observations each, three rounds of ask_all(4) ->
      tell, with the kernels' launch counts read around the run;
@@ -605,7 +611,10 @@ def check_tpe_kernels(dev, reps_main: int):
 # --------------------------------------------------------------------------- #
 # (tag, B, Sq, Sk, H, KV, hd, causal, dtype): the prefill shapes of the two
 # served models, yi-34b's attention width, a ragged length and a
-# cross-attention shape
+# cross-attention shape, each of the last two in fp32 (the FMA kernel) and
+# bf16 (the tensor-core kernel), causal Sq < Sk at a reduced head size and
+# MQA at hd 128 in bf16, and whisper-large-v3's encoder (1500 frames, 20
+# heads of 64, non-causal)
 FLASH_SHAPES = [
     ("smollm-135m prefill", 8, 1024, 1024, 9, 3, 64, True, torch.bfloat16),
     ("phi3-mini-3.8b prefill", 4, 2048, 2048, 32, 32, 96, True,
@@ -613,15 +622,27 @@ FLASH_SHAPES = [
     ("yi-34b width", 1, 4096, 4096, 56, 8, 128, True, torch.bfloat16),
     ("ragged causal", 2, 1000, 1000, 9, 3, 64, True, torch.float32),
     ("cross, non-causal", 2, 77, 300, 4, 2, 32, False, torch.float32),
+    ("ragged causal bf16", 2, 1000, 1000, 9, 3, 64, True, torch.bfloat16),
+    ("cross, non-causal bf16", 2, 77, 300, 4, 2, 32, False, torch.bfloat16),
+    ("rect causal hd 24 bf16", 2, 77, 300, 4, 2, 24, True, torch.bfloat16),
+    ("mqa hd 128 bf16", 1, 300, 300, 8, 1, 128, True, torch.bfloat16),
+    ("whisper-large-v3 encoder", 2, 1500, 1500, 20, 20, 64, False,
+     torch.bfloat16),
 ]
 FLASH_MAIN = "phi3-mini-3.8b prefill"   # the shape of the kernels line
 # small shapes for the card test (tests/test_torch_models.py): GQA bf16,
-# ragged fp32 at hd 96, MQA at hd 128, causal Sq < Sk at a reduced head size
+# ragged at hd 96, MQA at hd 128, causal Sq < Sk at a reduced head size and
+# a non-causal cross shape, each kind in fp32 and in bf16
 FLASH_CARD_TEST_SHAPES = [
     ("bf16-gqa-hd64", 2, 256, 256, 9, 3, 64, True, torch.bfloat16),
     ("fp32-ragged-hd96", 1, 1000, 1000, 4, 4, 96, True, torch.float32),
     ("bf16-mqa-hd128", 1, 300, 300, 8, 1, 128, True, torch.bfloat16),
     ("fp32-rect-causal-hd24", 2, 77, 300, 4, 2, 24, True, torch.float32),
+    ("bf16-ragged-hd96", 1, 1000, 1000, 4, 4, 96, True, torch.bfloat16),
+    ("bf16-rect-causal-hd24", 2, 77, 300, 4, 2, 24, True, torch.bfloat16),
+    ("fp32-cross-hd32", 2, 77, 300, 4, 2, 32, False, torch.float32),
+    ("bf16-cross-hd32", 2, 77, 300, 4, 2, 32, False, torch.bfloat16),
+    ("fp32-mqa-hd128", 1, 300, 300, 8, 1, 128, True, torch.float32),
 ]
 
 
@@ -688,11 +709,23 @@ def library_sdpa(q, k, v, causal):
         qt, kt, vt, is_causal=causal, enable_gqa=True)
 
 
+def check_deterministic(what, fn):
+    """Two calls of ``fn`` on the same inputs give bitwise-equal tensors
+    (the kernels use no atomics and a fixed order of sums)."""
+    a, b = fn(), fn()
+    torch.cuda.synchronize()
+    for x, y in zip(a, b):
+        if x is not None and not torch.equal(x, y):
+            raise AssertionError(f"{what}: two runs differ")
+    log(f"[flash] {what}: two runs bitwise equal")
+
+
 def check_flash_kernel(dev, reps_main: int):
     """Phase 2, flash attention: the kernel against its plain version at
-    the five shapes of ``FLASH_SHAPES``, each timed beside the plain version,
-    the library call and the bound.  Returns the record of the kernels line
-    (worst error over all shapes; times and bound at ``FLASH_MAIN``)."""
+    the shapes of ``FLASH_SHAPES``, each timed beside the plain version,
+    the library call and the bound, the bf16 kernel also run twice and
+    held bitwise equal.  Returns the record of the kernels line (worst
+    error over all shapes; times and bound at ``FLASH_MAIN``)."""
     rec = {"max_abs_err": 0.0}
     for shape in FLASH_SHAPES:
         tag, B, Sq, Sk, H, KV, hd, causal, dtype = shape
@@ -707,6 +740,10 @@ def check_flash_kernel(dev, reps_main: int):
         if not ok:
             raise AssertionError(f"flash {tag} outside tolerance")
         rec["max_abs_err"] = max(rec["max_abs_err"], err)
+        if dtype == torch.bfloat16:
+            check_deterministic(
+                f"flash {tag}",
+                lambda: flash_ops.forward(q, k, v, causal, with_lse=True))
         ms = cuda_ms(lambda: flash_ops.sdpa(q, k, v, causal=causal),
                      reps_main)
         plain = cuda_ms(lambda: flash_ref.attention_ref(q, k, v,
@@ -1049,14 +1086,23 @@ FLASH_BWD_SHAPES = [
      torch.bfloat16),
     ("ragged causal", 2, 1000, 1000, 9, 3, 64, True, torch.float32),
     ("hd 16", 2, 300, 300, 4, 2, 16, True, torch.float32),
+    ("ragged causal bf16", 2, 1000, 1000, 9, 3, 64, True, torch.bfloat16),
+    ("hd 16 bf16", 2, 300, 300, 4, 2, 16, True, torch.bfloat16),
+    ("cross, non-causal bf16", 2, 77, 300, 4, 2, 32, False, torch.bfloat16),
 ]
 FLASH_BWD_MAIN = "jamba attention"
-# small shapes for the card test (tests/test_torch_models.py)
+# small shapes for the card test (tests/test_torch_models.py), each kind in
+# fp32 and in bf16
 FLASH_BWD_CARD_TEST_SHAPES = [
     ("bf16-gqa-hd64", 2, 256, 256, 9, 3, 64, True, torch.bfloat16),
     ("fp32-ragged-hd96", 1, 200, 200, 4, 4, 96, True, torch.float32),
     ("fp32-rect-causal-hd24", 2, 77, 300, 4, 2, 24, True, torch.float32),
     ("fp32-cross-hd32", 2, 77, 130, 4, 1, 32, False, torch.float32),
+    ("bf16-ragged-hd96", 1, 200, 200, 4, 4, 96, True, torch.bfloat16),
+    ("bf16-rect-causal-hd24", 2, 77, 300, 4, 2, 24, True, torch.bfloat16),
+    ("bf16-cross-hd32", 2, 77, 130, 4, 1, 32, False, torch.bfloat16),
+    ("bf16-mqa-hd128", 1, 300, 300, 8, 1, 128, True, torch.bfloat16),
+    ("fp32-mqa-hd128", 1, 300, 300, 8, 1, 128, True, torch.float32),
 ]
 # the gradients against autograd of the plain version, over the largest
 # magnitude of each: fp32, 1e-4 (both compute in fp32; a gradient sums
@@ -1128,7 +1174,8 @@ def library_sdpa_bwd(q, k, v, dout, causal):
 def check_flash_bwd_kernel(dev, reps_main: int):
     """Phase 2, flash attention backward: the kernel against autograd of
     the plain version at the ``FLASH_BWD_SHAPES``, each timed beside that
-    plain backward, the library's backward and the bound.  Returns the
+    plain backward, the library's backward and the bound, the bf16 kernels
+    also run twice and held bitwise equal.  Returns the
     record of the kernels line (worst error over all shapes; times and
     bound at ``FLASH_BWD_MAIN``)."""
     rec = {"max_abs_err": 0.0}
@@ -1148,6 +1195,10 @@ def check_flash_bwd_kernel(dev, reps_main: int):
                                      "tolerance")
             if name != "lse":
                 rec["max_abs_err"] = max(rec["max_abs_err"], err)
+        if dtype == torch.bfloat16:
+            check_deterministic(
+                f"flash-bwd {tag}",
+                lambda: flash_ops.backward(q, k, v, out, lse, dout, causal))
         reps = reps_main if tag == FLASH_BWD_MAIN else 5
         ms = cuda_ms(lambda: flash_ops.backward(q, k, v, out, lse, dout,
                                                 causal), reps)
@@ -2186,7 +2237,7 @@ def main(argv) -> int:
               ("ssm_scan", ssm_ops))
     t0 = time.perf_counter()
     with ThreadPoolExecutor(max_workers=len(suites)) as pool:
-        lib, _, flash_lib, _, ssm_lib = [f.result() for f in [
+        lib, _, _, _, ssm_lib = [f.result() for f in [
             pool.submit(mod.library) for _, mod in suites]]
     log("[setup] built " + ", ".join(
         str(build.library_path(name, mod.SOURCES)) for name, mod in suites)
@@ -2195,12 +2246,11 @@ def main(argv) -> int:
         for line in build.ptxas_report(name, mod.SOURCES).splitlines():
             if "ptxas" in line:
                 log(f"[setup] {name}: {line.strip()}")
-    log("[setup] flash_attention dynamic shared memory per block at hd "
-        "32/64/96/128: " + "/".join(
-            str(flash_lib.flash_attention_smem_bytes(hd))
-            for hd in (32, 64, 96, 128)) + " bytes (backward: " + "/".join(
-            str(flash_lib.flash_attention_bwd_smem_bytes(hd))
-            for hd in (32, 64, 96, 128)) + ")")
+    for hd in (32, 64, 96, 128):
+        log(f"[setup] flash_attention at hd {hd}, per kernel (registers per "
+            "thread, spill bytes per thread, shared memory bytes per block): "
+            + ", ".join(f"{name} {a}" for name, a in
+                        flash_ops.kernel_attrs(hd).items()))
     log("[setup] ssm_scan backward dynamic shared memory per block at N "
         "8/16/32: " + "/".join(str(ssm_lib.ssm_scan_bwd_smem_bytes(n))
                                for n in (8, 16, 32)) + " bytes")

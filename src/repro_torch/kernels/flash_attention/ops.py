@@ -3,7 +3,8 @@
 ``sdpa`` is the counterpart of ``repro.kernels.flash_attention.ops.sdpa`` in
 the model layout, q (B, Sq, H, hd) and k/v (B, Sk, KV, hd):
   * a CUDA tensor launches the hand-written kernel in
-    ``csrc/flash_attention.cu``; under grad with an input that requires
+    ``csrc/flash_attention.cu`` (bf16 inputs: on tensor cores; fp32: on
+    FMAs, the parity runs' path); under grad with an input that requires
     grad it runs through ``FlashAttention``, a ``torch.autograd.Function``
     whose forward also keeps the row log-sum-exp and whose backward is the
     kernel in ``csrc/flash_attention_bwd.cu`` (both built at first use, see
@@ -51,9 +52,14 @@ def library() -> ctypes.CDLL:
         lib.flash_attention_bwd.argtypes = ([_P] * 10 + [_I] * 6
                                             + [ctypes.c_float, _I, _I, _P])
         lib.flash_attention_bwd.restype = _I
+        lib.flash_attention_smem_bytes.argtypes = [_I, _I]
+        lib.flash_attention_bwd_smem_bytes.argtypes = [_I] * 3
+        lib.flash_attention_fwd_attrs.argtypes = [_I, _I, _P]
+        lib.flash_attention_bwd_attrs.argtypes = [_I, _I, _I, _P]
         for fn in (lib.flash_attention_smem_bytes,
-                   lib.flash_attention_bwd_smem_bytes):
-            fn.argtypes = [_I]
+                   lib.flash_attention_bwd_smem_bytes,
+                   lib.flash_attention_fwd_attrs,
+                   lib.flash_attention_bwd_attrs):
             fn.restype = _I
         lib.flash_error_string.argtypes = [_I]
         lib.flash_error_string.restype = ctypes.c_char_p
@@ -86,6 +92,29 @@ def _check(q, k, v, causal: bool):
         raise ValueError(f"causal attention needs Sq <= Sk, got Sq={Sq} "
                          f"Sk={Sk}")
     return B, Sq, Sk, H, KV, hd
+
+
+def kernel_attrs(hd: int) -> dict:
+    """What each kernel of the suite takes on the card at head size hd:
+    {kernel: (registers per thread, local-memory bytes per thread (spills),
+    static + dynamic shared memory per block)}, from
+    ``cudaFuncGetAttributes`` and the launch's dynamic size."""
+    lib = library()
+    out = (ctypes.c_int * 3)()
+    attrs = {}
+    for bf16, dt in ((0, "fp32"), (1, "bf16")):
+        for name, call, smem in (
+                ("fwd", lambda: lib.flash_attention_fwd_attrs(hd, bf16, out),
+                 lib.flash_attention_smem_bytes(hd, bf16)),
+                ("bwd dkv",
+                 lambda: lib.flash_attention_bwd_attrs(hd, bf16, 0, out),
+                 lib.flash_attention_bwd_smem_bytes(hd, bf16, 0)),
+                ("bwd dq",
+                 lambda: lib.flash_attention_bwd_attrs(hd, bf16, 1, out),
+                 lib.flash_attention_bwd_smem_bytes(hd, bf16, 1))):
+            _raise(lib, call(), f"flash {name} attributes")
+            attrs[f"{dt} {name}"] = (out[0], out[1], out[2] + smem)
+    return attrs
 
 
 def _on_card(t: torch.Tensor) -> bool:

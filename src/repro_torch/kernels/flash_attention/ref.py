@@ -12,6 +12,14 @@ aligned bottom-right, k <= q + (Sk - Sq), as the reference's oracle has it.
 the forward kernel writes for training, and ``attention_bwd_ref`` writes out
 the backward kernel's decomposition (``csrc/flash_attention_bwd.cu``): P
 recomputed from the log-sum-exp, D = rowsum(dO o O), dS = P o (dP - D).
+
+``attention_tc_ref`` and ``attention_bwd_tc_ref`` are the same functions with
+the numerics of the bf16 tensor-core kernels written out: the products take
+bf16 operands and sum in fp32, so P is rounded to bf16 before P.V (relative
+to the running row max of each 64-key tile, as the forward's online softmax
+holds it) and dS before dK and dQ, while the row sum l, D and the softmax
+stay fp32.  The tests hold them against the JAX package's oracle to show
+that the design fits the tolerances the card checks state.
 """
 from __future__ import annotations
 
@@ -70,6 +78,65 @@ def attention_bwd_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     dp = torch.einsum("bqkgd,bskd->bkgqs", do, v.float())
     ds = p * (dp - D.permute(0, 2, 3, 1)[..., None])
     dv = torch.einsum("bkgqs,bqkgd->bskd", p, do)
+    dk = torch.einsum("bkgqs,bqkgd->bskd", ds,
+                      q.float().reshape(B, Sq, KV, G, hd)) * scale
+    dq = torch.einsum("bkgqs,bskd->bqkgd", ds, k.float()) * scale
+    return (dq.reshape(B, Sq, H, hd).to(q.dtype), dk.to(k.dtype),
+            dv.to(v.dtype))
+
+
+TC_BLOCK_K = 64   # keys per tile of the bf16 forward kernel
+
+
+def _bf16(x: torch.Tensor) -> torch.Tensor:
+    return x.to(torch.bfloat16).float()
+
+
+def attention_tc_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                     causal: bool = True
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The bf16 forward kernel's arithmetic: (out, lse) with the online
+    softmax over ``TC_BLOCK_K``-key tiles, each tile's P = exp(s - m)
+    rounded to bf16 for P.V and summed into l in fp32."""
+    B, Sq, H, hd = q.shape
+    Sk = k.shape[1]
+    s = _scores(q, k, causal)
+    vf = v.float()
+    m = torch.full(s.shape[:-1], float("-inf"), device=q.device)
+    l = torch.zeros(s.shape[:-1], device=q.device)
+    acc = torch.zeros(*s.shape[:-1], hd, device=q.device)
+    for k0 in range(0, Sk, TC_BLOCK_K):
+        sb = s[..., k0:k0 + TC_BLOCK_K]
+        m_new = torch.maximum(m, sb.amax(-1))
+        m_use = torch.where(m_new == float("-inf"), 0.0, m_new)
+        corr = torch.exp(m - m_use)
+        p = torch.exp(sb - m_use[..., None])
+        l = l * corr + p.sum(-1)
+        acc = acc * corr[..., None] + torch.einsum(
+            "bkgqs,bskd->bkgqd", _bf16(p), vf[:, k0:k0 + TC_BLOCK_K])
+        m = m_new
+    out = (acc / l[..., None]).permute(0, 3, 1, 2, 4).reshape(B, Sq, H, hd)
+    return out.to(q.dtype), (m + torch.log(l)).reshape(B, H, Sq)
+
+
+def attention_bwd_tc_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                         out: torch.Tensor, lse: torch.Tensor,
+                         dout: torch.Tensor, *, causal: bool = True
+                         ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The bf16 backward kernels' arithmetic: ``attention_bwd_ref`` with P
+    rounded to bf16 for dV = P^T dO and dS = P o (dP - D), taken from the
+    fp32 P, rounded to bf16 for dK and dQ; the scale multiplies the fp32
+    sums."""
+    B, Sq, H, hd = q.shape
+    KV = k.shape[2]
+    G, scale = H // KV, hd ** -0.5
+    p = torch.exp(_scores(q, k, causal)
+                  - lse.reshape(B, KV, G, Sq)[..., None])
+    do = dout.float().reshape(B, Sq, KV, G, hd)
+    D = (do * out.float().reshape(B, Sq, KV, G, hd)).sum(-1)
+    dp = torch.einsum("bqkgd,bskd->bkgqs", do, v.float())
+    ds = _bf16(p * (dp - D.permute(0, 2, 3, 1)[..., None]))
+    dv = torch.einsum("bkgqs,bqkgd->bskd", _bf16(p), do)
     dk = torch.einsum("bkgqs,bqkgd->bskd", ds,
                       q.float().reshape(B, Sq, KV, G, hd)) * scale
     dq = torch.einsum("bkgqs,bskd->bqkgd", ds, k.float()) * scale
