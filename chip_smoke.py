@@ -10,7 +10,8 @@ Phases:
      suites (``src/repro_torch/kernels/{gp_acquisition,tpe_kde,
      flash_attention,mlstm_chunk,ssm_scan}/csrc``) with nvcc (sm_90a), one
      nvcc each, started together, and print what ptxas says about them and
-     each flash kernel's registers, spills and shared memory;
+     each flash and mLSTM stage kernel's registers, spills and shared
+     memory;
   2. each kernel against its plain PyTorch version on the card, with
      timings: the tuner kernels at the fleet path's shapes, at a ragged
      small shape and at a large bucket; flash attention at the served
@@ -20,7 +21,10 @@ Phases:
      beside ``scaled_dot_product_attention`` as a yardstick, each bf16
      shape run twice and required bitwise equal; the mLSTM
      forward and backward kernels at xlstm-1.3b's training shape, a reduced
-     head size, a ragged length and a case where the clamp decides; the
+     head size, a ragged length and a case where the clamp decides, beside
+     the bound of their split-TF32 products and state workspace, with each
+     stage kernel's device time and two runs required bitwise equal at
+     xlstm-1.3b's shape; the
      selective-scan forward (with and without the final state) and backward
      kernels at jamba's training shape, a reduced width, a ragged length,
      the kernel tests' decaying draw and an Abar near zero; the flash
@@ -126,6 +130,10 @@ from repro_torch.tree import tree_items, tree_map  # noqa: E402
 # capability 9.0) at the 1,980 MHz maximum boost clock on 132 SMs
 PEAK_FP32 = 67e12
 PEAK_BF16 = 989e12   # dense bf16 tensor-core rate
+PEAK_TF32 = 495e12   # dense TF32 tensor-core rate
+# the mLSTM kernels run each fp32 product as three TF32 products (split
+# TF32), so their operations go at a third of the TF32 rate
+PEAK_SPLIT_TF32 = PEAK_TF32 / 3
 PEAK_BYTES = 3.35e12
 SM_CLOCK_HZ = 1.98e9
 PEAK_EXP = 16 * 132 * SM_CLOCK_HZ
@@ -709,7 +717,7 @@ def library_sdpa(q, k, v, causal):
         qt, kt, vt, is_causal=causal, enable_gqa=True)
 
 
-def check_deterministic(what, fn):
+def check_deterministic(what, fn, prefix="flash"):
     """Two calls of ``fn`` on the same inputs give bitwise-equal tensors
     (the kernels use no atomics and a fixed order of sums)."""
     a, b = fn(), fn()
@@ -717,7 +725,7 @@ def check_deterministic(what, fn):
     for x, y in zip(a, b):
         if x is not None and not torch.equal(x, y):
             raise AssertionError(f"{what}: two runs differ")
-    log(f"[flash] {what}: two runs bitwise equal")
+    log(f"[{prefix}] {what}: two runs bitwise equal")
 
 
 def check_flash_kernel(dev, reps_main: int):
@@ -842,10 +850,12 @@ def mlstm_bound(shape):
     skipped where the state is known zero: no update after the last
     chunk, no q.C in the first); the backward's dC recurrence, C G, dC V
     and K dC likewise.  The chunk-boundary states the backward needs are
-    not counted (kept or recomputed, either costs more).  Bytes: q, k, v,
-    logi, logf in and h out (backward: q, k, v, logi, logf and dh in,
-    dq, dk, dv, dlogi, dlogf out), once each.  Returns {direction:
-    (bound_ms, by, flops, bytes)}."""
+    not counted (kept or recomputed, either costs more).  The kernels run
+    each of these products as three TF32 tensor-core products, so the
+    operations go at ``PEAK_SPLIT_TF32``.  Bytes: q, k, v, logi, logf in
+    and h out (backward: q, k, v, logi, logf and dh in, dq, dk, dv, dlogi,
+    dlogf out), once each.  Returns {direction: (bound_ms, by, flops,
+    bytes)}."""
     _, B, NH, S, dh, _ = shape
     BH = B * NH
     pairs = inner = 0
@@ -860,19 +870,51 @@ def mlstm_bound(shape):
     for name, flops, nbytes in (
             ("forward", fwd, 4 * BH * S * (4 * dh + 2)),
             ("backward", bwd, 4 * BH * S * (7 * dh + 4))):
-        t_ops, t_bytes = flops / PEAK_FP32, nbytes / PEAK_BYTES
+        t_ops, t_bytes = flops / PEAK_SPLIT_TF32, nbytes / PEAK_BYTES
         out[name] = (max(t_ops, t_bytes) * 1e3,
                      "operations" if t_ops >= t_bytes else "bytes", flops,
                      nbytes)
     return out
 
 
+def mlstm_workspace_bytes(shape):
+    """Bytes of chunk-boundary states (BH x nC x dh^2 fp32 a set) that the
+    kernels' decomposition moves through device memory: the forward writes
+    C_c and reads it back (2 sets); the backward writes C_c and dC_{c+1}
+    and reads each twice (6 sets)."""
+    _, B, NH, S, dh, _ = shape
+    states = 4 * B * NH * ((S + 63) // 64) * dh * dh
+    return {"forward": 2 * states, "backward": 6 * states}
+
+
+def log_mlstm_stages(q, k, v, li, lf, g, tag, reps: int = 10):
+    """Device ms per call of each stage kernel of both directions, from
+    torch.profiler's device rows over ``reps`` calls of each."""
+    h, gates = mlstm_ops.forward(q, k, v, li, lf)
+    calls = {"forward": lambda: mlstm_ops.forward(q, k, v, li, lf),
+             "backward": lambda: mlstm_ops.backward(q, k, v, li, h, gates,
+                                                    g)}
+    for direction, fn in calls.items():
+        _, _, prof = _profiled(lambda: [fn() for _ in range(reps)])
+        rows = {}
+        for e in _device_rows(prof.key_averages()):
+            name = e.key.replace("(anonymous namespace)::", "")
+            name = name.split("(")[0].split("::")[-1]
+            rows[name] = rows.get(name, 0.0) + _device_ms(e) / reps
+        log(f"[mlstm] {tag} {direction} stages (device ms per call): "
+            + ", ".join(f"{name} {ms:.4f}" for name, ms in rows.items())
+            + f"; sum {sum(rows.values()):.4f}")
+
+
 def check_mlstm_kernels(dev, reps_main: int):
     """Phase 2, mLSTM: both kernels against the plain version at the four
-    ``MLSTM_SHAPES``, each timed beside the plain version and the bound (no
-    single PyTorch call computes the function: library_ms null).  Returns
-    the records of the kernels line (worst error over all shapes; times and
-    bound at ``MLSTM_MAIN``)."""
+    ``MLSTM_SHAPES``, each timed beside the plain version, the bound (the
+    fp32 FMA rate's figure and the state workspace logged beside it; no
+    single PyTorch call computes the function: library_ms null); at
+    ``MLSTM_MAIN`` also the device time of each stage kernel and two runs
+    of both kernels held bitwise equal.  Returns the records of the kernels
+    line (worst error over all shapes; times and bounds at
+    ``MLSTM_MAIN``)."""
     recs = {"mlstm_chunk": {"max_abs_err": 0.0},
             "mlstm_chunk_bwd": {"max_abs_err": 0.0}}
     for shape in MLSTM_SHAPES:
@@ -894,6 +936,14 @@ def check_mlstm_kernels(dev, reps_main: int):
         if clamp and share < 0.5:
             raise AssertionError("the clamp case does not exercise the clamp")
         reps = reps_main if tag == MLSTM_MAIN else 5
+        if tag == MLSTM_MAIN:
+            def both():
+                h2, gates2 = mlstm_ops.forward(q, k, v, li, lf)
+                return (h2, gates2,
+                        *mlstm_ops.backward(q, k, v, li, h2, gates2, g))
+            check_deterministic(f"mlstm {tag} outputs and gradients", both,
+                                prefix="mlstm")
+            log_mlstm_stages(q, k, v, li, lf, g, tag)
         xs = [t.clone().requires_grad_() for t in (q, k, v, li, lf)]
         graph = mlstm_ref.mlstm_chunkwise(*xs)
         times = {
@@ -907,13 +957,19 @@ def check_mlstm_kernels(dev, reps_main: int):
                 cuda_ms(lambda: torch.autograd.grad(graph, xs, g,
                                                     retain_graph=True),
                         3, warmup=1))}
+        workspace = mlstm_workspace_bytes(shape)
         for (direction, (ms, plain)), (_, (b_ms, by, flops, nbytes)) in zip(
                 times.items(), mlstm_bound(shape).items()):
+            ws = workspace[direction]
             log(f"[mlstm] {tag} {direction}: kernel {ms:.4f} ms, plain "
                 f"{plain:.4f} ms, bound {b_ms:.4f} ms ({by}: "
-                f"{flops / 1e9:.2f} GFLOP at 67 (fp32) TFLOP/s, "
-                f"{nbytes / 1e6:.1f} MB at 3.35 TB/s); kernel at "
-                f"{flops / ms / 1e9:.1f} TFLOP/s")
+                f"{flops / 1e9:.2f} GFLOP as three TF32 products each at "
+                f"495/3 TFLOP/s, {nbytes / 1e6:.1f} MB at 3.35 TB/s); at "
+                f"the fp32 FMA rate (67 TFLOP/s) "
+                f"{flops / PEAK_FP32 * 1e3:.4f} ms; state workspace "
+                f"{ws / 1e9:.3f} GB, with the products "
+                f"{(flops / PEAK_SPLIT_TF32 + ws / PEAK_BYTES) * 1e3:.4f} "
+                f"ms; kernel at {flops / ms / 1e9:.1f} TFLOP/s")
             if tag == MLSTM_MAIN:
                 kern = ("mlstm_chunk" if direction == "forward"
                         else "mlstm_chunk_bwd")
@@ -2131,18 +2187,24 @@ PORT_KERNELS = ("score_cov", "var_downdate", "tpe_kde", "flash_", "mlstm",
                 "ssm_")
 
 
-def _report_profile(prof, wall, tag):
-    """Device busy share of ``wall`` and the device rows and host ops that
-    take the most time, the port's own kernels listed apart.  Only device
-    rows (kernels, copies, memsets) are summed: an operator's row repeats
+def _device_rows(ka):
+    """The device rows (kernels, copies, memsets) of a profiler's
+    ``key_averages()``.  Only these are summed: an operator's row repeats
     the device time of the kernels it launched."""
     from torch.autograd import DeviceType
+    return [e for e in ka if e.device_type == DeviceType.CUDA]
+
+
+def _device_ms(e) -> float:
+    return e.self_device_time_total / 1e3
+
+
+def _report_profile(prof, wall, tag):
+    """Device busy share of ``wall`` and the device rows and host ops that
+    take the most time, the port's own kernels listed apart."""
     ka = prof.key_averages()
-    rows = [e for e in ka if e.device_type == DeviceType.CUDA]
-
-    def ms(e):
-        return e.self_device_time_total / 1e3
-
+    rows = _device_rows(ka)
+    ms = _device_ms
     busy = sum(ms(e) for e in rows)
     mine = [e for e in rows if any(k in e.key for k in PORT_KERNELS)]
     log(f"[profile] {tag}: wall {wall:.1f} ms under the profiler, "
@@ -2251,6 +2313,10 @@ def main(argv) -> int:
             "thread, spill bytes per thread, shared memory bytes per block): "
             + ", ".join(f"{name} {a}" for name, a in
                         flash_ops.kernel_attrs(hd).items()))
+    log("[setup] mlstm_chunk stage kernels (registers per thread, spill "
+        "bytes per thread, shared memory bytes per block): "
+        + ", ".join(f"{name} {a}" for name, a in
+                    mlstm_ops.kernel_attrs().items()))
     log("[setup] ssm_scan backward dynamic shared memory per block at N "
         "8/16/32: " + "/".join(str(ssm_lib.ssm_scan_bwd_smem_bytes(n))
                                for n in (8, 16, 32)) + " bytes")

@@ -28,11 +28,20 @@
 // 64-column slice of h) a block that adds S V to w_t C_c^T q_t.  The ragged
 // last chunk is masked (rows past S load as zero and are never stored).
 //
-// Bound: 4 L dh + 4 dh^2 flops per token per head (the two products of
-// the intra term, q.C, and the state update), about 37 GFLOP at xlstm's
-// training shape, against ~134 MB of inputs and outputs: the fp32 FMA rate
-// bounds it.  Plain fp32 FMAs, accurate expf, no tensor cores: the
-// rounding of the chunked jnp form, the order of the sums aside.
+// Arithmetic: 4 L dh + 4 dh^2 flops per token per head (the two products
+// of the intra term, q.C and the state update), 33.3 GFLOP at xlstm's
+// training shape against 134 MB of inputs and outputs, 96.7% of it the dh^2
+// products.  Every product of two tiles (the state update, Q C_c, Q K^T,
+// S V) runs on the tensor cores by mma.sync in split TF32, three products
+// for each (mlstm_chunk.cuh): near fp32, where one TF32 pass misses the
+// kernels' 5e-5 tolerance at dh 1024 several times over
+// (tests/test_torch_mlstm_numerics.py).  At 495 / 3 TFLOP/s the products
+// take at least 0.20 ms; the state workspace (C_c written by the scan and
+// read by the output kernel: 1.07 GB) at least 0.32 ms at 3.35 TB/s.  What
+// bounds the kernels as they stand is the products' issue rate: mma.sync
+// beside the fragment loads and splits (the output kernel barely sped up
+// without its C_c copies in a development build).  Per-token dot products
+// (q.n, the n update, the row sums) stay fp32 FMAs; accurate expf.
 #include <cuda_runtime.h>
 #include <math.h>
 
@@ -89,6 +98,8 @@ __global__ void gates_kernel(const float* __restrict__ logi,
 
 // One block per (64-row tile I of dk, 64-column tile J of dv, batch-head):
 // acc = C[I, J] (or dC in reverse) in registers, walked over the chunks.
+// Step `step` multiplies the X and Y rows of its chunk, which the ring
+// stage step % 2 holds; the copy of the next chunk's rows runs meanwhile.
 template <bool REV>
 __global__ void __launch_bounds__(NTH) scan_kernel(
     const float* __restrict__ X, const float* __restrict__ Y,
@@ -97,83 +108,96 @@ __global__ void __launch_bounds__(NTH) scan_kernel(
     float* __restrict__ snap, float* __restrict__ nsnap,
     const float* __restrict__ Cst, const float* __restrict__ nst,
     float* __restrict__ dwsp, int S, int dh, int nC, int nT) {
-  __shared__ float xs[L * T], ys[L * T], cns[L], red[NTH / 32];
+  extern __shared__ float ring[];
+  __shared__ float sx[2][L], sy[2][L], sn[2][L], red[NTH / 32];
   const int it = blockIdx.x, jt = blockIdx.y, bh = blockIdx.z;
   const int i0 = it * T, j0 = jt * T;
-  const int tid = threadIdx.x, ty = tid >> 4, tx = tid & 15;
+  const int tid = threadIdx.x;
   const bool ncol = jt == 0 && tid < T;  // owns n[i0 + tid]
   const float* Xb = X + (size_t)bh * S * dh;
   const float* Yb = Y + (size_t)bh * S * dh;
   const size_t gbase = (size_t)bh * S;
-  float acc[4][4] = {};
-  float nacc = 0.f;
-  for (int step = 0; step < nC; ++step) {
+  // the rows of step `step`'s chunk into ring stage s: X[:, I] (read as
+  // the A operand X^T, contracted over rows), Y[:, J], and the scales
+  auto load = [&](int step, int s) {
     const int c = REV ? nC - 1 - step : step;
     const int t0 = c * L, Lc = min(L, S - t0);
-    const size_t tile = (((size_t)bh * nC + c) * dh + i0) * dh + j0;
+    const size_t row = (size_t)t0 * dh;
+    copy_tile(ring + 2 * s * SLOT, LDR, Xb + row + i0, dh, Lc);
+    copy_tile(ring + (2 * s + 1) * SLOT, LDR, Yb + row + j0, dh, Lc);
+    copy_vec(sx[s], cx + gbase + t0, Lc);
+    if (cy != nullptr) copy_vec(sy[s], cy + gbase + t0, Lc);
+    if (cn != nullptr) copy_vec(sn[s], cn + gbase + t0, Lc);
+  };
+  auto tile_at = [&](int step) {
+    const int c = REV ? nC - 1 - step : step;
+    return (((size_t)bh * nC + c) * dh + i0) * dh + j0;
+  };
+  // reverse: the entries of C_c the thread holds, loaded a step ahead so
+  // that the loads run while the warps multiply
+  float2 cpre[2][4][2];
+  auto fetch = [&](int step) {
+    const size_t tile = tile_at(step);
+    pairs([&](int mt, int nt, int e, int r, int col) {
+      cpre[mt][nt][e >> 1] =
+          *reinterpret_cast<const float2*>(Cst + tile + (size_t)r * dh + col);
+    });
+  };
+  Acc acc;
+  zero(acc);
+  float nacc = 0.f;
+  if (nC > 1) load(0, 0);
+  cp_async_commit();
+  if (REV) fetch(0);
+  for (int step = 0; step < nC; ++step) {
+    const int c = REV ? nC - 1 - step : step;
+    const size_t tile = tile_at(step);
     const size_t nidx = ((size_t)bh * nC + c) * dh + i0 + tid;
-#pragma unroll
-    for (int r = 0; r < 4; ++r)
-#pragma unroll
-      for (int q = 0; q < 4; ++q)
-        snap[tile + (size_t)(ty + 16 * r) * dh + tx + 16 * q] = acc[r][q];
+    store_rows(snap + tile, dh, T, [&](int mt, int nt, int e, int, int) {
+      return make_float2(acc[mt][nt][e], acc[mt][nt][e + 1]);
+    });
     if (ncol) nsnap[nidx] = nacc;
     if (REV) {
       float part = 0.f;
-#pragma unroll
-      for (int r = 0; r < 4; ++r)
-#pragma unroll
-        for (int q = 0; q < 4; ++q)
-          part += acc[r][q] * Cst[tile + (size_t)(ty + 16 * r) * dh + tx + 16 * q];
-      if (ncol) part += nacc * nst[nidx];
+      pairs([&](int mt, int nt, int e, int, int) {
+        const float2 cs = cpre[mt][nt][e >> 1];
+        part = fmaf(acc[mt][nt][e], cs.x, part);
+        part = fmaf(acc[mt][nt][e + 1], cs.y, part);
+      });
+      if (ncol) part = fmaf(nacc, nst[nidx], part);
       part = block_sum(part, red);
       if (tid == 0)
         dwsp[(((size_t)bh * nC + c) * nT + it) * nT + jt] = part;
     }
     if (step == nC - 1) break;  // the update after the last chunk is unused
+    if (step + 1 < nC - 1) load(step + 1, (step + 1) & 1);
+    cp_async_commit();
+    if (REV) fetch(step + 1);
+    cp_async_wait<1>();
     __syncthreads();
-    for (int e = tid; e < L * T; e += NTH) {
-      const int s = e >> 6, col = e & 63;
-      float xv = 0.f, yv = 0.f;
-      if (s < Lc) {
-        const size_t row = (size_t)(t0 + s) * dh;
-        xv = Xb[row + i0 + col] * cx[gbase + t0 + s];
-        yv = Yb[row + j0 + col];
-        if (cy != nullptr) yv *= cy[gbase + t0 + s];
-      }
-      xs[e] = xv;
-      ys[e] = yv;
-    }
-    if (tid < L)
-      cns[tid] = tid < Lc ? (cn != nullptr ? cn[gbase + t0 + tid] : 1.f) : 0.f;
-    __syncthreads();
+    const int s = step & 1;
     const float ws = wstate[(size_t)bh * nC + c];
-#pragma unroll
-    for (int r = 0; r < 4; ++r)
-#pragma unroll
-      for (int q = 0; q < 4; ++q) acc[r][q] *= ws;
-    for (int s = 0; s < L; ++s) {
-      float a[4], b[4];
-#pragma unroll
-      for (int r = 0; r < 4; ++r) a[r] = xs[s * T + ty + 16 * r];
-#pragma unroll
-      for (int q = 0; q < 4; ++q) b[q] = ys[s * T + tx + 16 * q];
-#pragma unroll
-      for (int r = 0; r < 4; ++r)
-#pragma unroll
-        for (int q = 0; q < 4; ++q) acc[r][q] = fmaf(a[r], b[q], acc[r][q]);
-    }
+    pairs([&](int mt, int nt, int e, int, int) {
+      acc[mt][nt][e] *= ws;
+      acc[mt][nt][e + 1] *= ws;
+    });
+    const float* xs = ring + 2 * s * SLOT;
+    mma_slab<false, false>(acc, xs, LDR, xs + SLOT, LDR, sx[s],
+                           cy != nullptr ? sy[s] : nullptr);
     if (ncol) {
       nacc *= ws;
-      for (int s = 0; s < L; ++s) nacc = fmaf(xs[s * T + tid], cns[s], nacc);
+      for (int t = 0; t < L; ++t)
+        nacc = fmaf(xs[t * LDR + tid] * sx[s][t],
+                    cn != nullptr ? sn[s][t] : 1.f, nacc);
     }
+    __syncthreads();
   }
 }
 
-// One block per (chunk, batch-head).  A = Q K^T and q.n_c streamed over dk;
-// then P = e^{D - m} on s <= t, S = A o P and the denominators.  In the
-// backward also G V^T and g.h (G = dh), alpha, dA = dS o P and dD = dS o S
-// with dS = (G V^T)/den + alpha.
+// One block per (chunk, batch-head).  A = Q K^T over dk (tensor cores) and
+// q.n_c; then P = e^{D - m} on s <= t, S = A o P and the denominators.  In
+// the backward also G V^T and g.h (G = dh), alpha, dA = dS o P and dD =
+// dS o S with dS = (G V^T)/den + alpha.
 template <bool BWD>
 __global__ void __launch_bounds__(NTH) intra_kernel(
     const float* __restrict__ q, const float* __restrict__ k,
@@ -185,11 +209,12 @@ __global__ void __launch_bounds__(NTH) intra_kernel(
     float* __restrict__ den_out, float* __restrict__ alpha_out,
     float* __restrict__ rowD, float* __restrict__ colD, int S, int dh,
     int nC) {
-  __shared__ float ta[L * P], tb[L * P];
+  extern __shared__ float ring[];
   __shared__ float sb[L], sli[L], smm[L], sw[L], sinv[L], sal[L];
+  __shared__ float sqn[L], sgh[L], srs[L], part[2 * L];
   const int c = blockIdx.x, bh = blockIdx.y;
   const int t0 = c * L, Lc = min(L, S - t0);
-  const int tid = threadIdx.x, ty = tid >> 4, tx = tid & 15;
+  const int tid = threadIdx.x;
   const size_t gbase = (size_t)bh * S + t0;
   const size_t rows = gbase * dh;  // first row of the chunk
   if (tid < L) {
@@ -199,72 +224,57 @@ __global__ void __launch_bounds__(NTH) intra_kernel(
     smm[tid] = ok ? gm[gbase + tid] : 0.f;
     sw[tid] = ok ? gw[gbase + tid] : 0.f;
   }
-  const float* nc = nst + ((size_t)bh * nC + c) * dh;
-  float a[4][4] = {};
-  float qn = 0.f;
-  for (int i0 = 0; i0 < dh; i0 += T) {
-    __syncthreads();
-    load_tile(ta, P, q + rows + i0, dh, Lc, nullptr);
-    load_tile(tb, P, k + rows + i0, dh, Lc, nullptr);
-    __syncthreads();
-    for (int i = 0; i < T; ++i) {
-      float x[4], y[4];
-#pragma unroll
-      for (int r = 0; r < 4; ++r) x[r] = ta[(ty + 16 * r) * P + i];
-#pragma unroll
-      for (int u = 0; u < 4; ++u) y[u] = tb[(tx + 16 * u) * P + i];
-#pragma unroll
-      for (int r = 0; r < 4; ++r)
-#pragma unroll
-        for (int u = 0; u < 4; ++u) a[r][u] = fmaf(x[r], y[u], a[r][u]);
-    }
-    if (tid < L)
-      for (int i = 0; i < T; ++i) qn = fmaf(ta[tid * P + i], nc[i0 + i], qn);
-  }
-  float gv[4][4] = {};
-  float gh = 0.f;
-  if (BWD) {
-    for (int j0 = 0; j0 < dh; j0 += T) {
-      __syncthreads();
-      load_tile(ta, P, g + rows + j0, dh, Lc, nullptr);
-      load_tile(tb, P, v + rows + j0, dh, Lc, nullptr);
-      __syncthreads();
-      for (int j = 0; j < T; ++j) {
-        float x[4], y[4];
-#pragma unroll
-        for (int r = 0; r < 4; ++r) x[r] = ta[(ty + 16 * r) * P + j];
-#pragma unroll
-        for (int u = 0; u < 4; ++u) y[u] = tb[(tx + 16 * u) * P + j];
-#pragma unroll
-        for (int r = 0; r < 4; ++r)
-#pragma unroll
-          for (int u = 0; u < 4; ++u) gv[r][u] = fmaf(x[r], y[u], gv[r][u]);
+  {  // q.n_c (and g.h): threads 2t and 2t + 1 take row t
+    const int t = tid >> 1;
+    const float* nc = nst + ((size_t)bh * nC + c) * dh;
+    float qn = 0.f, gh = 0.f;
+    if (t < Lc) {
+      const size_t r = rows + (size_t)t * dh;
+      for (int i = (tid & 1) * 4; i < dh; i += 8) {
+        const float4 x = *reinterpret_cast<const float4*>(q + r + i);
+        const float4 y = *reinterpret_cast<const float4*>(nc + i);
+        qn = fmaf(x.x, y.x, fmaf(x.y, y.y, fmaf(x.z, y.z, fmaf(x.w, y.w, qn))));
+        if (BWD) {
+          const float4 a = *reinterpret_cast<const float4*>(g + r + i);
+          const float4 b = *reinterpret_cast<const float4*>(h + r + i);
+          gh = fmaf(a.x, b.x, fmaf(a.y, b.y, fmaf(a.z, b.z, fmaf(a.w, b.w, gh))));
+        }
       }
-      __syncthreads();
-      load_tile(tb, P, h + rows + j0, dh, Lc, nullptr);
-      __syncthreads();
-      if (tid < L)
-        for (int j = 0; j < T; ++j)
-          gh = fmaf(ta[tid * P + j], tb[tid * P + j], gh);
+    }
+    qn += __shfl_xor_sync(0xffffffffu, qn, 1);
+    gh += __shfl_xor_sync(0xffffffffu, gh, 1);
+    if ((tid & 1) == 0) {
+      sqn[t] = qn;
+      sgh[t] = gh;
     }
   }
-  __syncthreads();
-  float pv[4][4], sv[4][4];
-#pragma unroll
-  for (int r = 0; r < 4; ++r)
-#pragma unroll
-    for (int u = 0; u < 4; ++u) {
-      const int t = ty + 16 * r, s = tx + 16 * u;
-      const bool on = s <= t && t < Lc;
-      pv[r][u] = on ? expf(((sb[t] - sb[s]) + sli[s]) - smm[t]) : 0.f;
-      sv[r][u] = a[r][u] * pv[r][u];
-      ta[t * P + s] = sv[r][u];
-    }
-  __syncthreads();
+  Acc a;
+  zero(a);
+  mma_ring<true, true>(a, ring, dh / T, LDK, LDK,
+                       [&](int kt, float* ta, float* tb) {
+                         copy_tile(ta, LDK, q + rows + kt * T, dh, Lc);
+                         copy_tile(tb, LDK, k + rows + kt * T, dh, Lc);
+                       });
+  Acc gv;
+  zero(gv);
+  if (BWD)
+    mma_ring<true, true>(gv, ring, dh / T, LDK, LDK,
+                         [&](int kt, float* ta, float* tb) {
+                           copy_tile(ta, LDK, g + rows + kt * T, dh, Lc);
+                           copy_tile(tb, LDK, v + rows + kt * T, dh, Lc);
+                         });
+  auto pval = [&](int t, int s) {
+    return s <= t && t < Lc ? expf(((sb[t] - sb[s]) + sli[s]) - smm[t]) : 0.f;
+  };
+  pairs([&](int mt, int nt, int e, int t, int s) {
+    a[mt][nt][e] *= pval(t, s);
+    a[mt][nt][e + 1] *= pval(t, s + 1);
+  });
+  row_sums([&](int mt, int nt, int e, int, int) {
+    return a[mt][nt][e] + a[mt][nt][e + 1];
+  }, part, srs);
   if (tid < L) {
-    float rs = 0.f;
-    for (int s = 0; s < L; ++s) rs += ta[tid * P + s];
-    const float dr = rs + sw[tid] * qn;
+    const float dr = srs[tid] + sw[tid] * sqn[tid];
     const float floor_ = expf(-smm[tid]);
     const float den = fmaxf(fabsf(dr), floor_);
     if (!BWD) {
@@ -272,7 +282,7 @@ __global__ void __launch_bounds__(NTH) intra_kernel(
     } else {
       const float inv = 1.f / den;
       const float sgn = (dr > 0.f) - (dr < 0.f);
-      const float al = fabsf(dr) > floor_ ? -gh * inv * sgn : 0.f;
+      const float al = fabsf(dr) > floor_ ? -sgh[tid] * inv * sgn : 0.f;
       sinv[tid] = inv;
       sal[tid] = al;
       if (tid < Lc) {
@@ -282,24 +292,29 @@ __global__ void __launch_bounds__(NTH) intra_kernel(
     }
   }
   const size_t mat = ((size_t)bh * nC + c) * L * L;
-  for (int e = tid; e < L * L; e += NTH) Smat[mat + e] = ta[(e >> 6) * P + (e & 63)];
+  store_rows(Smat + mat, L, L, [&](int mt, int nt, int e, int, int) {
+    return make_float2(a[mt][nt][e], a[mt][nt][e + 1]);
+  });
   if (BWD) {
     __syncthreads();
+    constexpr int PD = L + 1;  // dD's row stride: rows and columns summed
+    float* tdd = ring;
+    pairs([&](int mt, int nt, int e, int t, int s) {
+      float ds[2];
 #pragma unroll
-    for (int r = 0; r < 4; ++r)
-#pragma unroll
-      for (int u = 0; u < 4; ++u) {
-        const int t = ty + 16 * r, s = tx + 16 * u;
-        const bool on = s <= t && t < Lc;
-        const float ds = on ? fmaf(gv[r][u], sinv[t], sal[t]) : 0.f;
-        dAmat[mat + t * L + s] = ds * pv[r][u];
-        tb[t * P + s] = ds * sv[r][u];
+      for (int q2 = 0; q2 < 2; ++q2) {
+        const bool on = s + q2 <= t && t < Lc;
+        ds[q2] = on ? fmaf(gv[mt][nt][e + q2], sinv[t], sal[t]) : 0.f;
+        tdd[t * PD + s + q2] = ds[q2] * a[mt][nt][e + q2];
       }
+      *reinterpret_cast<float2*>(dAmat + mat + t * L + s) =
+          make_float2(ds[0] * pval(t, s), ds[1] * pval(t, s + 1));
+    });
     __syncthreads();
     if (tid < L) {
       float rsum = 0.f, csum = 0.f;
-      for (int s = 0; s < L; ++s) rsum += tb[tid * P + s];
-      for (int t = 0; t < L; ++t) csum += tb[t * P + tid];
+      for (int s = 0; s < L; ++s) rsum += tdd[tid * PD + s];
+      for (int t = 0; t < L; ++t) csum += tdd[t * PD + tid];
       if (tid < Lc) {
         rowD[gbase + tid] = rsum;
         colD[gbase + tid] = csum;
@@ -315,56 +330,38 @@ __global__ void __launch_bounds__(NTH) out_kernel(
     const float* __restrict__ Cst, const float* __restrict__ Smat,
     const float* __restrict__ gw, const float* __restrict__ den,
     float* __restrict__ h, int S, int dh, int nC) {
-  __shared__ float ta[L * P], tb[L * P];
-  const int c = blockIdx.x, jt = blockIdx.y, bh = blockIdx.z;
+  extern __shared__ float ring[];
+  __shared__ float sw[L], sdn[L];
+  const int jt = blockIdx.x, c = blockIdx.y, bh = blockIdx.z;
   const int t0 = c * L, Lc = min(L, S - t0), j0 = jt * T;
-  const int tid = threadIdx.x, ty = tid >> 4, tx = tid & 15;
+  const int tid = threadIdx.x;
   const size_t gbase = (size_t)bh * S + t0;
   const size_t rows = gbase * dh;
+  if (tid < L) {
+    const bool ok = tid < Lc;
+    sw[tid] = ok ? gw[gbase + tid] : 0.f;
+    sdn[tid] = ok ? den[gbase + tid] : 1.f;
+  }
   const float* Cc = Cst + ((size_t)bh * nC + c) * dh * dh;
-  float qc[4][4] = {};
-  for (int i0 = 0; i0 < dh; i0 += T) {
-    __syncthreads();
-    load_tile(ta, P, q + rows + i0, dh, Lc, nullptr);
-    load_tile(tb, P, Cc + (size_t)i0 * dh + j0, dh, T, nullptr);
-    __syncthreads();
-    for (int i = 0; i < T; ++i) {
-      float x[4], y[4];
-#pragma unroll
-      for (int r = 0; r < 4; ++r) x[r] = ta[(ty + 16 * r) * P + i];
-#pragma unroll
-      for (int u = 0; u < 4; ++u) y[u] = tb[i * P + tx + 16 * u];
-#pragma unroll
-      for (int r = 0; r < 4; ++r)
-#pragma unroll
-        for (int u = 0; u < 4; ++u) qc[r][u] = fmaf(x[r], y[u], qc[r][u]);
-    }
-  }
-  __syncthreads();
-  load_tile(ta, P, Smat + ((size_t)bh * nC + c) * L * L, L, L, nullptr);
-  load_tile(tb, P, v + rows + j0, dh, Lc, nullptr);
-  __syncthreads();
-  float sv[4][4] = {};
-  for (int s = 0; s < L; ++s) {
-    float x[4], y[4];
-#pragma unroll
-    for (int r = 0; r < 4; ++r) x[r] = ta[(ty + 16 * r) * P + s];
-#pragma unroll
-    for (int u = 0; u < 4; ++u) y[u] = tb[s * P + tx + 16 * u];
-#pragma unroll
-    for (int r = 0; r < 4; ++r)
-#pragma unroll
-      for (int u = 0; u < 4; ++u) sv[r][u] = fmaf(x[r], y[u], sv[r][u]);
-  }
-#pragma unroll
-  for (int r = 0; r < 4; ++r) {
-    const int t = ty + 16 * r;
-    if (t >= Lc) continue;
-    const float w = gw[gbase + t], dn = den[gbase + t];
-#pragma unroll
-    for (int u = 0; u < 4; ++u)
-      h[rows + (size_t)t * dh + j0 + tx + 16 * u] = (sv[r][u] + w * qc[r][u]) / dn;
-  }
+  Acc qc;  // Q C_c[:, J], over i (C_0 = 0: the first chunk has none)
+  zero(qc);
+  mma_ring<true, false>(qc, ring, c > 0 ? dh / T : 0, LDK, LDR,
+                        [&](int kt, float* ta, float* tb) {
+                          copy_tile(ta, LDK, q + rows + kt * T, dh, Lc);
+                          copy_tile(tb, LDR, Cc + (size_t)kt * T * dh + j0,
+                                    dh, T);
+                        });
+  Acc sv;  // S V[:, J]
+  zero(sv);
+  mma_ring<true, false>(sv, ring, 1, LDK, LDR, [&](int, float* ta, float* tb) {
+    copy_tile(ta, LDK, Smat + ((size_t)bh * nC + c) * L * L, L, L);
+    copy_tile(tb, LDR, v + rows + j0, dh, Lc);
+  });
+  store_rows(h + rows + j0, dh, Lc, [&](int mt, int nt, int e, int t, int) {
+    return make_float2(
+        (sv[mt][nt][e] + sw[t] * qc[mt][nt][e]) / sdn[t],
+        (sv[mt][nt][e + 1] + sw[t] * qc[mt][nt][e + 1]) / sdn[t]);
+  });
 }
 
 }  // namespace
@@ -383,14 +380,14 @@ int launch_scan(int reverse, const float* X, const float* Y, const float* cx,
                 float* snap, float* nsnap, const float* Cst, const float* nst,
                 float* dwsp, Dims d, cudaStream_t st) {
   const dim3 grid(d.nT, d.nT, d.BH);
-  if (reverse)
-    scan_kernel<true><<<grid, NTH, 0, st>>>(X, Y, cx, cy, cn, wstate, snap,
-                                            nsnap, Cst, nst, dwsp, d.S, d.dh,
-                                            d.nC, d.nT);
-  else
-    scan_kernel<false><<<grid, NTH, 0, st>>>(X, Y, cx, cy, cn, wstate, snap,
-                                             nsnap, Cst, nst, dwsp, d.S,
-                                             d.dh, d.nC, d.nT);
+  auto kern = reverse ? scan_kernel<true> : scan_kernel<false>;
+  // set on every launch: the attribute belongs to the current device's
+  // context, and the call costs next to nothing
+  cudaError_t err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, RING_SMEM);
+  if (err != cudaSuccess) return (int)err;
+  kern<<<grid, NTH, RING_SMEM, st>>>(X, Y, cx, cy, cn, wstate, snap, nsnap,
+                                     Cst, nst, dwsp, d.S, d.dh, d.nC, d.nT);
   return (int)cudaGetLastError();
 }
 
@@ -401,14 +398,13 @@ int launch_intra(int bwd, const float* q, const float* k, const float* v,
                  float* colD, Dims d, cudaStream_t st) {
   const size_t n = (size_t)d.BH * d.S;
   const dim3 grid(d.nC, d.BH);
-  if (bwd)
-    intra_kernel<true><<<grid, NTH, 0, st>>>(
-        q, k, v, g, h, logi, gates, gates + n, gates + 2 * n, nst, Smat,
-        dAmat, den, alpha, rowD, colD, d.S, d.dh, d.nC);
-  else
-    intra_kernel<false><<<grid, NTH, 0, st>>>(
-        q, k, v, g, h, logi, gates, gates + n, gates + 2 * n, nst, Smat,
-        dAmat, den, alpha, rowD, colD, d.S, d.dh, d.nC);
+  auto kern = bwd ? intra_kernel<true> : intra_kernel<false>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, RING_SMEM);
+  if (err != cudaSuccess) return (int)err;
+  kern<<<grid, NTH, RING_SMEM, st>>>(q, k, v, g, h, logi, gates, gates + n,
+                                     gates + 2 * n, nst, Smat, dAmat, den,
+                                     alpha, rowD, colD, d.S, d.dh, d.nC);
   return (int)cudaGetLastError();
 }
 
@@ -468,9 +464,38 @@ int mlstm_chunk_fwd(const void* q, const void* k, const void* v,
                             Smat, nullptr, den, nullptr, nullptr, nullptr, d,
                             st);
   if (err) return err;
-  mlstm::out_kernel<<<dim3(d.nC, d.nT, BH), mlstm::NTH, 0, st>>>(
-      fq, fv, Cst, Smat, g + 2 * n, den, static_cast<float*>(h), S, dh, d.nC);
+  err = (int)cudaFuncSetAttribute(mlstm::out_kernel,
+                                  cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                  mlstm::RING_SMEM);
+  if (err) return err;
+  mlstm::out_kernel<<<dim3(d.nT, d.nC, BH), mlstm::NTH, mlstm::RING_SMEM,
+                      st>>>(fq, fv, Cst, Smat, g + 2 * n, den,
+                            static_cast<float*>(h), S, dh, d.nC);
   return (int)cudaGetLastError();
+}
+
+// What each stage kernel takes on the card: registers per thread, local
+// (spill) bytes per thread and shared bytes per block (static + the ring)
+// into out[0..2], for the scan (which = 0), the reverse scan (1), the intra
+// kernel forward (2) and backward (3), out (4), dqk (5) and dv (6).
+// Returns a cudaError_t.
+int mlstm_chunk_attrs(int which, int* out) {
+  cudaFuncAttributes a;
+  cudaError_t err;
+  switch (which) {
+    case 0: err = cudaFuncGetAttributes(&a, mlstm::scan_kernel<false>); break;
+    case 1: err = cudaFuncGetAttributes(&a, mlstm::scan_kernel<true>); break;
+    case 2: err = cudaFuncGetAttributes(&a, mlstm::intra_kernel<false>); break;
+    case 3: err = cudaFuncGetAttributes(&a, mlstm::intra_kernel<true>); break;
+    case 4: err = cudaFuncGetAttributes(&a, mlstm::out_kernel); break;
+    case 5: case 6: return mlstm::bwd_stage_attrs(which - 5, out);
+    default: return (int)cudaErrorInvalidValue;
+  }
+  if (err != cudaSuccess) return (int)err;
+  out[0] = a.numRegs;
+  out[1] = (int)a.localSizeBytes;
+  out[2] = (int)a.sharedSizeBytes + mlstm::RING_SMEM;
+  return 0;
 }
 
 const char* mlstm_error_string(int code) {

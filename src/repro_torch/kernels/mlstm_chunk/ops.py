@@ -9,7 +9,11 @@ mlstm_mixer`` (q, k, v (B, NH, S, dh), logi, logf (B, NH, S), all fp32):
   * a CPU tensor runs the plain chunkwise version ``ref.mlstm_chunkwise``,
     which autograd differentiates;
   * anything else raises.
-Nothing falls back: a CUDA call that cannot build or launch raises.
+Nothing falls back: a CUDA call that cannot build or launch raises.  Both
+kernels run their products of two tiles on the tensor cores (mma.sync in
+split TF32: three TF32 products for each fp32 one, near fp32 accuracy) with
+tiles copied by cp.async into a two-stage ring; ``kernel_attrs`` reports
+each stage kernel's registers and shared memory.
 ``launches`` counts the calls of each kernel entry point (one forward or
 backward call enqueues that direction's stages; CPU calls leave it alone),
 so a run can show that its training steps went through both kernels.
@@ -51,10 +55,30 @@ def library() -> ctypes.CDLL:
         lib.mlstm_chunk_workspace_floats.restype = _LL
         lib.mlstm_chunk_gates_floats.argtypes = [_I] * 2
         lib.mlstm_chunk_gates_floats.restype = _LL
+        lib.mlstm_chunk_attrs.argtypes = [_I, _P]
+        lib.mlstm_chunk_attrs.restype = _I
         lib.mlstm_error_string.argtypes = [_I]
         lib.mlstm_error_string.restype = ctypes.c_char_p
         lib._typed = True
     return lib
+
+
+STAGE_KERNELS = ("scan", "scan reverse", "intra", "intra backward", "out",
+                 "dqk", "dv")
+
+
+def kernel_attrs() -> dict:
+    """What each tensor-core stage kernel takes on the card: {kernel:
+    (registers per thread, local-memory bytes per thread (spills), static +
+    dynamic shared memory per block)}, from ``cudaFuncGetAttributes``."""
+    lib = library()
+    out = (ctypes.c_int * 3)()
+    attrs = {}
+    for which, name in enumerate(STAGE_KERNELS):
+        _raise(lib, lib.mlstm_chunk_attrs(which, out),
+               f"mlstm {name} attributes")
+        attrs[name] = tuple(out)
+    return attrs
 
 
 def check_inputs(q, k, v, logi, logf):
@@ -77,6 +101,15 @@ def check_inputs(q, k, v, logi, logf):
     return B, NH, S, dh
 
 
+def check_aligned(**tensors) -> None:
+    """Raise unless each tensor starts on a 16-byte boundary: the kernels
+    copy q, k, v, h and dh in 16-byte pieces (a contiguous view that starts
+    inside its storage may not)."""
+    for name, t in tensors.items():
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name} must start on a 16-byte boundary")
+
+
 def _stream(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
 
@@ -91,6 +124,7 @@ def forward(q, k, v, logi, logf):
     """The forward kernel on CUDA tensors: (h, gates), gates being the
     per-token and per-chunk gate terms the backward reads."""
     B, NH, S, dh = check_inputs(q, k, v, logi, logf)
+    check_aligned(q=q, k=k, v=v)
     if q.device.type != "cuda":
         raise ValueError("the mLSTM kernels take CUDA tensors")
     lib = library()
@@ -113,10 +147,11 @@ def backward(q, k, v, logi, h, gates, g):
     the upstream gradient g = dL/dh, from the forward's inputs, output h and
     gates."""
     B, NH, S, dh = check_inputs(q, k, v, logi, logi)
-    if q.device.type != "cuda":
-        raise ValueError("the mLSTM kernels take CUDA tensors")
     check_tensor("h", h, q.shape, q.device)
     check_tensor("dh", g, q.shape, q.device)
+    check_aligned(q=q, k=k, v=v, h=h, dh=g)
+    if q.device.type != "cuda":
+        raise ValueError("the mLSTM kernels take CUDA tensors")
     lib = library()
     BH = B * NH
     check_tensor("gates", gates, (lib.mlstm_chunk_gates_floats(BH, S),),
@@ -148,8 +183,10 @@ class MlstmChunk(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         q, k, v, logi, h, gates = ctx.saved_tensors
-        return backward(q, k, v, logi, h, gates,
-                        g.to(torch.float32).contiguous())
+        g = g.to(torch.float32).contiguous()
+        if g.data_ptr() % 16:       # a view inside its storage: copy it
+            g = g.clone()
+        return backward(q, k, v, logi, h, gates, g)
 
 
 def mlstm_mixer(q, k, v, logi, logf):

@@ -15,6 +15,12 @@ backward).
   states, per-chunk intra terms, a reverse scan of dC and dn, then dq, dk,
   dv and the gate gradients), written out in plain PyTorch so that the CPU
   tests hold the kernels' arithmetic against autograd and ``jax.grad``.
+* ``split_einsum``, ``mlstm_chunkwise_split`` and ``MlstmChunkSplit``: the
+  kernels' tensor-core numerics (every product of two tiles from fp32
+  operands split into TF32 hi and lo parts, three products summed with the
+  tensor cores' truncation in a fresh accumulator each 8-deep k-step, the
+  k-steps added in fp32; the per-token dot products and sums stay fp32),
+  for the CPU tests only, never the main path.
 
 Per chunk of L tokens with inclusive cumulative log forget gates b:
     D[t, s] = b_t - b_s + i_s (s <= t),  m_t = max(max_s D[t, s], b_t + m_in)
@@ -28,7 +34,7 @@ Masked entries use the finite ``NEG = -1e30``, never -inf.
 """
 from __future__ import annotations
 
-from typing import Dict, Optional, Tuple
+from typing import Callable, Dict, Optional, Tuple
 
 import torch
 
@@ -170,13 +176,14 @@ def clamp_share(q, k, logi, logf, *, chunk: int = CHUNK) -> float:
     return hits / logi.numel()
 
 
-def _state_scan(X, Y, cx, cy, cn, wstate, chunk: int, reverse: bool):
+def _state_scan(X, Y, cx, cy, cn, wstate, chunk: int, reverse: bool,
+                mm: Callable = torch.einsum):
     """Snapshots of acc (B, NH, nC, dk, dv) and nacc (B, NH, nC, dk) before
     each chunk's update, in scan order: acc <- wstate_c acc
     + sum_t (cx_t X_t) (cy_t Y_t)^T, nacc <- wstate_c nacc
     + sum_t cx_t cn_t X_t.  Forward (C_c, n_c): X = k, Y = v, cx = u, cy =
     cn = 1.  Reverse (dL/dC_{c+1}, dL/dn_{c+1}): X = q, Y = dh, cx = w,
-    cy = 1/den, cn = alpha."""
+    cy = 1/den, cn = alpha.  ``mm`` computes the update's product."""
     B, NH, S, dk = X.shape
     starts = _chunk_starts(S, chunk)
     acc = X.new_zeros(B, NH, dk, Y.shape[-1])
@@ -189,23 +196,25 @@ def _state_scan(X, Y, cx, cy, cn, wstate, chunk: int, reverse: bool):
         xs = X[:, :, t0:t0 + L] * cx[:, :, t0:t0 + L, None]
         ys = Y[:, :, t0:t0 + L] * cy[:, :, t0:t0 + L, None]
         ws = wstate[:, :, c]
-        acc = ws[..., None, None] * acc + torch.einsum("bnti,bntj->bnij",
-                                                       xs, ys)
+        acc = ws[..., None, None] * acc + mm("bnti,bntj->bnij", xs, ys)
         nacc = ws[..., None] * nacc + torch.einsum(
             "bnti,bnt->bni", xs, cn[:, :, t0:t0 + L])
     return (torch.stack([s[0] for s in snaps], dim=2),
             torch.stack([s[1] for s in snaps], dim=2))
 
 
-def mlstm_chunkwise_bwd(q, k, v, logi, logf, h, dh, *, chunk: int = CHUNK):
+def mlstm_chunkwise_bwd(q, k, v, logi, logf, h, dh, *, chunk: int = CHUNK,
+                        mm: Callable = torch.einsum):
     """Gradients (dq, dk, dv, dlogi, dlogf) of ``mlstm_chunkwise`` at (q, k,
     v, logi, logf) for the upstream gradient ``dh``, given its output h,
-    computed the way the backward kernel does."""
+    computed the way the backward kernel does; ``mm`` computes the products
+    of two tiles (the kernel's tensor-core products), ``torch.einsum`` the
+    per-token dot products."""
     S = q.shape[2]
     g = chunk_gates(logi, logf, chunk)
     ones = torch.ones_like(logi)
     Cst, nst = _state_scan(k, v, g["u"], ones, ones, g["wstate"], chunk,
-                           reverse=False)
+                           reverse=False, mm=mm)
     dq, dk, dv = torch.zeros_like(q), torch.zeros_like(k), torch.zeros_like(v)
     dli, db = torch.zeros_like(logi), torch.zeros_like(logi)
     intra = []
@@ -217,14 +226,14 @@ def mlstm_chunkwise_bwd(q, k, v, logi, logf, h, dh, *, chunk: int = CHUNK):
         tri = torch.ones(L, L, dtype=torch.bool, device=q.device).tril()
         D = b[..., :, None] - b[..., None, :] + logi[:, :, sl][..., None, :]
         P = torch.where(tri, torch.exp(D - m[..., None]), 0.0)
-        Sm = torch.einsum("bntd,bnsd->bnts", qc, kc) * P
+        Sm = mm("bntd,bnsd->bnts", qc, kc) * P
         den_raw = Sm.sum(-1) + w * torch.einsum("bntd,bnd->bnt", qc,
                                                 nst[:, :, c])
         den = torch.maximum(den_raw.abs(), torch.exp(-m))
         gh = (gc * hc).sum(-1)
         free = den_raw.abs() > torch.exp(-m)      # the clamp does not win
         a = torch.where(free, -gh / den * torch.sign(den_raw), 0.0)
-        dS = torch.where(tri, torch.einsum("bntj,bnsj->bnts", gc, vc)
+        dS = torch.where(tri, mm("bntj,bnsj->bnts", gc, vc)
                          / den[..., None] + a[..., None], 0.0)
         dA, dD = dS * P, dS * Sm
         invden[:, :, sl], alpha[:, :, sl] = 1.0 / den, a
@@ -232,7 +241,7 @@ def mlstm_chunkwise_bwd(q, k, v, logi, logf, h, dh, *, chunk: int = CHUNK):
         db[:, :, sl] += dD.sum(-1) - dD.sum(-2)
         intra.append((Sm, dA))
     dCa, dna = _state_scan(q, dh, g["w"], invden, alpha, g["wstate"], chunk,
-                           reverse=True)
+                           reverse=True, mm=mm)
     for c, (t0, L) in enumerate(_chunk_starts(S, chunk)):
         sl = slice(t0, t0 + L)
         Sm, dA = intra[c]
@@ -240,15 +249,13 @@ def mlstm_chunkwise_bwd(q, k, v, logi, logf, h, dh, *, chunk: int = CHUNK):
         gd = dh[:, :, sl] * invden[:, :, sl, None]
         w, u = g["w"][:, :, sl], g["u"][:, :, sl]
         C, n, dC, dn = Cst[:, :, c], nst[:, :, c], dCa[:, :, c], dna[:, :, c]
-        Y = torch.einsum("bnij,bntj->bnti", C, gd) + \
+        Y = mm("bnij,bntj->bnti", C, gd) + \
             alpha[:, :, sl, None] * n[:, :, None]
-        Z = torch.einsum("bnij,bnsj->bnsi", dC, vc) + dn[:, :, None]
-        dq[:, :, sl] = torch.einsum("bnts,bnsi->bnti", dA, kc) + \
-            w[..., None] * Y
-        dk[:, :, sl] = torch.einsum("bnts,bnti->bnsi", dA, qc) + \
-            u[..., None] * Z
-        dv[:, :, sl] = torch.einsum("bnts,bntj->bnsj", Sm, gd) + \
-            u[..., None] * torch.einsum("bnsi,bnij->bnsj", kc, dC)
+        Z = mm("bnij,bnsj->bnsi", dC, vc) + dn[:, :, None]
+        dq[:, :, sl] = mm("bnts,bnsi->bnti", dA, kc) + w[..., None] * Y
+        dk[:, :, sl] = mm("bnts,bnti->bnsi", dA, qc) + u[..., None] * Z
+        dv[:, :, sl] = mm("bnts,bntj->bnsj", Sm, gd) + \
+            u[..., None] * mm("bnsi,bnij->bnsj", kc, dC)
         ddec = (kc * Z).sum(-1) * u
         dws = (C * dC).sum((-1, -2)) + (n * dn).sum(-1)
         db[:, :, sl] += (qc * Y).sum(-1) * w - ddec
@@ -259,3 +266,124 @@ def mlstm_chunkwise_bwd(q, k, v, logi, logf, h, dh, *, chunk: int = CHUNK):
         sl = slice(t0, t0 + L)
         dlf[:, :, sl] = db[:, :, sl].flip(-1).cumsum(-1).flip(-1)
     return dq, dk, dv, dli, dlf
+
+
+# --------------------------------------------------------------------------- #
+# the tensor-core kernels' numerics, in plain PyTorch (tests only)
+# --------------------------------------------------------------------------- #
+KSTEP = 8   # depth of one mma.sync.m16n8k8 step
+
+
+def tf32_trunc(x: torch.Tensor) -> torch.Tensor:
+    """fp32 ``x`` cut to TF32 (10 mantissa bits) by clearing its 13 low
+    bits, as the kernels cut the hi part and the tensor cores the lo part."""
+    b = x.float().contiguous().view(torch.int32)
+    return (b & -0x2000).view(torch.float32)
+
+
+def _chop(x: torch.Tensor) -> torch.Tensor:
+    """float64 ``x`` to fp32, rounded toward zero."""
+    f = x.float()
+    return torch.where(f.double().abs() > x.abs(),
+                       torch.nextafter(f, torch.zeros_like(f)), f)
+
+
+def mma_step(c: Optional[torch.Tensor], p: torch.Tensor) -> torch.Tensor:
+    """``c + p.sum(-1)`` as one tensor-core step sums it: the products
+    ``p`` (exact: TF32 times TF32 fits fp32) and the accumulator ``c``
+    (None: a fresh one) are aligned to the largest of them and each cut
+    toward zero to fp32's 24 bits below that one's leading bit, the cut
+    terms are added exactly and the sum is cut toward zero to fp32.  A
+    term smaller than the grid of the largest is lost, so a long chain
+    through one accumulator drifts toward zero."""
+    big = p.abs().amax(-1)
+    if c is not None:
+        big = torch.maximum(big, c.abs())
+    _, e = torch.frexp(big)
+    grid = torch.ldexp(torch.ones_like(big), e - 24)
+    s = torch.trunc(p / grid[..., None]).to(torch.int32).sum(
+        -1, dtype=torch.int64)
+    if c is not None:
+        s = s + torch.trunc(c / grid).to(torch.int64)
+    return _chop(s.double() * grid.double())
+
+
+def split_einsum(eq: str, a: torch.Tensor, b: torch.Tensor, *,
+                 passes: int = 3, chain: Optional[int] = 1) -> torch.Tensor:
+    """``torch.einsum(eq, a, b)`` (one contraction index) as the kernels'
+    tensor cores compute it: each operand split into hi = tf32(x) and
+    lo = tf32(x - hi) (both cut by ``tf32_trunc``); over each ``KSTEP``-deep
+    slice of the contraction, lo.hi, then hi.lo, then hi.hi go through one
+    accumulator by ``mma_step`` (``passes=1``: hi.hi alone, one TF32 pass).
+    Every ``chain`` slices the accumulator is added to an fp32 sum, rounded
+    to nearest, and starts afresh: 1 is the kernels' design, 8 one
+    accumulator a 64-deep slab, None one over the whole contraction."""
+    ins, out = eq.split("->")
+    ea, eb = ins.split(",")
+    (k,) = [c for c in ea if c in eb and c not in out]
+    ia, ib = ea.index(k), eb.index(k)
+    keep = f"{ea},{eb}->{out}{k}"      # the products, not yet summed
+    n = a.shape[ia]
+    acc = t = None
+    for i, k0 in enumerate(range(0, n, KSTEP)):
+        x = a.narrow(ia, k0, min(KSTEP, n - k0))
+        y = b.narrow(ib, k0, min(KSTEP, n - k0))
+        xh, yh = tf32_trunc(x), tf32_trunc(y)
+        terms = [(xh, yh)]
+        if passes == 3:
+            terms = [(tf32_trunc(x - xh), yh), (xh, tf32_trunc(y - yh)),
+                     (xh, yh)]
+        for xa, yb in terms:
+            t = mma_step(t, torch.einsum(keep, xa, yb))
+        if k0 + KSTEP >= n or (chain and (i + 1) % chain == 0):
+            acc = t if acc is None else acc + t
+            t = None
+    return acc
+
+
+def mlstm_chunkwise_split(q, k, v, logi, logf, *, chunk: int = CHUNK,
+                          passes: int = 3, chain: Optional[int] = 1):
+    """The forward kernel's arithmetic: ``mlstm_chunkwise`` through its
+    stages (gate terms, the state scan, per chunk Q K^T, the denominators
+    and S V + w Q C_c), each product of two tiles by ``split_einsum``
+    (``passes`` and ``chain`` as it takes them)."""
+    def mm(eq, a, b):
+        return split_einsum(eq, a, b, passes=passes, chain=chain)
+
+    S = q.shape[2]
+    g = chunk_gates(logi, logf, chunk)
+    ones = torch.ones_like(logi)
+    Cst, nst = _state_scan(k, v, g["u"], ones, ones, g["wstate"], chunk,
+                           reverse=False, mm=mm)
+    hs = []
+    for c, (t0, L) in enumerate(_chunk_starts(S, chunk)):
+        sl = slice(t0, t0 + L)
+        qc, kc, vc = q[:, :, sl], k[:, :, sl], v[:, :, sl]
+        b, m, w = g["b"][:, :, sl], g["m"][:, :, sl], g["w"][:, :, sl]
+        tri = torch.ones(L, L, dtype=torch.bool, device=q.device).tril()
+        D = b[..., :, None] - b[..., None, :] + logi[:, :, sl][..., None, :]
+        P = torch.where(tri, torch.exp(D - m[..., None]), 0.0)
+        Sm = mm("bntd,bnsd->bnts", qc, kc) * P
+        den_raw = Sm.sum(-1) + w * torch.einsum("bntd,bnd->bnt", qc,
+                                                nst[:, :, c])
+        den = torch.maximum(den_raw.abs(), torch.exp(-m))
+        num = mm("bnts,bnsj->bntj", Sm, vc) + \
+            w[..., None] * mm("bnti,bnij->bntj", qc, Cst[:, :, c])
+        hs.append(num / den[..., None])
+    return torch.cat(hs, dim=2)
+
+
+class MlstmChunkSplit(torch.autograd.Function):
+    """``MlstmChunk`` with the kernels' numerics on any device: forward
+    ``mlstm_chunkwise_split``, backward ``mlstm_chunkwise_bwd`` with the
+    same split products."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, logi, logf):
+        h = mlstm_chunkwise_split(q, k, v, logi, logf)
+        ctx.save_for_backward(q, k, v, logi, logf, h)
+        return h
+
+    @staticmethod
+    def backward(ctx, g):
+        return mlstm_chunkwise_bwd(*ctx.saved_tensors, g, mm=split_einsum)

@@ -164,6 +164,21 @@ def test_mixer_rejects_what_the_kernels_do_not_take():
             mlstm_ops.mlstm_mixer(*bad)
 
 
+def test_kernel_wrappers_reject_unaligned_views():
+    """A contiguous view that starts 4 bytes into its storage passes the
+    shape and layout checks but not the kernels' 16-byte copies: both
+    wrappers raise before they reach the device."""
+    q, k, v, li, lf, g = map(T, _inputs(1, 2, 16, 64))
+    shifted = torch.empty(q.numel() + 1)[1:].view(q.shape)
+    shifted.copy_(q)
+    assert shifted.is_contiguous() and shifted.data_ptr() % 16
+    mlstm_ops.check_aligned(q=q, k=k, v=v, h=q, dh=g)
+    with pytest.raises(ValueError, match="k must start on a 16-byte"):
+        mlstm_ops.forward(q, shifted, v, li, lf)
+    with pytest.raises(ValueError, match="dh must start on a 16-byte"):
+        mlstm_ops.backward(q, k, v, li, q, None, shifted)
+
+
 def test_cpu_calls_do_not_count_as_launches():
     n0 = dict(mlstm_ops.launches)
     xs = [T(a).requires_grad_() for a in _inputs(1, 1, 20, 64)[:5]]
