@@ -10,11 +10,16 @@ Phases:
      suites (``src/repro_torch/kernels/{gp_acquisition,tpe_kde,
      flash_attention,mlstm_chunk,ssm_scan}/csrc``) with nvcc (sm_90a), one
      nvcc each, started together, and print what ptxas says about them and
-     each flash and mLSTM stage kernel's registers, spills and shared
+     each score_cov, flash and mLSTM kernel's registers, spills and shared
      memory;
   2. each kernel against its plain PyTorch version on the card, with
-     timings: the tuner kernels at the fleet path's shapes, at a ragged
-     small shape and at a large bucket; flash attention at the served
+     timings: the GP kernels at the fleet path's shape and at a shape for
+     every branch of score_cov (``GP_KERNEL_SHAPES``), score_cov run twice
+     at the fleet shape and required bitwise equal, its square root held
+     equal to sqrtf on every float from 1e-12 up, its bound counted with
+     the product K L^-T at the split-TF32 rate; the TPE kernels at the
+     fleet path's shapes, at a ragged small shape and at a large bucket;
+     flash attention at the served
      models' prefill shapes, yi-34b's width, a ragged and a cross shape in
      fp32 (the FMA kernel) and bf16 (the tensor-core kernel), causal
      Sq < Sk at hd 24, MQA at hd 128 and whisper-large-v3's encoder,
@@ -131,8 +136,9 @@ from repro_torch.tree import tree_items, tree_map  # noqa: E402
 PEAK_FP32 = 67e12
 PEAK_BF16 = 989e12   # dense bf16 tensor-core rate
 PEAK_TF32 = 495e12   # dense TF32 tensor-core rate
-# the mLSTM kernels run each fp32 product as three TF32 products (split
-# TF32), so their operations go at a third of the TF32 rate
+# the mLSTM kernels and score_cov's product K L^-T run each fp32 product as
+# three TF32 products (split TF32), so those operations go at a third of
+# the TF32 rate
 PEAK_SPLIT_TF32 = PEAK_TF32 / 3
 PEAK_BYTES = 3.35e12
 SM_CLOCK_HZ = 1.98e9
@@ -323,10 +329,11 @@ def cuda_ms(fn, reps: int, warmup: int = 2) -> float:
     return start.elapsed_time(end) / reps
 
 
-def gp_system(B, S, na, n_act, d, seed, dev):
+def gp_system(B, S, na, n_act, d, seed, dev, noise=(1e-3, 1e-2)):
     """A fitted-looking GP system per study at the bank's shapes: prescaled
-    candidates and observations, masked tail past ``n_act``, factors from
-    the port's own stages."""
+    candidates and observations, masked tail past ``n_act``, noise drawn
+    uniformly from the range ``noise``, factors from the port's own
+    stages."""
     rng = np.random.default_rng(seed)
     dp = max(8, -(-d // 8) * 8)
     X = rng.uniform(size=(B, na, d)).astype(np.float32)
@@ -336,7 +343,7 @@ def gp_system(B, S, na, n_act, d, seed, dev):
     X *= mask[..., None]
     ls = rng.uniform(0.2, 0.8, size=(B, d)).astype(np.float32)
     var = rng.uniform(0.5, 2.0, size=B).astype(np.float32)
-    noise = rng.uniform(1e-3, 1e-2, size=B).astype(np.float32)
+    noise = rng.uniform(*noise, size=B).astype(np.float32)
     y = (rng.normal(size=(B, na)) * mask).astype(np.float32)
     t = {k: torch.as_tensor(v, device=dev) for k, v in dict(
         X=X, C=C, mask=mask, ls=ls, var=var, noise=noise, y=y).items()}
@@ -417,10 +424,14 @@ def time_kernels(t, reps: int):
     plain = cuda_ms(lambda: ref.score_cov_ref(Cs, Xs, mask, Linv, alpha,
                                               var, noise), reps)
     # operations: the triangular product (2 flops per multiply-add over the
-    # lower triangle), the distance dots, and mu
+    # lower triangle), on the tensor cores in split TF32, and the distance
+    # dots and mu in fp32
+    tri = B * S * na * (na + 1)
+    rest = B * S * na * (2 * dp + 2)
     recs["score_cov"] = dict(
-        ms=ms, plain_ms=plain,
-        flops=B * S * na * (na + 1) + B * S * na * (2 * dp + 2),
+        ms=ms, plain_ms=plain, flops=tri + rest,
+        t_ops=tri / PEAK_SPLIT_TF32 + rest / PEAK_FP32,
+        t_ops_fp32=(tri + rest) / PEAK_FP32,
         bytes=4 * (B * S * dp + B * na * dp + 2 * B * na + B * na * na
                    + 2 * B + 2 * B * S + B * S * na))
     dd = (Cs, t["x_star"], Kc.clone(), t["u"], t["schur"], t["sig2"], var)
@@ -431,25 +442,47 @@ def time_kernels(t, reps: int):
         bytes=4 * (B * S * na + B * S * dp + B * dp + B * na + 4 * B
                    + 4 * B * S))
     for r in recs.values():
-        t_ops, t_bytes = r["flops"] / PEAK_FP32, r["bytes"] / PEAK_BYTES
+        t_ops = r.get("t_ops", r["flops"] / PEAK_FP32)
+        t_bytes = r["bytes"] / PEAK_BYTES
         r.update(bound_ms=max(t_ops, t_bytes) * 1e3,
                  bound_by="operations" if t_ops >= t_bytes else "bytes")
     return recs
 
 
+# (tag, B, S, na, n_act, d): the fleet shape (K resident in shared memory)
+# and one shape for every other branch of score_cov: na 16 and 32 (one
+# k-slab, zero columns past na) with a ragged S, na 512 and 1024 (K
+# streamed from global memory) and dp 64 at na 256 (streamed: the
+# candidates take the room K would need)
+GP_KERNEL_SHAPES = [("fleet", FLEET["B"], 16800, 256, 212, 6),
+                    ("ragged", 3, 1000, 16, 11, 19),
+                    ("na32-ragged", 2, 517, 32, 29, 6),
+                    ("na512", 2, 700, 512, 400, 6),
+                    ("streamed", 4, 3000, 1024, 1000, 6),
+                    ("dp64", 2, 300, 256, 200, 60)]
+
+
 def check_kernels(dev, reps_main: int):
-    """Phase 2: every kernel against its plain version on the card, at the
-    fleet shapes, at a ragged small shape, and at na = 1024 where score_cov
-    streams K back from global memory.  Returns the per-kernel records
-    (errors over all shapes, times at the fleet shapes)."""
-    shapes = [("fleet", FLEET["B"], 16800, 256, 212, 6),
-              ("ragged", 3, 1000, 16, 11, 19),
-              ("streamed", 4, 3000, 1024, 1000, 6)]
+    """Phase 2: every kernel against its plain version on the card at
+    ``GP_KERNEL_SHAPES``, score_cov run twice at the fleet shape and held
+    bitwise equal, and its branch-free square root held equal to sqrtf on
+    every float from 1e-12 up.  Returns the per-kernel records (errors over
+    all shapes, times at the fleet shapes)."""
+    bad = ops.sqrt_mismatches()
+    log(f"[kernels] score_cov square root vs sqrtf on every float in "
+        f"[1e-12, FLT_MAX]: {bad} mismatches")
+    if bad:
+        raise AssertionError("score_cov's square root differs from sqrtf")
+    lib = ops.library()
     worst = {"score_cov": 0.0, "var_downdate": 0.0}
     recs = None
-    for tag, B, S, na, n_act, d in shapes:
+    for tag, B, S, na, n_act, d in GP_KERNEL_SHAPES:
         errs, inputs = kernel_errors(B, S, na, n_act, d, dev)
         torch.cuda.synchronize()
+        dp = inputs["Cs"].shape[-1]
+        regime = ("resident" if lib.gp_score_cov_smem_bytes(na, dp) > 0
+                  else "streamed")
+        log(f"[kernels] {tag}: score_cov keeps K {regime}")
         for name, (err, tol) in errs.items():
             ok = err <= tol
             log(f"[kernels] {tag} B={B} S={S} na={na} "
@@ -461,6 +494,10 @@ def check_kernels(dev, reps_main: int):
                     else "var_downdate")
             worst[kern] = max(worst[kern], err)
         if tag == "fleet":
+            args = [inputs[k] for k in ("Cs", "Xs", "mask", "Linv", "alpha",
+                                        "var", "noise")]
+            check_deterministic("score_cov fleet shape (mu, sig2, K)",
+                                lambda: ops.score_cov(*args), "kernels")
             recs = time_kernels(inputs, reps_main)
         del inputs
     for name, r in recs.items():
@@ -470,6 +507,12 @@ def check_kernels(dev, reps_main: int):
             f"({r['bound_by']}), {r['flops'] / 1e9:.2f} GFLOP, "
             f"{r['bytes'] / 1e9:.3f} GB; no single PyTorch call computes "
             "this function (library_ms null)")
+        if "t_ops_fp32" in r:
+            log(f"[kernels] {name} bound with every operation at the fp32 "
+                f"rate (the FMA kernel's figure): "
+                f"{max(r['t_ops_fp32'], r['bytes'] / PEAK_BYTES) * 1e3:.4f}"
+                f" ms; kernel at {r['bound_ms'] / r['ms']:.1%} of the split-"
+                "TF32 bound")
     return recs
 
 
@@ -2320,7 +2363,11 @@ def main(argv) -> int:
     log("[setup] ssm_scan backward dynamic shared memory per block at N "
         "8/16/32: " + "/".join(str(ssm_lib.ssm_scan_bwd_smem_bytes(n))
                                for n in (8, 16, 32)) + " bytes")
-    for na, dp in ((16, 24), (256, 8), (1024, 8)):
+    log("[setup] score_cov kernels (registers per thread, spill bytes per "
+        "thread, static shared memory bytes per block): "
+        + ", ".join(f"{name} {a}" for name, a in ops.kernel_attrs().items()))
+    for na, dp in ((16, 24), (32, 8), (256, 8), (256, 64), (512, 8),
+                   (1024, 8)):
         blocks = ctypes.c_int(0)
         err = lib.gp_score_cov_blocks_per_sm(na, dp, ctypes.byref(blocks))
         if err:

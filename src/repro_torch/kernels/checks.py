@@ -25,3 +25,11 @@ def check_dp(dp: int) -> None:
         raise ValueError(f"padded dim {dp} must be a multiple of 8 in "
                          f"[8, {MAX_DP}]")
 
+
+def check_aligned(**tensors) -> None:
+    """Raise unless each tensor starts on a 16-byte boundary: kernels that
+    copy their inputs in 16-byte pieces need it (a contiguous view that
+    starts inside its storage may not)."""
+    for name, t in tensors.items():
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name} must start on a 16-byte boundary")

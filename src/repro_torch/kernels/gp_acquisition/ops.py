@@ -5,7 +5,9 @@ A CUDA tensor launches the hand-written kernel in ``csrc/gp_acquisition.cu``
 plain version in ``ref``.  Nothing falls back: a CUDA call that cannot build or
 launch raises.  ``launches`` counts kernel launches per wrapper (CPU calls
 leave it alone), so a run can show that its main path went through the
-kernels.
+kernels; one ``score_cov`` call enqueues the split of L^-1 into TF32 parts
+and the scoring kernel, and counts once.  ``ref.score_cov_split`` is the
+scoring kernel's arithmetic for the CPU tests.
 """
 from __future__ import annotations
 
@@ -15,11 +17,13 @@ from pathlib import Path
 import torch
 
 from repro_torch.kernels import build
+from repro_torch.kernels.checks import check_aligned as _check_aligned
 from repro_torch.kernels.checks import check_dp as _check_dp
 from repro_torch.kernels.checks import check_tensor as _check
 from repro_torch.kernels.gp_acquisition import ref
 
 SOURCES = (Path(__file__).resolve().parent / "csrc" / "gp_acquisition.cu",)
+SCORE_COV_KERNELS = ("score_cov_streamed", "score_cov_resident")
 
 launches = {"score_cov": 0, "var_downdate": 0}
 
@@ -30,7 +34,7 @@ _I = ctypes.c_int
 def library() -> ctypes.CDLL:
     lib = build.load("gp_acquisition", SOURCES)
     if not getattr(lib, "_typed", False):
-        lib.gp_score_cov.argtypes = [_P] * 10 + [_I] * 4 + [_P]
+        lib.gp_score_cov.argtypes = [_P] * 11 + [_I] * 4 + [_P]
         lib.gp_score_cov.restype = _I
         lib.gp_var_downdate.argtypes = [_P] * 10 + [_I] * 4 + [_P]
         lib.gp_var_downdate.restype = _I
@@ -38,6 +42,10 @@ def library() -> ctypes.CDLL:
         lib.gp_score_cov_smem_bytes.restype = ctypes.c_long
         lib.gp_score_cov_blocks_per_sm.argtypes = [_I, _I, _P]
         lib.gp_score_cov_blocks_per_sm.restype = _I
+        lib.gp_score_cov_attrs.argtypes = [_I, _P]
+        lib.gp_score_cov_attrs.restype = _I
+        lib.gp_sqrt_check.argtypes = [ctypes.c_uint, ctypes.c_uint, _P, _P]
+        lib.gp_sqrt_check.restype = _I
         lib.gp_error_string.argtypes = [_I]
         lib.gp_error_string.restype = ctypes.c_char_p
         lib._typed = True
@@ -50,12 +58,40 @@ def _raise_on(lib: ctypes.CDLL, err: int, what: str) -> None:
                            f"{lib.gp_error_string(err).decode()}")
 
 
+def kernel_attrs() -> dict:
+    """What score_cov's two kernels take on the card: {kernel: (registers
+    per thread, local-memory bytes per thread (spills), static shared
+    memory per block)}, from ``cudaFuncGetAttributes``."""
+    lib = library()
+    out = (ctypes.c_int * 3)()
+    attrs = {}
+    for resident, name in enumerate(SCORE_COV_KERNELS):
+        _raise_on(lib, lib.gp_score_cov_attrs(resident, out),
+                  f"{name} attributes")
+        attrs[name] = tuple(out)
+    return attrs
+
+
+def sqrt_mismatches() -> int:
+    """Floats on which the kernel's branch-free square root differs from
+    sqrtf, over every float from 1e-12 (the floor of max(d2, 1e-12)) to the
+    largest finite one (bit patterns 0x2b8cbccc .. 0x7f7fffff)."""
+    lib = library()
+    bad = torch.zeros(1, dtype=torch.int32, device="cuda")
+    _raise_on(lib, lib.gp_sqrt_check(
+        0x2B8CBCCC, 0x7F7FFFFF, bad.data_ptr(),
+        torch.cuda.current_stream(bad.device).cuda_stream), "sqrt_check")
+    return int(bad.cpu()[0])   # the one read-back, after the check
+
+
 def score_cov(Cs, Xs, mask, Linv, alpha, var, noise):
     """(mu, sig2, K) for every candidate of every study in one launch.
 
     Cs (B, S, dp) and Xs (B, na, dp) are lengthscale-prescaled and padded;
     mask (B, na); Linv (B, na, na) lower triangular; alpha (B, na);
-    var, noise (B,).  All float32 and contiguous on one device."""
+    var, noise (B,).  All float32 and contiguous on one device.  The CUDA
+    kernel also needs na a multiple of 4 and Cs, Xs and Linv on 16-byte
+    boundaries: it loads their rows 16 bytes at a time."""
     B, S, dp = Cs.shape
     na = Xs.shape[1]
     dev = Cs.device
@@ -70,14 +106,19 @@ def score_cov(Cs, Xs, mask, Linv, alpha, var, noise):
         return ref.score_cov_ref(Cs, Xs, mask, Linv, alpha, var, noise)
     if dev.type != "cuda":
         raise ValueError(f"score_cov runs on cuda or cpu, not {dev}")
+    if na % 4:
+        raise ValueError(f"score_cov's kernel needs na % 4 == 0, got {na}")
+    _check_aligned(Cs=Cs, Xs=Xs, Linv=Linv)
     lib = library()
     mu = torch.empty((B, S), dtype=torch.float32, device=dev)
     sig2 = torch.empty((B, S), dtype=torch.float32, device=dev)
     K = torch.empty((B, S, na), dtype=torch.float32, device=dev)
+    # the TF32 hi and lo parts of Linv, split once for every block
+    Lsplit = torch.empty((2, B, na, na), dtype=torch.float32, device=dev)
     err = lib.gp_score_cov(
         Cs.data_ptr(), Xs.data_ptr(), mask.data_ptr(), Linv.data_ptr(),
         alpha.data_ptr(), var.data_ptr(), noise.data_ptr(), mu.data_ptr(),
-        sig2.data_ptr(), K.data_ptr(), B, S, na, dp,
+        sig2.data_ptr(), K.data_ptr(), Lsplit.data_ptr(), B, S, na, dp,
         torch.cuda.current_stream(dev).cuda_stream)
     _raise_on(lib, err, "score_cov")
     launches["score_cov"] += 1

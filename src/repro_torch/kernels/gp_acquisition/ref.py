@@ -17,13 +17,17 @@ and ``repro.kernels.gp_acquisition.ref``); the Pallas kernel also clamps ``d2``
 at 0 before the polynomial.  The port follows the bank path.
 
 These are what a wrapper in ``ops`` runs for a CPU tensor, and what the CUDA
-kernels are held against on the card.
+kernels are held against on the card.  ``score_cov_split`` is the scoring
+kernel's own arithmetic (its product K L^-T in split TF32), for the CPU tests
+only.
 """
 from __future__ import annotations
 
 import math
 
 import torch
+
+from repro_torch.kernels.tc_numerics import split_einsum
 
 SQRT5 = math.sqrt(5.0)
 
@@ -44,6 +48,24 @@ def score_cov_ref(Cs, Xs, mask, Linv, alpha, var, noise):
     K = matern52(Cs, Xs, var) * mask[:, None, :]
     mu = (K @ alpha[..., None])[..., 0]
     t = K @ Linv.transpose(-1, -2)
+    q = (t * t).sum(-1)
+    sig2 = torch.clamp((var + noise)[:, None] - q, min=1e-10)
+    return mu, sig2, K
+
+
+def score_cov_split(Cs, Xs, mask, Linv, alpha, var, noise, *,
+                    passes: int = 3, chain=None):
+    """``score_cov_ref`` with the CUDA kernel's arithmetic: K and mu in fp32
+    as there, t = K L^-T by ``split_einsum`` (each operand split into TF32
+    hi and lo, lo.hi + hi.lo + hi.hi per 8-deep k-step through the tensor
+    cores' truncating accumulator), q = sum_j t_j^2 in fp32.  The kernel
+    runs one accumulator over each 64-column tile of t for the whole
+    contraction (``chain=None``); tiles of L^-1 above the diagonal are zero,
+    and zero products leave that accumulator as it is, so contracting over
+    all of na gives the kernel's sums.  ``passes=1`` is one TF32 pass."""
+    K = matern52(Cs, Xs, var) * mask[:, None, :]
+    mu = (K @ alpha[..., None])[..., 0]
+    t = split_einsum("bsk,bjk->bsj", K, Linv, passes=passes, chain=chain)
     q = (t * t).sum(-1)
     sig2 = torch.clamp((var + noise)[:, None] - q, min=1e-10)
     return mu, sig2, K

@@ -30,7 +30,7 @@ from pathlib import Path
 import torch
 
 from repro_torch.kernels import build
-from repro_torch.kernels.checks import check_tensor
+from repro_torch.kernels.checks import check_aligned, check_tensor
 from repro_torch.kernels.mlstm_chunk import ref
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
@@ -99,15 +99,6 @@ def check_inputs(q, k, v, logi, logf):
     if S == 0 or B * NH == 0:
         raise ValueError("empty sequence or batch")
     return B, NH, S, dh
-
-
-def check_aligned(**tensors) -> None:
-    """Raise unless each tensor starts on a 16-byte boundary: the kernels
-    copy q, k, v, h and dh in 16-byte pieces (a contiguous view that starts
-    inside its storage may not)."""
-    for name, t in tensors.items():
-        if t.data_ptr() % 16:
-            raise ValueError(f"{name} must start on a 16-byte boundary")
 
 
 def _stream(t: torch.Tensor) -> int:

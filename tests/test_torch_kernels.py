@@ -215,10 +215,13 @@ def test_ops_reject_malformed_inputs(bad):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("B,S,na,n_act,d", [
-    (3, 100, 16, 11, 2),        # ragged S, one partial block
-    (2, 300, 32, 31, 5),        # one masked slot
+    (3, 100, 16, 11, 2),        # ragged S, one partial block, one k-slab
+    (2, 300, 32, 31, 5),        # one masked slot, one k-slab
     (3, 512, 64, 40, 19),       # dp = 24
-    (2, 2000, 1024, 900, 6),    # K streamed back from global memory
+    (2, 517, 256, 212, 6),      # the fleet bucket: K resident, ragged S
+    (2, 300, 256, 200, 60),     # dp = 64: K streamed at the fleet bucket
+    (2, 700, 512, 400, 6),      # K streamed back from global memory
+    (2, 2000, 1024, 900, 6),    # the same at phase 2's largest bucket
 ])
 def test_cuda_kernels_match_plain_versions(B, S, na, n_act, d):
     """Each CUDA kernel against its plain version on the card, with the
@@ -232,3 +235,21 @@ def test_cuda_kernels_match_plain_versions(B, S, na, n_act, d):
     assert ops.launches == {k: v + 1 for k, v in n0.items()}
     for name, (err, tol) in errs.items():
         assert err <= tol, (name, err, tol)
+
+
+@pytest.mark.cuda
+def test_cuda_score_cov_is_deterministic_and_its_sqrt_exact():
+    """score_cov's kernel gives bitwise-equal outputs on two runs (no
+    atomics), and its branch-free square root equals sqrtf on every float
+    from 1e-12 (the floor of max(d2, 1e-12)) to the largest finite one."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    assert ops.sqrt_mismatches() == 0
+    g = chip_smoke.gp_system(2, 517, 256, 212, 6, seed=3,
+                             dev=torch.device("cuda"))
+    args = [g[k] for k in ("Cs", "Xs", "mask", "Linv", "alpha", "var",
+                           "noise")]
+    first, second = ops.score_cov(*args), ops.score_cov(*args)
+    torch.cuda.synchronize()
+    for x, y in zip(first, second):
+        assert torch.equal(x, y)
