@@ -10,15 +10,17 @@ Phases:
      suites (``src/repro_torch/kernels/{gp_acquisition,tpe_kde,
      flash_attention,mlstm_chunk,ssm_scan}/csrc``) with nvcc (sm_90a), one
      nvcc each, started together, and print what ptxas says about them and
-     each score_cov, flash and mLSTM kernel's registers, spills and shared
-     memory;
+     each score_cov, TPE, flash and mLSTM kernel's registers, spills and
+     shared memory;
   2. each kernel against its plain PyTorch version on the card, with
      timings: the GP kernels at the fleet path's shape and at a shape for
      every branch of score_cov (``GP_KERNEL_SHAPES``), score_cov run twice
      at the fleet shape and required bitwise equal, its square root held
      equal to sqrtf on every float from 1e-12 up, its bound counted with
      the product K L^-T at the split-TF32 rate; the TPE kernels at the
-     fleet path's shapes, at a ragged small shape and at a large bucket;
+     fleet path's shapes, one study of it, a ragged small shape, a large
+     bucket and fractional weights with a row in both splits, each shape
+     run twice and required bitwise equal;
      flash attention at the served
      models' prefill shapes, yi-34b's width, a ragged and a cross shape in
      fp32 (the FMA kernel) and bf16 (the tensor-core kernel), causal
@@ -522,12 +524,14 @@ def check_kernels(dev, reps_main: int):
 TPE_TOL = 1e-4   # the JAX package's own kernel-vs-oracle tolerance
 
 
-def tpe_system(B, S, na, n_live, d, dev, seed=11, holes=False):
+def tpe_system(B, S, na, n_live, d, dev, seed=11, kind="ask"):
     """Inputs of both TPE kernels at the bank's layout: candidates, live
     observation rows (study b keeps ``n_live - b % 3``; the rest of the
     bucket is zeros), a good and a bad split, and per-split per-dim scales
-    that differ along the dims.  As on the ask path, every live row carries
-    a weight; ``holes`` masks every ninth live row out of both splits.
+    that differ along the dims.  ``kind`` "ask": every live row carries a
+    0/1 weight, as on the ask path; "holes": every ninth live row is masked
+    out of both splits; "shared": the weights are fractional and the last
+    good row is in the bad split too (at one live row, the empty-bad case).
     Returns the tensors of both kernels' calls on ``dev`` and each study's
     count of weighted rows."""
     rng = np.random.default_rng(seed)
@@ -540,10 +544,14 @@ def tpe_system(B, S, na, n_live, d, dev, seed=11, holes=False):
     X = np.zeros((B, na, dp), np.float32)
     X[..., :d] = rng.uniform(size=(B, na, d)) * keep[..., None]
     n_good = np.maximum(1, live // 4)[:, None]
-    on = keep & (row % 9 != 5) if holes else keep
+    on = keep & (row % 9 != 5) if kind == "holes" else keep
     wg = (on & (row < n_good)).astype(np.float32)
     wb = (on & (row >= n_good)).astype(np.float32)
     wb[wb.sum(1) == 0, 0] = 1.0          # a bad split is never empty
+    if kind == "shared":
+        frac = rng.uniform(0.25, 1.0, size=(B, na)).astype(np.float32)
+        wb = np.maximum(wb, on & (row == n_good - 1)).astype(np.float32)
+        wg, wb = wg * frac, wb * frac
     ag = rng.uniform(5.0, 50.0, size=(B, 1, d))
     ab = rng.uniform(5.0, 50.0, size=(B, 1, d))
     a = np.zeros((B, na, dp), np.float32)
@@ -565,7 +573,7 @@ def tpe_system(B, S, na, n_live, d, dev, seed=11, holes=False):
                 d=d, live=live, weighted=(w > 0).sum(1))
 
 
-def tpe_kernel_errors(B, S, na, n_live, d, dev, seed=11, holes=False):
+def tpe_kernel_errors(B, S, na, n_live, d, dev, seed=11, kind="ask"):
     """Both TPE kernels against their plain versions on the same inputs at
     one shape.  Returns ``({kernel: (max_abs_err, tolerance)}, system)``.
 
@@ -574,7 +582,7 @@ def tpe_kernel_errors(B, S, na, n_live, d, dev, seed=11, holes=False):
     positive terms, each of which the two versions add in another order
     (relative error of a few eps times the row count's square root), and
     both floor every density at 1e-12, so no log sees a cancelled sum."""
-    g = tpe_system(B, S, na, n_live, d, dev, seed, holes)
+    g = tpe_system(B, S, na, n_live, d, dev, seed, kind)
     k = tpe_ops.tpe_scores(*g["tpe"], d_true=d)
     r = tpe_ref.tpe_scores_ref(*g["tpe"], d_true=d)
     kp = tpe_ops.parzen_logdens_bank(*g["parzen"], d_true=d)
@@ -606,20 +614,26 @@ def tpe_bound(name, S, weighted, d):
             t_exp * 1e3, t_fp32 * 1e3, t_bytes * 1e3, n_exp)
 
 
+# (tag, B, S, na, n_live, d, kind of ``tpe_system``): the fleet path's
+# shape, one study of it (the Tuner's ask), a ragged small shape with masked
+# rows, a large bucket (sixteen row tiles per dimension) and fractional
+# weights with a row in both splits
+TPE_KERNEL_SHAPES = [("fleet", FLEET["B"], 16800, 256, 200, 6, "ask"),
+                     ("one-study", 1, 16800, 256, 200, 6, "ask"),
+                     ("ragged", 3, 257, 24, 17, 11, "holes"),
+                     ("large-bucket", 4, 3000, 4096, 4000, 6, "ask"),
+                     ("both-splits", 3, 300, 16, 3, 3, "shared")]
+
+
 def check_tpe_kernels(dev, reps_main: int):
-    """Phase 2, TPE suite: both kernels against their plain versions at the
-    fleet shape (B 64, S 16,800, na 256 with 200 live rows, d 6; every live
-    row weighted, as on the ask path), a ragged small shape (S 257, d 11,
-    masked rows) and a large bucket (na 4096, sixteen row tiles per
-    dimension).  Returns per-kernel records (worst error over all shapes;
-    times and bound at the fleet shape)."""
-    shapes = [("fleet", FLEET["B"], 16800, 256, 200, 6, False),
-              ("ragged", 3, 257, 24, 17, 11, True),
-              ("large-bucket", 4, 3000, 4096, 4000, 6, False)]
+    """Phase 2, TPE suite: both kernels against their plain versions at
+    ``TPE_KERNEL_SHAPES``, each shape run twice and required bitwise equal.
+    Returns per-kernel records (worst error over all shapes; times and
+    bound at the fleet shape)."""
     worst = {"tpe_scores": 0.0, "parzen_logdens": 0.0}
     recs = {}
-    for tag, B, S, na, n_live, d, holes in shapes:
-        errs, g = tpe_kernel_errors(B, S, na, n_live, d, dev, holes=holes)
+    for tag, B, S, na, n_live, d, kind in TPE_KERNEL_SHAPES:
+        errs, g = tpe_kernel_errors(B, S, na, n_live, d, dev, kind=kind)
         torch.cuda.synchronize()
         for name, (err, tol) in errs.items():
             ok = err <= tol
@@ -629,6 +643,11 @@ def check_tpe_kernels(dev, reps_main: int):
             if not ok:
                 raise AssertionError(f"{tag} {name} outside tolerance")
             worst[name] = max(worst[name], err)
+        check_deterministic(
+            f"tpe {tag} (tpe_scores, parzen_logdens)",
+            lambda: (tpe_ops.tpe_scores(*g["tpe"], d_true=d),
+                     tpe_ops.parzen_logdens_bank(*g["parzen"], d_true=d)),
+            "kernels")
         reps = reps_main if tag == "fleet" else 5
         for name, args, kern, plain in (
                 ("tpe_scores", g["tpe"], tpe_ops.tpe_scores,
@@ -2363,6 +2382,11 @@ def main(argv) -> int:
     log("[setup] ssm_scan backward dynamic shared memory per block at N "
         "8/16/32: " + "/".join(str(ssm_lib.ssm_scan_bwd_smem_bytes(n))
                                for n in (8, 16, 32)) + " bytes")
+    log("[setup] TPE kernels at R candidates per thread (registers per "
+        "thread, spill bytes per thread, static shared memory bytes per "
+        "block): "
+        + ", ".join(f"{name} {a}" for name, a in
+                    tpe_ops.kernel_attrs().items()))
     log("[setup] score_cov kernels (registers per thread, spill bytes per "
         "thread, static shared memory bytes per block): "
         + ", ".join(f"{name} {a}" for name, a in ops.kernel_attrs().items()))

@@ -5,7 +5,7 @@ at first use, see ``repro_torch.kernels.build``); a CPU tensor runs the plain
 version in ``ref``.  Nothing falls back: a CUDA call that cannot build or
 launch raises.  ``launches`` counts kernel launches per wrapper (CPU calls
 leave it alone), so a run can show that its main path went through the
-kernels.
+kernels; ``kernel_attrs`` reports each kernel's registers and shared memory.
 
 ``parzen_logdens`` is the numpy-facing counterpart of the JAX package's
 ``repro.kernels.tpe_kde.ops.parzen_logdens``: it pads unpadded inputs and
@@ -29,22 +29,46 @@ from repro_torch.kernels.tpe_kde import ref
 SOURCES = (Path(__file__).resolve().parent / "csrc" / "tpe_kde.cu",)
 
 launches = {"tpe_scores": 0, "parzen_logdens": 0}
+CANDIDATES_PER_THREAD = (8, 4, 2, 1)   # the kernels' instantiations
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 
 
 def library() -> ctypes.CDLL:
-    lib = build.load("tpe_kde", SOURCES)
+    return bind(build.load("tpe_kde", SOURCES))
+
+
+def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Declare the C interface's argument types on a built library (also one
+    built from another tree's source, to compare kernels in one process)."""
     if not getattr(lib, "_typed", False):
         lib.tpe_scores.argtypes = [_P] * 8 + [_I] * 5 + [_P]
         lib.tpe_scores.restype = _I
         lib.tpe_parzen_logdens.argtypes = [_P] * 6 + [_I] * 5 + [_P]
         lib.tpe_parzen_logdens.restype = _I
+        lib.tpe_kde_attrs.argtypes = [_I, _I, _P]
+        lib.tpe_kde_attrs.restype = _I
         lib.tpe_error_string.argtypes = [_I]
         lib.tpe_error_string.restype = ctypes.c_char_p
         lib._typed = True
     return lib
+
+
+def kernel_attrs() -> dict:
+    """What each TPE kernel takes on the card at each count of candidates
+    per thread R: {"<kernel> R=<r>": (registers per thread, local-memory
+    bytes per thread (spills), static shared memory per block)}, from
+    ``cudaFuncGetAttributes``."""
+    lib = library()
+    out = (ctypes.c_int * 3)()
+    attrs = {}
+    for parzen, name in enumerate(("tpe_scores", "parzen_logdens")):
+        for r in CANDIDATES_PER_THREAD:
+            _raise_on(lib, lib.tpe_kde_attrs(parzen, r, out),
+                      f"{name} attributes")
+            attrs[f"{name} R={r}"] = tuple(out)
+    return attrs
 
 
 def pad_dims(d: int) -> int:

@@ -20,7 +20,11 @@ streaming the candidates in chunks, as the JAX package's oracle does, so a
 fleet-sized call never builds gigabytes on the CPU.
 
 These are what a wrapper in ``ops`` runs for a CPU tensor, and what the CUDA
-kernels are held against on the card.
+kernels are held against on the card.  ``tpe_scores_rowseq`` and
+``parzen_logdens_rowseq`` write out the CUDA kernel's own arithmetic, row by
+row in float32, in two layouts: ``compacted=False`` adds every live row into
+every sum, as the first CUDA design did, and ``compacted=True`` adds only the
+rows of each split's list, as the kernel does now.
 """
 from __future__ import annotations
 
@@ -85,3 +89,74 @@ def parzen_logdens_ref(cands, pts, w, scal, n_live, *, d_true: int):
         dens = (torch.exp(-d2 * inv2) * w).sum(2) * inv_n + 1e-12
         out[:, sl] = torch.log(dens).sum(-1)
     return out
+
+
+def fmaf32(x, y, z):
+    """fmaf(x, y, z) on float32 tensors: the product is exact in float64 and
+    the sum is rounded to float64, then to float32.  Where x * y is itself a
+    float32 (x in {0, 1}) that is one rounding of the sum, since float64 has
+    more than 2 x 24 + 2 bits; otherwise the double rounding may differ from
+    fmaf in the last bit."""
+    return (x.double() * y.double() + z.double()).float()
+
+
+def _rows_sum(c, x, a, w, rows):
+    """fmaf(w_i, exp(-(c - x_i)^2 a_i), sum) for i in ``rows``, in order:
+    c (S, d); x, a (n, d); w (n,).  Returns the (S, d) sums."""
+    acc = torch.zeros_like(c)
+    for i in rows:
+        d = c - x[i]
+        acc = fmaf32(w[i], torch.exp(-(d * d) * a[i]), acc)
+    return acc
+
+
+def _rowseq(cands, pts, a, ws, scal, n_live, d_true, compacted):
+    """The kernels' sums and tails: ``ws`` holds one (B, na) weight per
+    density (tpe: good, bad; parzen: w), ``scal[:, l]`` density l's 1/n."""
+    B, S, _ = cands.shape
+    out = torch.empty((B, S), dtype=torch.float32)
+    floor = torch.tensor(1e-12, dtype=torch.float32)
+    for b in range(B):
+        n = max(0, min(int(n_live[b]), pts.shape[1]))
+        c = cands[b, :, :d_true]
+        x, ab = pts[b, :n, :d_true], a[b, :n, :d_true]
+        w = [wl[b, :n] for wl in ws]
+        if compacted:          # each split's list: its rows with w != 0
+            sums = [_rows_sum(c, x, ab, wl, torch.nonzero(wl).flatten())
+                    for wl in w]
+        else:                  # every live row, one exp into every sum
+            sums = [torch.zeros_like(c) for _ in w]
+            for i in range(n):
+                d = c - x[i]
+                e = torch.exp(-(d * d) * ab[i])
+                sums = [fmaf32(wl[i], e, acc) for wl, acc in zip(w, sums)]
+        logs = [torch.log(fmaf32(acc, scal[b, l], floor))
+                for l, acc in enumerate(sums)]
+        score = torch.zeros(S, dtype=torch.float32)
+        for j in range(d_true):
+            term = logs[0][:, j]
+            if len(logs) == 2:
+                term = term - logs[1][:, j]
+            score = score + term
+        out[b] = score
+    return out
+
+
+def tpe_scores_rowseq(cands, pts, a, wg, wb, scal, n_live, *, d_true: int,
+                      compacted: bool):
+    """(B, S) ``tpe_scores`` as the CUDA kernel computes it, on the CPU in
+    float32: per dim, each density's sum over its rows in ascending order,
+    one fmaf(w_i, exp(-(d*d) * a_ij), sum) a row, then
+    logf(fmaf(sum_g, 1/n_g, 1e-12)) - logf(fmaf(sum_b, 1/n_b, 1e-12))
+    added over the dims in order.  Arguments as ``tpe_scores_ref``."""
+    return _rowseq(cands, pts, a, (wg, wb), scal, n_live, d_true, compacted)
+
+
+def parzen_logdens_rowseq(cands, pts, w, scal, n_live, *, d_true: int,
+                          compacted: bool):
+    """(B, S) ``parzen_logdens`` as the CUDA kernel computes it: one list,
+    every row's scale the study's 1/(2 bw^2).  Arguments as
+    ``parzen_logdens_ref``."""
+    a = scal[:, 0, None, None].expand(pts.shape)
+    return _rowseq(cands, pts, a, (w,), scal[:, 1:], n_live, d_true,
+                   compacted)

@@ -541,12 +541,15 @@ def test_tpe_ask_without_a_card_raises_unless_cpu_is_asked():
 
 # ------------------------------------------------------------- the card
 @pytest.mark.cuda
-@pytest.mark.parametrize("B,S,na,n_live,d,holes", [
-    (3, 257, 24, 17, 11, True),       # ragged S, masked rows, dp 16
-    (8, 16800, 256, 200, 6, False),   # the fleet's per-study shape
-    (2, 3000, 4096, 4000, 6, False),  # sixteen row tiles per dimension
+@pytest.mark.parametrize("B,S,na,n_live,d,kind", [
+    (3, 257, 24, 17, 11, "holes"),    # ragged S, masked rows, dp 16
+    (8, 16800, 256, 200, 6, "ask"),   # the fleet's per-study shape
+    (16, 16800, 256, 200, 6, "ask"),  # R 2 candidates a thread (132 SMs)
+    (24, 16800, 256, 200, 6, "ask"),  # R 4 (the fleet runs 8, one study 1)
+    (2, 3000, 4096, 4000, 6, "ask"),  # sixteen row tiles per dimension
+    (3, 300, 16, 3, 3, "shared"),     # fractional weights, a row in both
 ])
-def test_cuda_tpe_kernels_match_plain_versions(B, S, na, n_live, d, holes):
+def test_cuda_tpe_kernels_match_plain_versions(B, S, na, n_live, d, kind):
     """Both CUDA kernels against their plain versions on the card, with
     the tolerance ``chip_smoke.tpe_kernel_errors`` states; each launch is
     counted once."""
@@ -554,7 +557,7 @@ def test_cuda_tpe_kernels_match_plain_versions(B, S, na, n_live, d, holes):
         pytest.skip("needs a CUDA device")
     n0 = dict(ops.launches)
     errs, _ = chip_smoke.tpe_kernel_errors(B, S, na, n_live, d,
-                                           torch.device("cuda"), holes=holes)
+                                           torch.device("cuda"), kind=kind)
     torch.cuda.synchronize()
     assert ops.launches == {k: v + 1 for k, v in n0.items()}
     for name, (err, tol) in errs.items():
