@@ -81,7 +81,29 @@ Phases:
      11's tolerances;
  15. the cut jamba served in bf16 (B 2, a 1024-token prompt, 16 tokens):
      one scan launch per Mamba layer and one flash launch in prefill, none
-     in decode; then the reduced fp32 jamba's logits card vs CPU.
+     in decode; then the reduced fp32 jamba's logits card vs CPU;
+ 16. whisper-large-v3 served at full width and depth in bf16 (B 8, 1500
+     stub frames, a 64-token prompt, 64 tokens): 96 flash launches in
+     prefill (32 encoder layers, 32 decoder self- and 32 cross-attentions),
+     none in decode;
+ 17. whisper-large-v3 trained at full width and depth, bf16, B 4, 1500
+     frames, S 448, four AdamW steps: finite losses and grad norms, 96
+     flash forward and 96 backward launches per step, peak memory below
+     76 GiB;
+ 18. the reduced whisper trained 5 fp32 steps on the card, each step also
+     on the CPU from a copy of the card's state (phase 11's tolerances);
+     then fp32 logits card vs CPU of whisper at full width cut to 4
+     encoder + 4 decoder layers (B 2, 1500 frames, a 64-token prompt);
+ 19. clustering: phase 3's fleet with ``optimizer="clustering"``, three
+     rounds, ``score_cov`` once per ask; a mixed fleet of 22 GP, 21 TPE and
+     21 clustering studies, one round, every family's kernels launching;
+     phase 7's card-vs-CPU parity on the clustering fleet, near-ties
+     judged by a float64 replay of the pick; ``Tuner(optimizer=
+     "clustering")`` batch 5 on phase 6's mixed Branin.
+
+The kernels line's ``launches`` add up each kernel's launches over the
+main paths that run it (flash: phases 8, 13, 16 and 17; ``score_cov``:
+phases 3 and 19).
 
 The second-to-last line is a JSON object with one entry per kernel; the last
 line is ``{"ok": true, "device": {...}}``.  Any failure exits non-zero before
@@ -299,6 +321,102 @@ def top_b_oracle(score):
         acq[list(prev)] = -np.inf
         return acq
     return oracle
+
+
+# the clustering pick's near-ties, judged by its float64 replay: at the
+# top-set boundary and at a cluster's pick, the acquisition gap over the
+# surface's largest magnitude (NEAR_TIE, the GP pick's margin); at a
+# seeding choice, the draw's distance to the nearest cumulative-weight
+# edge over the total (NEAR_TIE: a float32 sum of n_top = 3,360 weights,
+# in XLA's, cuBLAS's or torch's order, moves an edge by up to n_top x
+# 2^-24 = 2e-4 of it); at a Lloyd or final assignment, a point's two
+# nearest centers' squared distances, their gap over the larger (1e-5:
+# ~100 float32 ulps of the distance, the centers being float32 weighted
+# means)
+CLUSTER_TIES = {"top": NEAR_TIE, "seed": NEAR_TIE, "assign": 1e-5,
+                "pick": NEAR_TIE}
+
+
+def cluster_replay(acq, C, n, n_top, u, iters=10):
+    """The clustering pick of one study in float64 (``gp.bank_cluster_pick``
+    on the surface ``acq`` (S,), the raw candidate rows C (S, d), the
+    k-means uniforms u (n,)): returns (picks, the smallest margin of each
+    kind of decision, keyed as ``CLUSTER_TIES``)."""
+    acq = np.asarray(acq, np.float64)
+    C = np.asarray(C, np.float64)
+    S = len(acq)
+    scale = max(float(np.abs(acq).max()), 1e-12)
+    order = np.argsort(-acq, kind="stable")
+    top = order[:n_top]
+    m = {k: np.inf for k in CLUSTER_TIES}
+    if n_top < S:
+        m["top"] = (acq[top[-1]] - acq[order[n_top]]) / scale
+    tv = acq[top]
+    w = tv - tv[-1] + 1e-6
+    X = C[top]
+
+    def choice(p, ui):
+        cum = np.cumsum(p)
+        r = cum[-1] * (1.0 - float(ui))
+        i = min(int(np.searchsorted(cum, r, side="left")), len(p) - 1)
+        lo = cum[i - 1] if i else 0.0
+        m["seed"] = min(m["seed"], min(r - lo, cum[i] - r) / cum[-1])
+        return i
+
+    def assign(centers):
+        d2 = ((X[:, None, :] - centers[None]) ** 2).sum(-1)
+        two = np.sort(d2, axis=1)[:, :2]
+        gap = (two[:, 1] - two[:, 0]) / np.maximum(two[:, 1], 1e-300)
+        m["assign"] = min(m["assign"], float(gap.min()))
+        return np.argmin(d2, axis=1)
+
+    centers = np.zeros((n, C.shape[1]))
+    centers[0] = X[choice(w / max(w.sum(), 1e-9), u[0])]
+    d2min = ((X - centers[0]) ** 2).sum(-1)
+    for i in range(1, n):
+        probs = d2min * w
+        tot = probs.sum()
+        probs = probs / tot if tot > 0 else np.full(len(w), 1.0 / len(w))
+        c = X[choice(probs, u[i])]
+        centers[i] = c
+        d2min = np.minimum(d2min, ((X - c) ** 2).sum(-1))
+    for _ in range(iters):
+        a = assign(centers)
+        for c in range(n):
+            wc = w[a == c]
+            if wc.sum() > 0:
+                centers[c] = (wc[:, None] * X[a == c]).sum(0) / wc.sum()
+    a = assign(centers)
+    picked = np.zeros(n_top, bool)
+    picks = []
+    for c in range(n):
+        sel = (a == c) & ~picked
+        if not sel.any():
+            sel = ~picked
+        vals = np.where(sel, tv, -np.inf)
+        j = int(np.argmax(vals))
+        if sel.sum() > 1:
+            two = np.sort(vals)[-2:]
+            m["pick"] = min(m["pick"], (two[1] - two[0]) / scale)
+        picked[j] = True
+        picks.append(int(top[j]))
+    return picks, m
+
+
+# the clustering head alone on one float32 surface, card vs CPU: only the
+# order of float32 sums differs (the seeding's cumulative weights, the
+# centers' weighted sums, the distances' six-term sums), so only margins of
+# that order excuse a difference: 1e-5 of the cumulative total at a
+# seeding choice (two orders of a 3,360-term float32 scan part by
+# ~sqrt(n) 2^-24 = 3.5e-6), 1e-5 relative at an assignment; the top set
+# and the picks compare equal float32 values on both devices (-1: never)
+HEAD_TIES = {"top": -1.0, "seed": 1e-5, "assign": 1e-5, "pick": -1.0}
+
+
+def cluster_near_tie(margins, ties=CLUSTER_TIES) -> bool:
+    """Whether a replay's margins show a near-tie that may part two pick
+    sequences (``CLUSTER_TIES``, or ``HEAD_TIES``)."""
+    return any(margins[k] <= tol for k, tol in ties.items())
 
 
 # --------------------------------------------------------------------------- #
@@ -684,7 +802,8 @@ def check_tpe_kernels(dev, reps_main: int):
 # cross-attention shape, each of the last two in fp32 (the FMA kernel) and
 # bf16 (the tensor-core kernel), causal Sq < Sk at a reduced head size and
 # MQA at hd 128 in bf16, and whisper-large-v3's encoder (1500 frames, 20
-# heads of 64, non-causal)
+# heads of 64, non-causal) and decoder cross-attention (a 64-token prompt
+# over the 1500 frames, phase 16's batch)
 FLASH_SHAPES = [
     ("smollm-135m prefill", 8, 1024, 1024, 9, 3, 64, True, torch.bfloat16),
     ("phi3-mini-3.8b prefill", 4, 2048, 2048, 32, 32, 96, True,
@@ -697,6 +816,8 @@ FLASH_SHAPES = [
     ("rect causal hd 24 bf16", 2, 77, 300, 4, 2, 24, True, torch.bfloat16),
     ("mqa hd 128 bf16", 1, 300, 300, 8, 1, 128, True, torch.bfloat16),
     ("whisper-large-v3 encoder", 2, 1500, 1500, 20, 20, 64, False,
+     torch.bfloat16),
+    ("whisper-large-v3 cross", 8, 64, 1500, 20, 20, 64, False,
      torch.bfloat16),
 ]
 FLASH_MAIN = "phi3-mini-3.8b prefill"   # the shape of the kernels line
@@ -1197,7 +1318,10 @@ def check_ssm_kernels(dev, reps_main: int):
 # --------------------------------------------------------------------------- #
 # jamba's attention layer in training (B 1, S 2048, 32 heads over 8 KV
 # heads of 128, bf16), phi3-mini's prefill shape, a ragged length and a
-# head size of 16
+# head size of 16, a non-causal cross shape, and whisper-large-v3 in
+# training (phase 17): its encoder (1500 x 1500 frames) and its decoder's
+# cross-attention (448 tokens over 1500 frames), non-causal at hd 64,
+# 1500 ragged against every tile
 FLASH_BWD_SHAPES = [
     ("jamba attention", 1, 2048, 2048, 32, 8, 128, True, torch.bfloat16),
     ("phi3-mini-3.8b prefill", 4, 2048, 2048, 32, 32, 96, True,
@@ -1207,6 +1331,10 @@ FLASH_BWD_SHAPES = [
     ("ragged causal bf16", 2, 1000, 1000, 9, 3, 64, True, torch.bfloat16),
     ("hd 16 bf16", 2, 300, 300, 4, 2, 16, True, torch.bfloat16),
     ("cross, non-causal bf16", 2, 77, 300, 4, 2, 32, False, torch.bfloat16),
+    ("whisper-large-v3 encoder bf16", 4, 1500, 1500, 20, 20, 64, False,
+     torch.bfloat16),
+    ("whisper-large-v3 cross bf16", 4, 448, 1500, 20, 20, 64, False,
+     torch.bfloat16),
 ]
 FLASH_BWD_MAIN = "jamba attention"
 # small shapes for the card test (tests/test_torch_models.py), each kind in
@@ -1826,6 +1954,163 @@ def profile_jamba_train(dev):
 
 
 # --------------------------------------------------------------------------- #
+# whisper-large-v3 served and trained (phases 16-18)
+# --------------------------------------------------------------------------- #
+WHISPER = "whisper-large-v3"
+# full width and depth, bf16: 1500 stub frames per sequence
+WHISPER_SERVE = dict(batch=8, prompt=64, gen=64)
+WHISPER_TRAIN = dict(batch=4, seq=448, steps=4)
+WHISPER_MEM_GIB = 76.0
+# fp32 card-vs-CPU training on the reduced config (2 encoder + 2 decoder
+# layers, d 64, 16 frames) with phase 11's tolerances, a ragged length
+WHISPER_PARITY = dict(batch=4, seq=130, steps=5)
+# fp32 logits card vs CPU at full width, depth cut to 4 + 4 layers, so that
+# the fp32 flash kernel meets hd 64 and 1500 keys
+WHISPER_SERVE_PARITY = dict(arch=WHISPER, B=2, P=64, gen=8, layers=4)
+
+
+def whisper_cut(layers):
+    """whisper-large-v3 at full width with ``layers`` encoder and
+    ``layers`` decoder layers."""
+    import dataclasses
+    return dataclasses.replace(get_config(WHISPER), n_layers=layers,
+                               encoder_layers=layers)
+
+
+def flash_per_prefill(cfg):
+    """Flash forward launches of one prefill (or one training forward):
+    one per self-attention layer, per cross-attention and per encoder
+    layer."""
+    return (_mixers(cfg, "attn") + cfg.encoder_layers
+            + sum(spec.cross_attn for spec in layer_specs(cfg)))
+
+
+def whisper_serve_path(dev):
+    """Phase 16: whisper-large-v3 served at full width and depth in bf16
+    through ``launch.serve.run`` (stub frames from the seed's stream): the
+    flash forward launches once per encoder layer, decoder self-attention
+    and cross-attention in prefill (96), never in decode.  Returns the
+    prefill's launches."""
+    cfg = get_config(WHISPER)
+    T = WHISPER_SERVE
+    args = serve.make_parser().parse_args(
+        ["--arch", WHISPER, "--batch", str(T["batch"]), "--prompt-len",
+         str(T["prompt"]), "--gen", str(T["gen"])])
+    torch.cuda.reset_peak_memory_stats(dev)
+    _reset(flash_ops.launches)
+    r = serve.run(args)
+    mem = torch.cuda.max_memory_allocated(dev)
+    want = flash_per_prefill(cfg)
+    log(f"[whisper-serve] {WHISPER} bf16 B={T['batch']} frames="
+        f"{cfg.encoder_seq} prompt={T['prompt']} gen={T['gen']}: prefill "
+        f"{r['prefill_s'] * 1e3:.2f} ms, decode {r['decode_s'] * 1e3:.2f} ms "
+        f"for {T['gen'] - 1} steps ({r['decode_tok_s']:.1f} tokens/s, host "
+        f"clock, synchronized), peak memory {mem / 2**30:.2f} GiB, flash "
+        f"launches {r['flash_launches']} (expected {want} in prefill), "
+        f"generated {r['generated_shape']}, sample {r['sample']}")
+    if r["flash_launches"] != {"prefill": want, "decode": 0} or \
+            flash_ops.launches["flash_attention"] != want:
+        raise AssertionError("whisper prefill missed a flash launch, or "
+                             "decode launched one")
+    if not r["logits_finite"] or r["generated_shape"] != [T["batch"],
+                                                          T["gen"]]:
+        raise AssertionError("whisper: non-finite logits or wrong shape")
+    torch.cuda.empty_cache()
+    return want
+
+
+def whisper_train_path(dev):
+    """Phase 17: whisper-large-v3 at full width and depth, bf16, through
+    ``launch.train.run`` (frames from ``train.frames_at``).  The flash
+    counters are set to 0 just before the run and read just after: each
+    step launches the forward and the backward kernel 96 times (32 encoder
+    layers, 32 decoder self-attentions, 32 cross-attentions).  Losses and
+    grad norms finite, peak memory below ``WHISPER_MEM_GIB``.  Returns the
+    counts."""
+    cfg = get_config(WHISPER)
+    T = WHISPER_TRAIN
+    per = flash_per_prefill(cfg)
+    args = train.make_parser().parse_args(
+        ["--arch", WHISPER, "--batch", str(T["batch"]), "--seq",
+         str(T["seq"]), "--steps", str(T["steps"]), "--remat", "none",
+         "--print-every", "1"])
+    _reset(flash_ops.launches)
+    r = train.run(args)
+    counts = dict(flash_ops.launches)
+    toks = T["batch"] * T["seq"]
+    for i, (loss, gn, st, n) in enumerate(zip(
+            r["losses"], r["grad_norms"], r["step_s"], r["flash_launches"])):
+        log(f"[whisper-train] {WHISPER} bf16 B={T['batch']} S={T['seq']} "
+            f"frames={cfg.encoder_seq} step {i}: loss {loss:.5f} grad_norm "
+            f"{gn:.4f} step {st * 1e3:.1f} ms ({toks / st:.0f} decoder "
+            f"tokens/s, host clock, synchronized), flash launches {n}")
+        if not (math.isfinite(loss) and math.isfinite(gn)):
+            raise AssertionError("non-finite loss or grad norm")
+        if n != {"forward": per, "backward": per}:
+            raise AssertionError(f"step {i}: flash launches {n}, expected "
+                                 f"{per} each way")
+    steady = r["step_s"][1:] or r["step_s"]
+    log(f"[whisper-train] {r['n_params']:,} parameters; steps after the "
+        f"first: {1e3 * sum(steady) / len(steady):.1f} ms mean "
+        f"({toks * len(steady) / sum(steady):.0f} decoder tokens/s); peak "
+        f"memory {r['peak_mem_gib']:.2f} GiB (limit {WHISPER_MEM_GIB}); "
+        f"launches in the run {counts}")
+    if counts != {"flash_attention": per * T["steps"],
+                  "flash_attention_bwd": per * T["steps"]}:
+        raise AssertionError(f"main path launches {counts}")
+    if not r["peak_mem_gib"] < WHISPER_MEM_GIB:
+        raise AssertionError(f"peak memory {r['peak_mem_gib']:.2f} GiB")
+    del r
+    torch.cuda.empty_cache()
+    return counts
+
+
+def whisper_parity_path(dev):
+    """Phase 18: the reduced whisper trained ``WHISPER_PARITY["steps"]``
+    fp32 steps on the card, each step also run on the CPU plain path from a
+    copy of the card's state, with phase 11's tolerances; every card step
+    runs the flash forward and backward (fp32 kernels) once per encoder
+    layer, self- and cross-attention.  Then the fp32 logits of whisper at
+    full width cut to 4 + 4 layers, card vs CPU (``serve_parity_path``)."""
+    cfg = get_config(WHISPER, reduced=True)
+    B, S = WHISPER_PARITY["batch"], WHISPER_PARITY["seq"]
+    n = WHISPER_PARITY["steps"]
+    rt = Runtime(param_dtype=torch.float32, compute_dtype=torch.float32,
+                 ce_chunk=min(S, 512), remat_policy="none")
+    hyper = TrainHyper(opt=AdamWConfig(lr=3e-3, warmup_steps=2,
+                                       total_steps=n))
+    state_gpu = init_train_state(torch.Generator(device=dev).manual_seed(0),
+                                 cfg, rt)
+    data = SyntheticLM(DataConfig(vocab_size=cfg.vocab_size, seq_len=S,
+                                  global_batch=B, seed=1234))
+    step = make_train_step(cfg, rt, hyper)
+    _reset(flash_ops.launches)
+    bad = []
+    for s in range(n):
+        batch = dict(data.batch_at(s), frames=train.frames_at(1234, s, B,
+                                                              cfg))
+        cpu_batch = {k: torch.as_tensor(a) for k, a in batch.items()}
+        state_cpu = _copy_to(state_gpu, torch.device("cpu"))
+        state_cpu, m_cpu = step(state_cpu, cpu_batch)
+        state_gpu, m_gpu = step(state_gpu, {
+            k: torch.as_tensor(a, device=dev) for k, a in batch.items()})
+        row = _step_rows(s, m_gpu, m_cpu, state_gpu, state_cpu, bad)
+        log(f"[whisper-parity] step {s}: " + ", ".join(row))
+    per = flash_per_prefill(cfg) * n
+    counts = dict(flash_ops.launches)
+    log(f"[whisper-parity] reduced {cfg.name} fp32 B={B} S={S} frames="
+        f"{cfg.encoder_seq}, {n} steps: outside tolerance {bad}, launches "
+        f"{counts}")
+    if bad:
+        raise AssertionError("card and CPU training disagree")
+    if counts != {"flash_attention": per, "flash_attention_bwd": per}:
+        raise AssertionError("the card's steps missed a flash launch")
+    del state_gpu
+    torch.cuda.empty_cache()
+    serve_parity_path(dev, WHISPER_SERVE_PARITY)
+
+
+# --------------------------------------------------------------------------- #
 # serving (phases 8-9)
 # --------------------------------------------------------------------------- #
 # (arch, batch, prompt length, generated tokens), bf16, full width and depth
@@ -1874,13 +2159,16 @@ def serve_path(dev):
     return total
 
 
-def _greedy(params, tokens, cfg, rt, steps, forced=None):
-    """Prefill, then ``steps`` greedy decode steps; feeds ``forced`` (B,
-    steps) tokens instead of its own picks where given.  Returns the
-    logits (steps + 1, B, V) as float64 numpy and the picks (steps + 1,
-    B)."""
+def _greedy(params, tokens, cfg, rt, steps, forced=None, frames=None):
+    """Prefill (over whisper's ``frames`` where given), then ``steps``
+    greedy decode steps; feeds ``forced`` (B, steps) tokens instead of its
+    own picks where given.  Returns the logits (steps + 1, B, V) as
+    float64 numpy and the picks (steps + 1, B)."""
     B, P = tokens.shape
-    logits, cache = forward_prefill(params, {"tokens": tokens}, cfg, rt,
+    batch = {"tokens": tokens}
+    if frames is not None:
+        batch["frames"] = frames
+    logits, cache = forward_prefill(params, batch, cfg, rt,
                                     cache_size=P + steps)
     out = [logits]
     for i in range(steps):
@@ -1893,29 +2181,37 @@ def _greedy(params, tokens, cfg, rt, steps, forced=None):
 
 
 def serve_parity_path(dev, spec=PARITY):
-    """Phase 9 (and phase 15's second half): an fp32 config (``spec``:
-    smollm-135m at full width and depth, or the reduced jamba) from the
-    same generator-made parameters on the card and on the CPU plain path.
-    The CPU decodes greedily; the card is fed the CPU's picks, so both
-    compute on the same tokens at every step.  The card's prefill launches
-    the flash kernel once per attention layer and the scan kernel once per
-    Mamba layer.  Logits must agree within LOGIT_TOL and the card's picks
-    equal the CPU's except on near-ties."""
-    cfg = get_config(spec["arch"], reduced=spec.get("reduced", False))
+    """Phase 9 (and the second half of phases 15 and 18): an fp32 config
+    (``spec``: smollm-135m at full width and depth, the reduced jamba, or
+    whisper at full width cut to ``spec["layers"]`` + ``spec["layers"]``
+    layers over stub frames) from the same generator-made parameters on the
+    card and on the CPU plain path.  The CPU decodes greedily; the card is
+    fed the CPU's picks, so both compute on the same tokens at every step.
+    The card's prefill launches the flash kernel once per attention layer
+    (``flash_per_prefill``) and the scan kernel once per Mamba layer.
+    Logits must agree within LOGIT_TOL and the card's picks equal the
+    CPU's except on near-ties."""
+    cfg = (whisper_cut(spec["layers"]) if "layers" in spec else
+           get_config(spec["arch"], reduced=spec.get("reduced", False)))
     rt = Runtime(param_dtype=torch.float32, compute_dtype=torch.float32)
     params = init_params(torch.Generator(device=dev).manual_seed(0), cfg, rt)
     params_cpu = _copy_to(params, torch.device("cpu"))
     B, P, steps = spec["B"], spec["P"], spec["gen"] - 1
     tokens = torch.as_tensor(np.random.default_rng(0).integers(
         0, cfg.vocab_size, (B, P), dtype=np.int32))
+    frames = (torch.as_tensor(np.random.default_rng(1).standard_normal(
+        (B, cfg.encoder_seq, cfg.d_model), dtype=np.float32))
+        if cfg.encoder_layers else None)
     t0 = time.perf_counter()
-    lg_cpu, pick_cpu = _greedy(params_cpu, tokens, cfg, rt, steps)
+    lg_cpu, pick_cpu = _greedy(params_cpu, tokens, cfg, rt, steps,
+                               frames=frames)
     t_cpu = time.perf_counter() - t0
     _reset(flash_ops.launches, ssm_ops.launches)
-    lg_gpu, pick_gpu = _greedy(params, tokens.to(dev), cfg, rt, steps,
-                               forced=torch.as_tensor(pick_cpu[:steps].T,
-                                                      device=dev))
-    if flash_ops.launches["flash_attention"] != _mixers(cfg, "attn") or \
+    lg_gpu, pick_gpu = _greedy(
+        params, tokens.to(dev), cfg, rt, steps,
+        forced=torch.as_tensor(pick_cpu[:steps].T, device=dev),
+        frames=None if frames is None else frames.to(dev))
+    if flash_ops.launches["flash_attention"] != flash_per_prefill(cfg) or \
             ssm_ops.launches["ssm_scan"] != _mixers(cfg, "mamba"):
         raise AssertionError("the card's prefill missed a kernel")
     err = float(np.abs(lg_gpu - lg_cpu).max())
@@ -2180,11 +2476,49 @@ def tpe_oracle(bank, led, C, in_flight, b):
         bank.strategy_kwargs.get("gamma", 0.25), in_flight[b]))
 
 
-def parity_path(bank, tag, oracle_for, taken_in_by):
-    """Phase 7: the same fleet ask from one state on the card and on the
-    CPU, each taking in the same batch of in-flight trials
+def oracle_judge(oracle_for):
+    """A ``parity_path`` judge from a ``picks_agree`` oracle maker."""
+    def judge(bank, led, C, in_flight, b, ig, ic):
+        ok, slot = picks_agree(ig, ic, oracle_for(bank, led, C, in_flight,
+                                                  b))
+        return ok, f"from slot {slot}", None
+    return judge
+
+
+def cluster_judge(bank, led, C, in_flight, b, ig, ic):
+    """``parity_path`` judge of a clustering study: the float64 replay of
+    its pick (``cluster_replay``) on the float64 surface with its in-flight
+    trials absorbed, from the k-means uniforms of the ask (seeded by the
+    ask count before it; ``led`` is read after the ask).  A near-tie
+    (``CLUSTER_TIES``) excuses the difference."""
+    from repro_torch.core.kmeans import kmeans_uniforms
+    from repro_torch.core.strategies import n_top_candidates
+    ids = led.obs_ids(b)
+    z = (led.y[b, ids].astype(np.float32) - led.y_mean[b]) / led.y_std[b]
+    acq = bucb_acquisition(led.X[b, ids], z, C[b], np.exp(led.log_ls[b]),
+                           np.exp(led.log_var[b]),
+                           np.exp(led.log_noise[b]) + 1e-5, [],
+                           bank.study(b).domain_size, in_flight[b])
+    n = len(ig)
+    u = kmeans_uniforms(led.ask_count[[b]] - 1, n)[0]
+    n_top = n_top_candidates(C.shape[1], n,
+                             bank.strategy_kwargs.get("top_frac", 0.2))
+    picks, m = cluster_replay(acq, C[b], n, n_top, u)
+    return cluster_near_tie(m), (
+        "float64 replay " + str(picks) + ", margins "
+        + ", ".join(f"{k} {v:.2e} (tol {CLUSTER_TIES[k]:.0e})"
+                    for k, v in m.items())), picks
+
+
+def parity_path(bank, tag, judge, taken_in_by, audit=False):
+    """Phase 7 (and 19): the same fleet ask from one state on the card and
+    on the CPU, each taking in the same batch of in-flight trials
     (``taken_in_by``); picks must agree except on near-ties, judged by
-    ``oracle_for(bank, ledger, C, in_flight, b)``."""
+    ``judge(bank, ledger, C, in_flight, b, card picks, cpu picks)`` ->
+    (near-tie, what it saw, the replay's picks or None).  With ``audit``
+    the judge also replays every study whose picks agree, and the phase
+    prints how many replays see a near-tie and how many of the others
+    pick as the CPU did."""
     n = FLEET["batch"]
     bank.ask_all(n)     # left in flight: the compared ask takes them in
     path = ROOT / "build" / f"chip_smoke_{tag}_fleet.npz"
@@ -2210,23 +2544,150 @@ def parity_path(bank, tag, oracle_for, taken_in_by):
     C = bank.space.encode_columns(cols, FLEET["B"] * n_mc).reshape(
         FLEET["B"], n_mc, -1)
     bad, ties = 0, 0
+    tied, clean, faithful = 0, 0, 0
     for b in range(FLEET["B"]):
         ig, ic = ([int(np.flatnonzero((C[b] == r).all(1))[0])
                    for r in bank.space.encode([t.params for t in got[b]])]
                   for got in (got_gpu, got_cpu))
         if ig == ic:
+            if audit:
+                tie, _, replay = judge(bank, led, C, in_flight, b, ig, ic)
+                tied += tie
+                clean += not tie
+                faithful += (not tie) and replay == ic
             continue
-        ok, slot = picks_agree(ig, ic, oracle_for(bank, led, C, in_flight,
-                                                  b))
+        ok, where, _ = judge(bank, led, C, in_flight, b, ig, ic)
         ties += ok
         bad += not ok
-        log(f"[{tag}-parity] study {b}: picks differ from slot {slot} "
-            f"({'near-tie' if ok else 'DISAGREE'}): cuda {ig} cpu {ic}")
+        log(f"[{tag}-parity] study {b}: picks differ "
+            f"({'near-tie' if ok else 'DISAGREE'}): cuda {ig} cpu {ic}; "
+            f"{where}")
     log(f"[{tag}-parity] studies checked {FLEET['B']}, near-ties {ties}, "
         f"disagreements {bad}")
+    if audit:
+        log(f"[{tag}-parity] audit of the {tied + clean} studies whose "
+            f"picks agree: the float64 replay sees a near-tie in {tied}; "
+            f"of the other {clean}, it picks as the CPU did in {faithful}")
     if bad:
         raise AssertionError(f"{bad} {tag} studies disagree beyond "
                              "near-ties")
+
+
+def cluster_head_parity(bank, dev):
+    """Phase 19: the clustering head alone (``gp.cluster_pick``: top set,
+    k-means, one pick a cluster) on the card and on the CPU from the same
+    float32 surfaces: each fleet study's float64 UCB surface
+    (``bucb_acquisition`` of its observations) over a fresh candidate draw,
+    rounded to float32, with the k-means uniforms of its next ask.  Picks
+    must be equal but at a float32-order near-tie (``HEAD_TIES``) of the
+    float64 replay on that surface.  Also times the head on the card."""
+    from repro_torch.core.kmeans import kmeans_uniforms
+    from repro_torch.core.strategies import n_top_candidates
+    n, B = FLEET["batch"], FLEET["B"]
+    led = bank.ledger
+    n_mc = bank.space.mc_samples(n)
+    cols = bank.space.sample_columns(B * n_mc, np.random.default_rng(11))
+    C = bank.space.encode_columns(cols, B * n_mc).reshape(
+        B, n_mc, -1).astype(np.float32)
+    acq = np.empty((B, n_mc), np.float32)
+    for b in range(B):
+        ids = led.obs_ids(b)
+        z = (led.y[b, ids].astype(np.float32) - led.y_mean[b]) / led.y_std[b]
+        acq[b] = bucb_acquisition(
+            led.X[b, ids], z, C[b], np.exp(led.log_ls[b]),
+            np.exp(led.log_var[b]), np.exp(led.log_noise[b]) + 1e-5, [],
+            bank.study(b).domain_size)
+    u = kmeans_uniforms(led.ask_count, n)
+    n_top = n_top_candidates(n_mc, n, 0.2)
+
+    def args(d):
+        return [torch.as_tensor(a, device=d) for a in (acq, C, u)]
+
+    card_args = args(dev)
+    got = gp_lib.cluster_pick(*card_args, n_top, n).cpu().numpy()
+    want = gp_lib.cluster_pick(*args("cpu"), n_top, n).numpy()
+    ms = cuda_ms(lambda: gp_lib.cluster_pick(*card_args, n_top, n), 5)
+    ties = bad = 0
+    for b in np.nonzero((got != want).any(1))[0]:
+        _, m = cluster_replay(acq[b], C[b], n, n_top, u[b])
+        ok = cluster_near_tie(m, HEAD_TIES)
+        ties += ok
+        bad += not ok
+        log(f"[cluster-head] study {b}: picks differ "
+            f"({'near-tie' if ok else 'DISAGREE'}): cuda {got[b].tolist()} "
+            f"cpu {want[b].tolist()}; margins " + ", ".join(
+                f"{k} {v:.2e}" for k, v in m.items()))
+    log(f"[cluster-head] {B} studies, top set {n_top} of {n_mc}, "
+        f"{n} clusters: picks equal in {B - ties - bad}, near-ties {ties}, "
+        f"disagreements {bad}; the head on the card {ms:.3f} ms (CUDA "
+        "events, top set, k-means and picks for the whole fleet)")
+    if bad:
+        raise AssertionError(f"{bad} studies' cluster heads disagree")
+
+
+def cluster_fleet_path(dev):
+    """Phase 19: the phase-3 fleet with ``optimizer="clustering"``, three
+    rounds of ask_all(4) -> tell, ``score_cov`` launching once per ask and
+    no GP-BUCB downdate; a mixed fleet of 22 GP, 21 TPE and 21 clustering
+    studies, one round, where every family's kernels launch (``score_cov``
+    once for the GP rows and once for the clustering rows); the
+    card-vs-CPU pick parity of phase 7 on the clustering fleet; and the
+    Fig. 3 mixed Branin through ``Tuner(optimizer="clustering")``, batch 5,
+    judged as phase 6 judges GP-BUCB.  Returns the fleet's score_cov
+    launches."""
+    n = FLEET["batch"]
+    bank = seeded_fleet(dev, seed=3, optimizer="clustering")
+    log(f"[cluster] {FLEET['B']} clustering studies x {FLEET['n_obs']} "
+        f"observations, mc_samples={bank.space.mc_samples(n)} per study, "
+        f"batch {n}, top set "
+        f"{max(4 * n, int(bank.space.mc_samples(n) * 0.2))}")
+    _reset(ops.launches)
+    for rnd in range(FLEET["rounds"]):
+        trials, ms = _timed_ask(bank, n)
+        check_picks(trials, n)
+        _tell_all(bank, trials)
+        best = max(max(t.value for t in v.observed_trials())
+                   for v in bank.studies)
+        log(f"[cluster] round {rnd}: ask_all({n}) {ms:.1f} ms (host clock, "
+            f"synchronized), best -Hartmann6 so far {best:.5f}")
+    launches = dict(ops.launches)
+    log(f"[cluster] launches {launches}")
+    if launches != {"score_cov": FLEET["rounds"], "var_downdate": 0}:
+        raise AssertionError(f"clustering asks launched {launches}")
+    third = FLEET["B"] // 3
+    counts = (FLEET["B"] - 2 * third, third, third)    # 22, 21, 21
+    names = sum(([nm] * c for nm, c in zip(
+        ("bayesian", "tpe", "clustering"), counts)), [])
+    mixed = seeded_fleet(dev, seed=4, optimizer=names)
+    _reset(ops.launches, tpe_ops.launches)
+    trials, ms = _timed_ask(mixed, n)
+    check_picks(trials, n)
+    got = {**ops.launches, **tpe_ops.launches}
+    log(f"[cluster-mixed] {counts[0]} bayesian + {counts[1]} tpe + "
+        f"{counts[2]} clustering studies: ask_all({n}) {ms:.1f} ms (host "
+        f"clock, synchronized), launches {got}")
+    if got != {"score_cov": 2, "var_downdate": n - 1, "tpe_scores": 1,
+               "parzen_logdens": 0}:
+        raise AssertionError(f"mixed fleet skipped a family: {got}")
+    del mixed
+    parity_path(bank, "cluster", cluster_judge, "bank_absorb", audit=True)
+    cluster_head_parity(bank, dev)
+    _reset(ops.launches)
+    tuner = Tuner(branin_space(), modified_branin,
+                  dict(optimizer="clustering", batch_size=5,
+                       num_iteration=15, seed=3,
+                       scheduler=SerialScheduler(), device=dev))
+    t0 = time.perf_counter()
+    res = tuner.minimize()
+    torch.cuda.synchronize()
+    log(f"[cluster-tuner] mixed Branin, clustering batch 5 x 15 "
+        f"iterations: best {res.best_objective:.5f} at {res.best_params} "
+        f"({time.perf_counter() - t0:.2f} s, launches {dict(ops.launches)})")
+    assert math.isfinite(res.best_objective)
+    assert len(res.params_tried) == 2 + 5 * 15, len(res.params_tried)
+    if ops.launches["score_cov"] < 1 or ops.launches["var_downdate"]:
+        raise AssertionError(f"clustering Tuner launches {ops.launches}")
+    return launches["score_cov"]
 
 
 def _profiled(fn):
@@ -2412,8 +2873,9 @@ def main(argv) -> int:
     mixed_fleet_path(dev)
     tuner_path(dev)
     fig3_tpe_path(dev)
-    parity_path(bank, "gp", gp_oracle, "bank_absorb")
-    parity_path(tpe_bank, "tpe", tpe_oracle, "joined to the bad split")
+    parity_path(bank, "gp", oracle_judge(gp_oracle), "bank_absorb")
+    parity_path(tpe_bank, "tpe", oracle_judge(tpe_oracle),
+                "joined to the bad split")
     launches["flash_attention"] = serve_path(dev)
     serve_parity_path(dev)
     if "--profile" in argv:
@@ -2436,6 +2898,13 @@ def main(argv) -> int:
     jamba_serve_path(dev)
     if "--profile" in argv:
         profile_jamba_train(dev)
+    torch.cuda.empty_cache()
+    launches["flash_attention"] += whisper_serve_path(dev)
+    counts = whisper_train_path(dev)
+    for name in ("flash_attention", "flash_attention_bwd"):
+        launches[name] += counts[name]
+    whisper_parity_path(dev)
+    launches["score_cov"] += cluster_fleet_path(dev)
     gp_src = "src/repro_torch/kernels/gp_acquisition/csrc/gp_acquisition.cu"
     tpe_src = "src/repro_torch/kernels/tpe_kde/csrc/tpe_kde.cu"
     flash_src = ("src/repro_torch/kernels/flash_attention/csrc/"

@@ -10,8 +10,10 @@ returns the port's tensors under the same names, ready for
 The model stack's state is its parameters and, in training, the AdamW
 moments and step (and the error-feedback buffer).  The JAX package stacks
 each period position's leaves on a leading ``n_periods`` axis under
-``blocks/pos<i>``; the port keeps one dict per layer in the list
-``blocks`` (layer ``p * P + i`` is period ``p``, position ``i``).
+``blocks/pos<i>``, and whisper's encoder leaves on a leading
+``encoder_layers`` axis under ``enc_blocks`` (no ``pos<i>`` level); the
+port keeps one dict per layer in the lists ``blocks`` (layer ``p * P + i``
+is period ``p``, position ``i``) and ``enc_blocks``.
 ``to_jax_layout`` and ``from_jax_layout`` move a tree between the two;
 ``model_params_from_numpy`` and ``train_state_from_numpy`` build the
 port's tensors from the JAX package's arrays, and ``train_state_to_numpy``
@@ -29,7 +31,7 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models.common import Runtime
 from repro_torch.models import mamba, moe, xlstm
-from repro_torch.models.transformer import check_supported, layer_specs
+from repro_torch.models.transformer import layer_specs
 from repro_torch.tree import tree_map
 
 BANK_STATE_KEYS = ("Xs", "z", "mask", "L", "Linv", "ls", "var", "noise")
@@ -49,33 +51,47 @@ def bank_state_from_numpy(arrays: Dict[str, np.ndarray],
 # --------------------------------------------------------------------------- #
 # the stacked (JAX) and per-layer (port) layouts of a parameter tree
 # --------------------------------------------------------------------------- #
+_STACKED = ("blocks", "enc_blocks")
+
+
 def from_jax_layout(tree: Dict[str, Any], cfg: ArchConfig,
                     leaf: Callable = lambda path, a: a) -> Dict[str, Any]:
-    """A JAX-layout tree (``blocks/pos<i>`` leaves stacked over periods) to
-    the port's (``blocks`` a list of per-layer dicts).  ``leaf(path, a)``
-    makes each leaf; ``path`` is its path in the port's tree."""
+    """A JAX-layout tree (``blocks/pos<i>`` leaves stacked over periods,
+    ``enc_blocks`` leaves over encoder layers) to the port's (``blocks``
+    and ``enc_blocks`` lists of per-layer dicts).  ``leaf(path, a)`` makes
+    each leaf; ``path`` is its path in the port's tree."""
     P = len(cfg.period)
+
+    def layer(key, sub, l, i):
+        return tree_map(lambda path, a: leaf(path, np.asarray(a)[i]), sub,
+                        path=(key, l), with_path=True)
+
     out = {k: tree_map(leaf, v, path=(k,), with_path=True)
-           for k, v in tree.items() if k != "blocks"}
-    out["blocks"] = [
-        tree_map(lambda path, a, p=l // P: leaf(path, np.asarray(a)[p]),
-                 tree["blocks"][f"pos{l % P}"], path=("blocks", l),
-                 with_path=True)
-        for l in range(cfg.n_layers)]
+           for k, v in tree.items() if k not in _STACKED}
+    out["blocks"] = [layer("blocks", tree["blocks"][f"pos{l % P}"], l,
+                           l // P) for l in range(cfg.n_layers)]
+    if "enc_blocks" in tree:
+        out["enc_blocks"] = [layer("enc_blocks", tree["enc_blocks"], l, l)
+                             for l in range(cfg.encoder_layers)]
     return out
 
 
 def to_jax_layout(tree: Dict[str, Any], cfg: ArchConfig,
                   leaf: Callable[[Any], np.ndarray]) -> Dict[str, Any]:
     """The port's tree to the JAX layout: ``leaf`` maps each port leaf to a
-    numpy array; block leaves are stacked over the periods."""
+    numpy array; block leaves are stacked over the periods, encoder leaves
+    over the encoder layers."""
     P = len(cfg.period)
-    out = {k: tree_map(leaf, v) for k, v in tree.items() if k != "blocks"}
+
+    def stack(layers):
+        return tree_map(lambda *ls: np.stack([leaf(x) for x in ls]), *layers)
+
+    out = {k: tree_map(leaf, v) for k, v in tree.items()
+           if k not in _STACKED}
     blocks = tree["blocks"]
-    out["blocks"] = {
-        f"pos{i}": tree_map(lambda *ls: np.stack([leaf(x) for x in ls]),
-                            *blocks[i::P])
-        for i in range(P)}
+    out["blocks"] = {f"pos{i}": stack(blocks[i::P]) for i in range(P)}
+    if "enc_blocks" in tree:
+        out["enc_blocks"] = stack(tree["enc_blocks"])
     return out
 
 
@@ -90,7 +106,8 @@ FP32_PARAMS = {("mixer", "mlstm"): xlstm.FP32_PARAMS["mlstm"],
 def param_dtype(path, cfg: ArchConfig, rt: Runtime) -> torch.dtype:
     """The dtype the port keeps a parameter in: ``rt.param_dtype``, except
     the leaves the reference keeps in fp32: the xLSTM gate and recurrent
-    leaves, Mamba's ``dt_bias``, ``A_log`` and ``D``, and the MoE router."""
+    leaves, Mamba's ``dt_bias``, ``A_log`` and ``D``, and the MoE router
+    (whisper's encoder layers have none of these)."""
     if len(path) == 4 and path[0] == "blocks":
         spec = layer_specs(cfg)[path[1]]
         kind = spec.mixer if path[2] == "mixer" else spec.ffn
@@ -122,7 +139,6 @@ def model_params_from_numpy(params_np: Dict[str, Any], cfg: ArchConfig,
     """The port's parameters from the JAX package's ``init_params`` pytree
     with numpy leaves (float32, or bfloat16 as JAX fetches it), each cast to
     the dtype the port keeps it in (``param_dtype``)."""
-    check_supported(cfg)
     dev = resolve_device(device)
     return from_jax_layout(
         params_np, cfg,

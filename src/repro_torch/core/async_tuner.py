@@ -5,8 +5,8 @@ tuner waits for a whole batch before proposing again; with heterogeneous
 trial times, workers idle at every barrier.  ``AsyncTuner`` keeps up to
 ``batch_size`` trials in flight: whenever one completes it is told back to
 the ask/tell core and one replacement trial is asked.  The core hands the
-pending set to the bank pipeline: GP-BUCB absorbs the in-flight rows
-(``gp.bank_absorb``), TPE adds them to the bad split when
+pending set to the bank pipeline: GP-BUCB and clustering absorb the
+in-flight rows (``gp.bank_absorb``), TPE adds them to the bad split when
 ``pending_penalty`` is on.
 
 The event loop blocks on the scheduler's completion condition

@@ -2,7 +2,8 @@
 
 The PyTorch counterpart of the StudyBank half of ``repro.core.gp``: the
 hyperparameter fit (Adam on -log marginal likelihood), the masked Cholesky
-factors, lengthscale prescaling, pending absorption, and the GP-BUCB pick.
+factors, lengthscale prescaling, pending absorption, the GP-BUCB pick and
+the clustering pick.
 Each function takes every study at once along a leading axis B and runs on
 the device its inputs live on.
 
@@ -21,7 +22,7 @@ import math
 
 import torch
 
-from repro_torch.core import scoring
+from repro_torch.core import kmeans, scoring
 from repro_torch.kernels.gp_acquisition import ops, ref
 
 LOG_LS_MIN = math.log(0.01)
@@ -149,3 +150,51 @@ def bank_pick(Cs, Xs, y, mask, L, Linv, var, noise, n_obs_eff, domain_size,
     return scoring.pick_downdate_from_scores(
         Cs, mu, sig2, K, L.clone(), Linv.clone(), var, noise, n_obs_eff,
         domain_size, batch_size)
+
+
+def top_k(x: torch.Tensor, k: int):
+    """``lax.top_k`` along the last axis: the k largest values in
+    descending order, the lower index first among equal values (a stable
+    descending sort; ``torch.topk`` promises no order among ties)."""
+    vals, idx = torch.sort(x, dim=-1, descending=True, stable=True)
+    return vals[..., :k], idx[..., :k]
+
+
+def bank_cluster_pick(Cs, C, Xs, y, mask, Linv, var, noise, n_obs_eff,
+                      domain_size, u, n_top: int,
+                      batch_size: int) -> torch.Tensor:
+    """The clustering strategy (Groves & Pyzer-Knapp 2018) for every study:
+    score every candidate through ``ops.score_cov``, UCB at the ask's
+    observation count ``n_obs_eff``, then ``cluster_pick`` on the raw
+    (unscaled) candidate rows ``C`` (B, S, d).  Returns picked candidate
+    indices (B, batch_size)."""
+    alpha = scoring.kinv_matvec(Linv, y * mask)
+    mu, sig2, _ = ops.score_cov(Cs, Xs, mask, Linv, alpha, var, noise)
+    beta = scoring.adaptive_beta_dev(n_obs_eff, domain_size)
+    acq = mu + torch.sqrt(beta)[:, None] * torch.sqrt(sig2)
+    return cluster_pick(acq, C, u, n_top, batch_size)
+
+
+def cluster_pick(acq, C, u, n_top: int, batch_size: int) -> torch.Tensor:
+    """The clustering head on the surface ``acq`` (B, S): keep the
+    ``n_top`` best (``top_k``), weight them by ``acq - acq[n_top - 1] +
+    1e-6``, cluster their rows of ``C`` (B, S, d) into ``batch_size``
+    clusters (``kmeans.kmeans`` from the per-study uniforms ``u``), and
+    pick each cluster's best not yet picked, falling back to the best of
+    the remaining top set when its cluster has none left.  Returns picked
+    candidate indices (B, batch_size)."""
+    top_vals, top_idx = top_k(acq, n_top)
+    w = top_vals - top_vals[:, n_top - 1:n_top] + 1e-6
+    B = C.shape[0]
+    rows = torch.arange(B, device=C.device)
+    assign = kmeans.kmeans(C[rows[:, None], top_idx], w, u)
+    picked = torch.zeros((B, n_top), dtype=torch.bool, device=C.device)
+    picks = torch.zeros((B, batch_size), dtype=torch.int64,
+                        device=C.device)
+    for c in range(batch_size):
+        in_c = (assign == c) & ~picked
+        sel = torch.where(in_c.any(-1, keepdim=True), in_c, ~picked)
+        j = torch.argmax(torch.where(sel, top_vals, -torch.inf), dim=-1)
+        picked[rows, j] = True
+        picks[:, c] = top_idx[rows, j]
+    return picks

@@ -11,11 +11,12 @@ stable ids behind four calls:
 
 The array-shaped state lives in a ``StudyLedger`` and an optimizer is a view
 into one of its rows (a private bank of one unless a ``StudyBank`` passes
-its shared ledger).  A GP or TPE ask past the random phase is served by the
-bank's batched device pipeline on ``device`` (``cuda`` unless ``"cpu"`` is
-asked for).  ``strategy_kwargs`` (TPE's ``gamma`` and ``pending_penalty``)
-are forwarded to the strategy, whose constructor raises ``TypeError`` on an
-unknown key at the first ask.  Trials that never come back are simply
+its shared ledger).  A GP, clustering or TPE ask past the random phase is
+served by the bank's batched device pipeline on ``device`` (``cuda`` unless
+``"cpu"`` is asked for).  ``strategy_kwargs`` (TPE's ``gamma`` and
+``pending_penalty``, clustering's ``top_frac``) are forwarded to the
+strategy, whose constructor raises ``TypeError`` on an unknown key at the
+first ask.  Trials that never come back are simply
 never told; ``tell_failed`` (or a non-finite ``tell``) records the loss
 without reaching the GP.
 ``state_dict``/``load_state_dict`` carry the ledger, the RNG stream and the
@@ -43,7 +44,7 @@ OBSERVED = "observed"
 FAILED = "failed"
 
 # strategies whose asks are served by the bucketed StudyBank pipeline
-_BANKABLE = {"bayesian", "hallucination", "tpe"}
+_BANKABLE = {"bayesian", "hallucination", "tpe", "clustering"}
 
 _STATUS_CODE = {PENDING: S_PENDING, OBSERVED: S_OBSERVED, FAILED: S_FAILED}
 _STATUS_NAME = {v: k for k, v in _STATUS_CODE.items()}

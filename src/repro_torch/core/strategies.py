@@ -5,11 +5,15 @@
     object only marks that a GP is needed.
   * ``random``: a batch of valid random samples (the paper's third
     optimizer).
+  * ``clustering``: (Groves & Pyzer-Knapp 2018) the UCB surface on the
+    candidates, its top ``top_frac`` share clustered by weighted k-means
+    into ``batch_size`` groups, each group's best picked.  Served by the
+    StudyBank pipeline (``gp.bank_cluster_pick``), sharing the GP stages.
   * ``tpe``: the Hyperopt baseline, registered by ``core.tpe``; its asks
     are served by the StudyBank pipeline too.
 
-``clustering`` and ``hallucination_ref`` exist in the JAX package and are
-not ported yet: asking for them raises.
+``hallucination_ref``, the JAX package's numpy-facing reference loop, is
+not ported: asking for it raises.
 """
 from __future__ import annotations
 
@@ -17,7 +21,12 @@ from typing import List
 
 import numpy as np
 
-_NOT_PORTED = ("clustering", "hallucination_ref")
+_NOT_PORTED = ("hallucination_ref",)
+
+
+def n_top_candidates(S: int, batch_size: int, top_frac: float) -> int:
+    """The size of the top set the clustering pick clusters."""
+    return min(max(batch_size * 4, int(S * top_frac)), S)
 
 
 class BaseStrategy:
@@ -30,6 +39,15 @@ class BaseStrategy:
     def __init__(self, dim: int, domain_size: float, fit_steps: int = 40,
                  refit_every: int = 8):
         pass
+
+
+class ClusteringStrategy(BaseStrategy):
+    """GP-backed; ``top_frac`` (the share of candidates clustered) is read
+    by the bank from ``strategy_kwargs``."""
+
+    def __init__(self, dim: int, domain_size: float, fit_steps: int = 40,
+                 refit_every: int = 8, top_frac: float = 0.2):
+        self.top_frac = top_frac
 
 
 class RandomStrategy(BaseStrategy):
@@ -51,6 +69,7 @@ class RandomStrategy(BaseStrategy):
 STRATEGIES = {
     "bayesian": BaseStrategy,     # mango's default name
     "hallucination": BaseStrategy,
+    "clustering": ClusteringStrategy,
     "random": RandomStrategy,
 }
 

@@ -1,7 +1,8 @@
 """StudyBank: many studies over one array ledger, one batched ask.
 
 The PyTorch counterpart of ``repro.core.studybank`` for the GP-BUCB family
-(``bayesian`` / ``hallucination``), TPE and the random strategy.
+(``bayesian`` / ``hallucination``), clustering, TPE and the random
+strategy.
 
   * ``StudyLedger`` holds every study's trial ledger in fixed-capacity numpy
     arrays (encoded X rows, raw y, status, completion order), counters, RNG
@@ -14,8 +15,12 @@ The PyTorch counterpart of ``repro.core.studybank`` for the GP-BUCB family
     the prescales, ``gp.bank_absorb`` for in-flight trials, and
     ``gp.bank_pick``, whose scoring and downdates run the CUDA kernels on
     the card; their observation stage is cached on the ledger's
-    ``obs_stamp``.  TPE rows: ``tpe.fused_tpe_propose_bank``, whose scorer
-    is the ``tpe_scores`` CUDA kernel.  A bank may mix the families.
+    ``obs_stamp``.  Clustering rows share that observation stage and
+    differ only in the pick, ``gp.bank_cluster_pick`` (``score_cov``, then
+    top set, k-means and one pick per cluster), its k-means seeded from
+    host uniforms of ``PRNGKey(ask_count)`` (``core.kmeans``).  TPE rows:
+    ``tpe.fused_tpe_propose_bank``, whose scorer is the ``tpe_scores`` CUDA
+    kernel.  A bank may mix the families.
   * ``save``/``load`` write and read the same single ``.npz`` (format v2)
     as the JAX package, byte for byte, so a checkpoint moves across.
 
@@ -50,12 +55,14 @@ def _pow2(n: int) -> int:
     return p
 
 
-# strategy name -> dispatch family.  "gp" and "tpe" studies ask through the
-# batched device pipeline (each family its own pick); "random" studies ask
-# through their own view.
+# strategy name -> dispatch family.  "gp", "cluster" and "tpe" studies ask
+# through the batched device pipeline (each family its own pick; "gp" and
+# "cluster" share the observation stage); "random" studies ask through
+# their own view.
 _FAMILY = {
     "bayesian": "gp",
     "hallucination": "gp",
+    "clustering": "cluster",
     "tpe": "tpe",
     "random": "random",
 }
@@ -320,12 +327,12 @@ class StudyBank:
         the device cache, whose row layout depends on them)."""
         fams = {b: _FAMILY[v.optimizer] for b, v in self._members.items()}
         self._fams = fams
-        gpr = sorted(b for b, f in fams.items() if f == "gp")
+        gpr = sorted(b for b, f in fams.items() if f in ("gp", "cluster"))
         self._gp_fam_rows = np.array(gpr, np.int64)
         self._gp_pos = {int(r): i for i, r in enumerate(gpr)}
         bankable = np.zeros(self.ledger.n_studies, bool)
         for b, f in fams.items():
-            bankable[b] = f in ("gp", "tpe")
+            bankable[b] = f in ("gp", "cluster", "tpe")
         self._bankable = bankable
         self._gp_cache = None
 
@@ -507,7 +514,7 @@ class StudyBank:
         C = Cflat.reshape(B, n_mc, d)
         dev = np.nonzero(device)[0]
         picks: Dict[int, tuple] = {}
-        for fam in ("gp", "tpe"):
+        for fam in ("gp", "cluster", "tpe"):
             rows = np.array([int(b) for b in dev if self._fams[int(b)] == fam],
                             np.int64)
             if not len(rows):
@@ -532,7 +539,7 @@ class StudyBank:
                                       k_pend[rows], n, na)
         cache = self._obs_stage(k_obs, na)
         return self._pick_gp(cache, rows, C, k_obs[rows], k_pend[rows], n,
-                             pend_cap)
+                             pend_cap, fam)
 
     def ask_view(self, view, n: int, cols, n_mc: int):
         """Bank-of-one ask: one view's proposal served by the bucketed
@@ -704,10 +711,14 @@ class StudyBank:
                 " posterior scores may be unreliable (consider more noise"
                 " or fewer near-duplicate observations)", RuntimeWarning)
 
-    def _pick_gp(self, cache, rows, C, ko, kp, n, pend_cap) -> torch.Tensor:
-        """Candidate-dependent stages for the ``rows`` sub-batch, sliced out
-        of the shared obs-stage cache: prescale-C, pending absorb, and the
-        GP-BUCB pick.  Returns (R, n) candidate indices on the device."""
+    def _pick_gp(self, cache, rows, C, ko, kp, n, pend_cap,
+                 fam: str = "gp") -> torch.Tensor:
+        """Candidate-dependent stages for the ``rows`` sub-batch of family
+        ``fam`` ("gp" or "cluster"), sliced out of the shared obs-stage
+        cache: prescale-C, pending absorb, and the family's pick (GP-BUCB,
+        or the clustering head on the raw candidates ``C``, its top set
+        sized from ``strategy_kwargs["top_frac"]``).  Returns (R, n)
+        candidate indices on the device."""
         from repro_torch.core import gp as gp_lib
         pos = np.array([self._gp_pos[int(r)] for r in rows])
         full = (len(pos) == len(self._gp_fam_rows)
@@ -722,7 +733,7 @@ class StudyBank:
         # the slot loop appends pick b < n - 1 at row n_obs + n_pending + b
         # and the downdate kernel writes that column of the (S, na) block
         # unchecked, so every such row must exist
-        if int((ko + kp).max()) + n - 1 > Xs.shape[1]:
+        if fam == "gp" and int((ko + kp).max()) + n - 1 > Xs.shape[1]:
             raise ValueError(
                 f"bucket na={Xs.shape[1]} has no room for {n} picks after "
                 f"{int((ko + kp).max())} observed and pending rows")
@@ -735,6 +746,16 @@ class StudyBank:
                 t(ko.astype(np.float32)), ls, var, noise)
         n_eff = t((ko + kp).astype(np.float32))
         dom = t(np.float32(self._members[int(rows[0])].domain_size))
+        if fam == "cluster":
+            from repro_torch.core.kmeans import kmeans_uniforms
+            from repro_torch.core.strategies import n_top_candidates
+            S = C.shape[1]
+            n_top = n_top_candidates(
+                S, n, self.strategy_kwargs.get("top_frac", 0.2))
+            u = t(kmeans_uniforms(self.ledger.ask_count[rows], n))
+            return gp_lib.bank_cluster_pick(
+                Cs, t(C), Xs, z, maskd, Linv, var, noise, n_eff, dom, u,
+                n_top=n_top, batch_size=n)
         return gp_lib.bank_pick(Cs, Xs, z, maskd, L, Linv, var, noise,
                                 n_eff, dom, batch_size=n)
 

@@ -9,11 +9,15 @@ plain stateful forms, and decode is plain PyTorch throughout.  A Python
 caller may pass its own ``ArchConfig`` to ``run`` (``cfg=``), e.g. a config
 cut in depth; ``--arch`` then only names it.  Parameters are random, drawn from
 a ``torch.Generator`` seeded with ``--seed`` on the device; prompt tokens
-(and a VLM's stub patch embeddings) come from ``numpy.random.default_rng``
-with the same seed.
+(and a VLM's stub patch embeddings, or whisper's stub frame embeddings)
+come from ``numpy.random.default_rng`` with the same seed.  Whisper's
+prefill encodes the frames and caches each decoder layer's cross keys and
+values; decode reads them.
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch smollm-135m \\
       --batch 8 --prompt-len 1024 --gen 32
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch whisper-large-v3 \\
+      --batch 8 --prompt-len 64 --gen 64
   PYTHONPATH=src python -m repro_torch.launch.serve --device cpu --reduced
 """
 from __future__ import annotations
@@ -64,6 +68,10 @@ def run(args, cfg=None) -> dict:
             (B, cfg.vision_tokens, cfg.d_model), dtype=np.float32),
             device=dev).to(rt.compute_dtype)
         total += cfg.vision_tokens
+    if cfg.encoder_layers:
+        batch["frames"] = torch.as_tensor(rng.standard_normal(
+            (B, cfg.encoder_seq, cfg.d_model), dtype=np.float32),
+            device=dev).to(rt.compute_dtype)
 
     prefill = make_prefill_step(cfg, rt, cache_size=total)
     decode = make_decode_step(cfg, rt)

@@ -6,15 +6,20 @@ added).  It runs on the card unless ``--device cpu`` is given, where every
 kernel runs its plain version; without a card the default device raises.
 Parameters are random, drawn from a ``torch.Generator`` seeded with
 ``--seed`` on the device; batches come from the synthetic Markov pipeline
-(``--data-seed``), bit for bit the JAX package's.  Every config but
-whisper trains (``check_supported(cfg, train=True)``).  A Python caller may
-pass its own ``ArchConfig`` to ``run`` (``cfg=``), e.g. a config cut in
+(``--data-seed``), bit for bit the JAX package's.  Every config trains.
+Whisper's batch also needs stub frame embeddings (B, encoder_seq, d), which
+the JAX package's driver does not supply; here they are standard normal
+draws from a numpy stream seeded by ``--data-seed`` and the step
+(``frames_at``), so a resumed run sees the same frames.  A Python caller
+may pass its own ``ArchConfig`` to ``run`` (``cfg=``), e.g. a config cut in
 depth; ``--arch`` then only names it.
 
   PYTHONPATH=src python -m repro_torch.launch.train --arch xlstm-1.3b \\
       --batch 2 --seq 1024 --steps 4 --remat none
   PYTHONPATH=src python -m repro_torch.launch.train --arch jamba-v0.1-52b \\
       --reduced --device cpu --steps 20 --batch 4 --seq 64
+  PYTHONPATH=src python -m repro_torch.launch.train \\
+      --arch whisper-large-v3 --batch 4 --seq 448 --steps 4
 
 The printed JSON holds the reference's keys (``final_loss``,
 ``first_loss``, ``n_params``, ``wall_s``) and the port's own: per step the
@@ -31,6 +36,7 @@ import json
 import time
 from pathlib import Path
 
+import numpy as np
 import torch
 
 from repro_torch.configs import get_config
@@ -40,7 +46,6 @@ from repro_torch.kernels.flash_attention import ops as flash_ops
 from repro_torch.kernels.mlstm_chunk import ops as mlstm_ops
 from repro_torch.kernels.ssm_scan import ops as ssm_ops
 from repro_torch.models.common import Runtime
-from repro_torch.models.transformer import check_supported
 from repro_torch.optim.adamw import AdamWConfig
 from repro_torch.train.checkpoint import Checkpointer
 from repro_torch.train.step import (TrainHyper, init_train_state,
@@ -71,6 +76,15 @@ def build(args, cfg=None):
     return cfg, rt, hyper
 
 
+def frames_at(data_seed: int, step: int, batch: int,
+              cfg) -> np.ndarray:
+    """Step ``step``'s stub frame embeddings (batch, encoder_seq, d),
+    float32, a pure function of (data_seed, step)."""
+    rng = np.random.default_rng((data_seed, step, 1))
+    return rng.standard_normal((batch, cfg.encoder_seq, cfg.d_model),
+                               dtype=np.float32)
+
+
 def _sync(dev: torch.device) -> None:
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
@@ -80,7 +94,6 @@ def run(args, cfg=None) -> dict:
     """Train for ``args.steps`` steps of ``args.arch`` (or of ``cfg``)."""
     dev = resolve_device(args.device)
     cfg, rt, hyper = build(args, cfg)
-    check_supported(cfg, train=True)
     data = SyntheticLM(DataConfig(vocab_size=cfg.vocab_size,
                                   seq_len=args.seq, global_batch=args.batch,
                                   seed=args.data_seed))
@@ -106,6 +119,10 @@ def run(args, cfg=None) -> dict:
     for step in range(start_step, args.steps):
         batch = {k: torch.as_tensor(v, device=dev)
                  for k, v in data.batch_at(step).items()}
+        if cfg.encoder_layers:
+            batch["frames"] = torch.as_tensor(
+                frames_at(args.data_seed, step, args.batch, cfg),
+                device=dev).to(rt.compute_dtype)
         data.step = step + 1
         n0 = [dict(r[1]) for r in LAUNCH_RECORDS]
         _sync(dev)

@@ -1,22 +1,25 @@
 """Model assembly: embeddings -> layers -> loss, or last-position logits and
 a cache.
 
-The counterpart of ``repro.models.transformer`` for every config but
-whisper: dense attention decoders (smollm-135m, phi3-mini-3.8b, yi-34b,
-command-r-35b and internvl2-76b with its stubbed vision prefix), MoE
-decoders (qwen2-moe-a2.7b, olmoe-1b-7b), the Mamba + attention hybrid with
-MoE (jamba-v0.1-52b) and xLSTM (xlstm-1.3b: a period of 8 layers, 7 mLSTM
-and 1 sLSTM, no FFN).  The JAX package stacks each period position's
-parameters on a leading ``n_periods`` axis and scans over it; the port
-keeps one parameter dict per layer in ``params["blocks"]`` (layer l has
-spec ``cfg.period[l % P]``), one cache dict per layer, and loops.
+The counterpart of ``repro.models.transformer`` for every config: dense
+attention decoders (smollm-135m, phi3-mini-3.8b, yi-34b, command-r-35b and
+internvl2-76b with its stubbed vision prefix), MoE decoders
+(qwen2-moe-a2.7b, olmoe-1b-7b), the Mamba + attention hybrid with MoE
+(jamba-v0.1-52b), xLSTM (xlstm-1.3b: a period of 8 layers, 7 mLSTM and 1
+sLSTM, no FFN) and the encoder-decoder whisper-large-v3 (a bidirectional
+encoder over stubbed frame embeddings, a causal decoder whose layers also
+cross-attend to the encoder output).  The JAX package stacks each period
+position's parameters on a leading ``n_periods`` axis, and the encoder's on
+a leading ``encoder_layers`` axis, and scans over them; the port keeps one
+parameter dict per layer in the lists ``params["blocks"]`` (layer l has
+spec ``cfg.period[l % P]``) and ``params["enc_blocks"]``, one cache dict
+per layer, and loops.
 
 Entry points:
   * ``forward_train``   -> (loss, metrics)
   * ``forward_prefill`` -> (last-position logits, cache)
   * ``forward_decode``  -> (logits, cache updated in place)
-``check_supported`` says what is not served or trained yet: whisper's
-cross-attention and audio encoder.
+  * ``encode_audio``    -> the encoder output (whisper)
 """
 from __future__ import annotations
 
@@ -38,23 +41,8 @@ from repro_torch.models.mlp import mlp, mlp_init
 from repro_torch.models.moe import moe, moe_init
 
 AUX_KEYS = ("moe_lb_loss", "moe_router_z", "moe_drop_frac")
-NEXT_SLICES = ("the rest comes with the next slice of the model stack "
-               "(ROADMAP queue 1 item 13d: whisper's encoder and "
-               "cross-attention)")
-
-
-def check_supported(cfg: ArchConfig, train: bool = False) -> None:
-    """Raise ``NotImplementedError`` for what the port does not serve
-    (``train=False``) or train (``train=True``) yet; both are the same
-    set today."""
-    missing = {"cross_attn" for spec in cfg.period if spec.cross_attn}
-    if cfg.encoder_layers:
-        missing.add("encoder_layers")
-    if missing:
-        raise NotImplementedError(
-            f"{cfg.name}: the port does not {'train' if train else 'serve'} "
-            f"{', '.join(sorted(missing))} yet; it serves and trains "
-            "attention, Mamba, MoE and xLSTM layers; " + NEXT_SLICES)
+# the encoder layer of an encoder-decoder (whisper): attention + dense FFN
+ENC_SPEC = LayerSpec("attn", "dense")
 
 
 def layer_specs(cfg: ArchConfig) -> List[LayerSpec]:
@@ -77,6 +65,10 @@ def _layer_init(gen: torch.Generator, spec: LayerSpec, cfg: ArchConfig,
         p["mixer"] = xlstm_mod.mlstm_init(gen, cfg, rt)
     else:
         p["mixer"] = xlstm_mod.slstm_init(gen, cfg, rt)
+    if spec.cross_attn:
+        p["cross_norm"] = norm_init(cfg.norm, cfg.d_model, rt.param_dtype,
+                                    dev)
+        p["cross"] = attn_mod.attn_init(gen, cfg, rt)
     if spec.ffn != "none":
         p["ffn_norm"] = norm_init(cfg.norm, cfg.d_model, rt.param_dtype, dev)
         p["ffn"] = (mlp_init(gen, cfg, rt) if spec.ffn == "dense"
@@ -86,7 +78,6 @@ def _layer_init(gen: torch.Generator, spec: LayerSpec, cfg: ArchConfig,
 
 def init_params(gen: torch.Generator, cfg: ArchConfig, rt: Runtime) -> dict:
     """Random parameters drawn from ``gen`` on its device."""
-    check_supported(cfg)
     d, Vp = cfg.d_model, cfg.padded_vocab()
     params: dict = {
         "embed": dense_init(gen, d, (Vp, d), rt.param_dtype),
@@ -96,6 +87,11 @@ def init_params(gen: torch.Generator, cfg: ArchConfig, rt: Runtime) -> dict:
         params["lm_head"] = dense_init(gen, d, (d, Vp), rt.param_dtype)
     params["blocks"] = [_layer_init(gen, spec, cfg, rt)
                         for spec in layer_specs(cfg)]
+    if cfg.encoder_layers:
+        params["enc_blocks"] = [_layer_init(gen, ENC_SPEC, cfg, rt)
+                                for _ in range(cfg.encoder_layers)]
+        params["enc_norm"] = norm_init(cfg.norm, d, rt.param_dtype,
+                                       gen.device)
     return params
 
 
@@ -139,29 +135,37 @@ def _ffn(spec: LayerSpec, p: dict, x: torch.Tensor, cfg: ArchConfig,
 
 
 def _apply_block(spec: LayerSpec, p: dict, x: torch.Tensor, cfg: ArchConfig,
-                 rt: Runtime
+                 rt: Runtime, causal: bool = True,
+                 enc_out: Optional[torch.Tensor] = None
                  ) -> Tuple[torch.Tensor, Optional[Dict[str, torch.Tensor]]]:
     h = norm_apply(cfg.norm, x, p["mixer_norm"])
     if spec.mixer == "attn":
-        mixed = attn_mod.attention(p["mixer"], h, cfg, rt)
+        mixed = attn_mod.attention(p["mixer"], h, cfg, rt, causal=causal)
     elif spec.mixer == "mamba":
         mixed = mamba_mod.mamba(p["mixer"], h, cfg, rt)
     elif spec.mixer == "mlstm":
         mixed = xlstm_mod.mlstm(p["mixer"], h, cfg, rt)
     else:
         mixed = xlstm_mod.slstm(p["mixer"], h, cfg, rt)
-    return _ffn(spec, p, x + mixed, cfg, rt)
+    x = x + mixed
+    if spec.cross_attn and enc_out is not None:
+        h = norm_apply(cfg.norm, x, p["cross_norm"])
+        x = x + attn_mod.attention(p["cross"], h, cfg, rt, causal=False,
+                                   kv_x=enc_out)
+    return _ffn(spec, p, x, cfg, rt)
 
 
 def _apply_period(x: torch.Tensor, layers: List[dict],
-                  specs: List[LayerSpec], cfg: ArchConfig,
+                  enc_out: Optional[torch.Tensor], specs: List[LayerSpec],
+                  cfg: ArchConfig,
                   rt: Runtime) -> Tuple[torch.Tensor, Tuple[torch.Tensor,
                                                             ...]]:
-    """The period's layers in order; returns x and the MoE auxiliaries
+    """The period's layers in order (cross-attending to ``enc_out`` where
+    a layer has cross-attention); returns x and the MoE auxiliaries
     (``AUX_KEYS``, fp32) summed over its layers."""
     aux = [x.new_zeros((), dtype=torch.float32) for _ in AUX_KEYS]
     for spec, p in zip(specs, layers):
-        x, a = _apply_block(spec, p, x, cfg, rt)
+        x, a = _apply_block(spec, p, x, cfg, rt, enc_out=enc_out)
         if a is not None:
             aux = [t + a[k].float() for t, k in zip(aux, AUX_KEYS)]
     return x, tuple(aux)
@@ -194,8 +198,9 @@ def _remat(fn, rt: Runtime):
     raise ValueError(f"unknown remat policy {rt.remat_policy!r}")
 
 
-def _run_layers(params: dict, x: torch.Tensor, cfg: ArchConfig,
-                rt: Runtime) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+def _run_layers(params: dict, x: torch.Tensor, cfg: ArchConfig, rt: Runtime,
+                enc_out: Optional[torch.Tensor] = None
+                ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Every period in order; returns x and the MoE auxiliaries summed over
     all layers, as the reference's scan carries them."""
     P = len(cfg.period)
@@ -205,9 +210,43 @@ def _run_layers(params: dict, x: torch.Tensor, cfg: ArchConfig,
     blocks = params["blocks"]
     aux = [x.new_zeros((), dtype=torch.float32) for _ in AUX_KEYS]
     for i in range(0, len(blocks), P):
-        x, a = body(x, blocks[i:i + P])
+        x, a = body(x, blocks[i:i + P], enc_out)
         aux = [t + u for t, u in zip(aux, a)]
     return x, dict(zip(AUX_KEYS, aux))
+
+
+def _encoder_layer(x: torch.Tensor, p: dict, cfg: ArchConfig,
+                   rt: Runtime) -> torch.Tensor:
+    return _apply_block(ENC_SPEC, p, x, cfg, rt, causal=False)[0]
+
+
+def encode_audio(params: dict, frames: torch.Tensor, cfg: ArchConfig,
+                 rt: Runtime) -> torch.Tensor:
+    """Whisper's encoder over stubbed post-conv frame embeddings
+    (B, encoder_seq, d): sinusoidal positions, the bidirectional layers
+    (each under the remat policy, as the reference remats each), the final
+    norm."""
+    x = _add_sinusoidal(frames.to(rt.compute_dtype))
+    body = _remat(functools.partial(_encoder_layer, cfg=cfg, rt=rt), rt)
+    for p in params["enc_blocks"]:
+        x = body(x, p)
+    return norm_apply(cfg.norm, x, params["enc_norm"])
+
+
+def _embed_input(params: dict, batch: Dict[str, torch.Tensor],
+                 cfg: ArchConfig, rt: Runtime
+                 ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """The decoder's input (token embeddings, a VLM's patches prepended,
+    sinusoidal positions where the config has them) and the encoder output
+    (None without an encoder)."""
+    x = _embed_tokens(params, batch["tokens"], rt)
+    if cfg.vision_tokens:
+        x = torch.cat([batch["patches"].to(rt.compute_dtype), x], dim=1)
+    enc_out = (encode_audio(params, batch["frames"], cfg, rt)
+               if cfg.encoder_layers else None)
+    if _uses_sinusoidal(cfg):
+        x = _add_sinusoidal(x)
+    return x, enc_out
 
 
 def forward_train(params: dict, batch: Dict[str, torch.Tensor],
@@ -215,23 +254,18 @@ def forward_train(params: dict, batch: Dict[str, torch.Tensor],
                   ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Mean next-token loss of ``batch["tokens"]`` against
     ``batch["labels"]`` (B, S) (labels < 0 masked; a VLM's
-    ``batch["patches"]`` prepended and not scored), plus the z-loss.
+    ``batch["patches"]`` prepended and not scored; whisper's
+    ``batch["frames"]`` (B, encoder_seq, d) encoded and cross-attended),
+    plus the z-loss.
     Returns (loss, metrics): ``loss`` = ce + 0.01 lb + 0.001 z, as the
     reference weights the MoE auxiliaries, ``ce``, ``tokens`` and the
     auxiliaries summed over layers (zero without MoE)."""
-    check_supported(cfg)
-    tokens, labels = batch["tokens"], batch["labels"]
-    x = _embed_tokens(params, tokens, rt)
-    n_prefix = 0
-    if cfg.vision_tokens:
-        x = torch.cat([batch["patches"].to(rt.compute_dtype), x], dim=1)
-        n_prefix = cfg.vision_tokens
-    if _uses_sinusoidal(cfg):
-        x = _add_sinusoidal(x)
-    x, aux = _run_layers(params, x, cfg, rt)
+    labels = batch["labels"]
+    x, enc_out = _embed_input(params, batch, cfg, rt)
+    x, aux = _run_layers(params, x, cfg, rt, enc_out)
     x = norm_apply(cfg.norm, x, params["final_norm"])
-    if n_prefix:
-        x = x[:, n_prefix:]
+    if cfg.vision_tokens:
+        x = x[:, cfg.vision_tokens:]
     loss_ce, denom = chunked_cross_entropy(
         x, _head_weights(params, cfg), labels, labels >= 0, rt,
         cfg.vocab_size)
@@ -246,18 +280,24 @@ def forward_train(params: dict, batch: Dict[str, torch.Tensor],
 def init_cache(cfg: ArchConfig, rt: Runtime, B: int, S: int,
                device) -> List[Dict[str, torch.Tensor]]:
     """One zeroed cache dict per layer: {"k", "v"} (B, S, KV, hd) for
-    attention, the recurrent state for Mamba, mLSTM and sLSTM."""
-    check_supported(cfg)
+    attention, the recurrent state for Mamba, mLSTM and sLSTM, and
+    {"cross_k", "cross_v"} (B, encoder_seq, KV, hd) for a layer with
+    cross-attention."""
     caches = []
     for spec in layer_specs(cfg):
         if spec.mixer == "attn":
-            caches.append(attn_mod.attn_cache_init(cfg, rt, B, S, device))
+            c = attn_mod.attn_cache_init(cfg, rt, B, S, device)
         elif spec.mixer == "mamba":
-            caches.append(mamba_mod.mamba_cache_init(cfg, rt, B, device))
+            c = mamba_mod.mamba_cache_init(cfg, rt, B, device)
         elif spec.mixer == "mlstm":
-            caches.append(xlstm_mod.mlstm_cache_init(cfg, rt, B, device))
+            c = xlstm_mod.mlstm_cache_init(cfg, rt, B, device)
         else:
-            caches.append(xlstm_mod.slstm_cache_init(cfg, rt, B, device))
+            c = xlstm_mod.slstm_cache_init(cfg, rt, B, device)
+        if spec.cross_attn:
+            cross = attn_mod.attn_cache_init(cfg, rt, B, cfg.encoder_seq,
+                                             device)
+            c["cross_k"], c["cross_v"] = cross["k"], cross["v"]
+        caches.append(c)
     return caches
 
 
@@ -265,22 +305,17 @@ def forward_prefill(params: dict, batch: Dict[str, torch.Tensor],
                     cfg: ArchConfig, rt: Runtime,
                     cache_size: Optional[int] = None
                     ) -> Tuple[torch.Tensor, List[Dict[str, torch.Tensor]]]:
-    """Run the prompt (``batch["tokens"]`` (B, S), and ``batch["patches"]``
-    (B, vision_tokens, d) for a VLM, prepended) through every layer.
+    """Run the prompt (``batch["tokens"]`` (B, S); ``batch["patches"]``
+    (B, vision_tokens, d) for a VLM, prepended; ``batch["frames"]``
+    (B, encoder_seq, d) for whisper, encoded) through every layer.
 
     Returns the (B, Vp) fp32 logits of the last position and the cache:
     for attention ``max(cache_size, prefix + S)`` positions holding the
     prompt's keys and values (the rest zeros), for Mamba, mLSTM and sLSTM
-    the state after the last token."""
-    check_supported(cfg)
-    tokens = batch["tokens"]
-    B = tokens.shape[0]
-    x = _embed_tokens(params, tokens, rt)
-    if cfg.vision_tokens:
-        x = torch.cat([batch["patches"].to(rt.compute_dtype), x], dim=1)
-    if _uses_sinusoidal(cfg):
-        x = _add_sinusoidal(x)
-
+    the state after the last token, for cross-attention the keys and values
+    of the encoder output."""
+    B = batch["tokens"].shape[0]
+    x, enc_out = _embed_input(params, batch, cfg, rt)
     S = x.shape[1]
     cache = init_cache(cfg, rt, B, max(cache_size or 0, S), x.device)
     for spec, p, c in zip(layer_specs(cfg), params["blocks"], cache):
@@ -296,7 +331,15 @@ def forward_prefill(params: dict, batch: Dict[str, torch.Tensor],
                           "slstm": xlstm_mod.slstm_with_state}[spec.mixer]
             mixed, st = with_state(p["mixer"], h, cfg, rt)
             c.update(st)
-        x, _ = _ffn(spec, p, x + mixed, cfg, rt)
+        x = x + mixed
+        if spec.cross_attn:
+            h = norm_apply(cfg.norm, x, p["cross_norm"])
+            y, (k, v) = attn_mod.attention_with_kv(
+                p["cross"], h, cfg, rt, causal=False, kv_x=enc_out)
+            c["cross_k"].copy_(k)
+            c["cross_v"].copy_(v)
+            x = x + y
+        x, _ = _ffn(spec, p, x, cfg, rt)
     x = norm_apply(cfg.norm, x, params["final_norm"])
     logits = logits_for(x[:, -1:], _head_weights(params, cfg), rt,
                         cfg.vocab_size)
@@ -310,7 +353,6 @@ def forward_decode(params: dict, tokens: torch.Tensor,
     """tokens (B, 1) at position ``cache_len``; cache from
     ``forward_prefill`` or ``init_cache``, updated in place.  Returns the
     (B, Vp) fp32 logits and the cache."""
-    check_supported(cfg)
     x = _embed_tokens(params, tokens, rt)
     if _uses_sinusoidal(cfg):
         pos_row = sinusoidal_position_at(cache_len, x.shape[-1], x.device)
@@ -326,7 +368,12 @@ def forward_decode(params: dict, tokens: torch.Tensor,
                       "slstm": xlstm_mod.slstm_decode}[spec.mixer]
             mixed, st = decode(p["mixer"], h, c, cfg, rt)
             c.update(st)
-        x, _ = _ffn(spec, p, x + mixed, cfg, rt)
+        x = x + mixed
+        if spec.cross_attn:
+            h = norm_apply(cfg.norm, x, p["cross_norm"])
+            x = x + attn_mod.cross_attn_decode(p["cross"], h, c["cross_k"],
+                                               c["cross_v"], cfg, rt)
+        x, _ = _ffn(spec, p, x, cfg, rt)
     x = norm_apply(cfg.norm, x, params["final_norm"])
     logits = logits_for(x, _head_weights(params, cfg), rt, cfg.vocab_size)
     return logits[:, 0], cache

@@ -8,10 +8,11 @@ exactly:
   * the schedule is read at the step count *before* the increment;
   * weight decay skips leaves of fewer than two dimensions *in the JAX
     package's stacked layout*, where every block leaf has a leading
-    ``n_periods`` axis.  So the top-level ``final_norm`` scale is not
-    decayed, and every block leaf is, norm scales and biases included (the
-    reference's rule meets the stacked axis; the port copies it so that a
-    train step agrees).
+    ``n_periods`` axis and every encoder leaf a leading ``encoder_layers``
+    axis.  So the top-level ``final_norm`` and ``enc_norm`` are not
+    decayed, and every block and encoder leaf is, norm scales and biases
+    included (the reference's rule meets the stacked axis; the port copies
+    it so that a train step agrees).
 """
 from __future__ import annotations
 
@@ -72,9 +73,10 @@ def global_norm(tree) -> torch.Tensor:
 
 def decays(path) -> bool:
     """Whether the leaf at ``path`` (a path in the port's tree) has two or
-    more dimensions in the JAX package's stacked layout: every block leaf
-    does; a top-level leaf by its own shape (decided by the caller)."""
-    return len(path) > 0 and path[0] == "blocks"
+    more dimensions in the JAX package's stacked layout: every block and
+    encoder leaf does; a top-level leaf by its own shape (decided by the
+    caller)."""
+    return len(path) > 0 and path[0] in ("blocks", "enc_blocks")
 
 
 @torch.no_grad()

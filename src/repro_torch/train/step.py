@@ -4,8 +4,8 @@ The counterpart of ``repro.train.step``.  ``make_train_step`` returns a
 ``(state, batch) -> (state, metrics)`` function: gradients accumulated in
 fp32 over microbatches, optional int8 error-feedback compression, global
 norm clipping and AdamW.  The state is updated in place (parameters and
-moments are not copied); the same dict is returned.  Training runs for the
-configs ``check_supported(cfg, train=True)`` accepts (all but whisper).
+moments are not copied); the same dict is returned.  Every config trains;
+whisper's batch carries ``frames`` beside the tokens and labels.
 
 The serving steps return the greedy next token (int32, argmax of the
 logits), the cache, and the fp32 logits it was chosen from, so a caller can
@@ -20,9 +20,8 @@ import torch
 
 from repro_torch.configs.base import ArchConfig, ShapeConfig
 from repro_torch.models.common import Runtime
-from repro_torch.models.transformer import (check_supported, forward_decode,
-                                            forward_prefill, forward_train,
-                                            init_params)
+from repro_torch.models.transformer import (forward_decode, forward_prefill,
+                                            forward_train, init_params)
 from repro_torch.optim.adamw import AdamWConfig, opt_init, opt_update
 from repro_torch.tree import tree_leaves, tree_map
 
@@ -51,7 +50,6 @@ def auto_microbatches(cfg: ArchConfig, shape: ShapeConfig, rt: Runtime,
 
 def make_train_step(cfg: ArchConfig, rt: Runtime, hyper: TrainHyper,
                     n_microbatches: int = 1) -> Callable:
-    check_supported(cfg, train=True)
     n_micro = max(n_microbatches, 1)
 
     def train_step(state: Dict[str, Any], batch: Dict[str, torch.Tensor]
@@ -99,7 +97,6 @@ def init_train_state(gen: torch.Generator, cfg: ArchConfig, rt: Runtime,
                      grad_compression: str = "none") -> Dict[str, Any]:
     """Parameters drawn from ``gen`` on its device, zero moments, step 0 (and
     a zero error-feedback buffer with ``int8_ef``)."""
-    check_supported(cfg, train=True)
     params = init_params(gen, cfg, rt)
     state = {"params": params, "opt": opt_init(params)}
     if grad_compression == "int8_ef":

@@ -71,9 +71,17 @@ def test_parser_has_the_reference_flags():
     assert got == want
 
 
-def test_run_rejects_unported_families():
-    with pytest.raises(NotImplementedError, match="item 13d: .*whisper"):
-        serve.run(_args("--arch", "whisper-large-v3"))
+def test_run_serves_whisper():
+    """whisper serves through the driver on the CPU: stub frames drawn
+    from the seed's stream, encoded in prefill, cross keys and values read
+    in decode; finite logits and no kernel launch in either stage."""
+    r = serve.run(_args("--arch", "whisper-large-v3", "--batch", "2",
+                        "--prompt-len", "6", "--gen", "3"))
+    assert r["logits_finite"] and r["generated_shape"] == [2, 3]
+    assert r["flash_launches"] == {"prefill": 0, "decode": 0}
+    again = serve.run(_args("--arch", "whisper-large-v3", "--batch", "2",
+                            "--prompt-len", "6", "--gen", "3"))
+    assert again["sample"] == r["sample"]
 
 
 @pytest.mark.parametrize("arch", MOE)
@@ -102,11 +110,12 @@ def test_run_serves_xlstm():
     assert r["flash_launches"] == {"prefill": 0, "decode": 0}
 
 
-@pytest.mark.parametrize("arch", ["smollm-135m", "internvl2-76b", *MOE])
+@pytest.mark.parametrize("arch", ["smollm-135m", "internvl2-76b", *MOE,
+                                  "whisper-large-v3"])
 def test_greedy_tokens_match_reference(arch):
     """Prefill, then five greedy decode steps, in both packages from the
-    same parameters and prompt (fp32; JAX through its Pallas kernel in
-    interpret mode)."""
+    same parameters and prompt (and whisper's frames; fp32; JAX through
+    its Pallas kernel in interpret mode)."""
     import jax
     import jax.numpy as jnp
     from repro.configs import get_config as jget
@@ -129,6 +138,10 @@ def test_greedy_tokens_match_reference(arch):
     if vt:
         pat = rng.standard_normal((B, vt, cfg.d_model), dtype=np.float32)
         jb["patches"], tb["patches"] = jnp.asarray(pat), torch.as_tensor(pat)
+    if cfg.encoder_layers:
+        fr = rng.standard_normal((B, cfg.encoder_seq, cfg.d_model),
+                                 dtype=np.float32)
+        jb["frames"], tb["frames"] = jnp.asarray(fr), torch.as_tensor(fr)
     n = P + vt + steps + 1
     jtok, jcache = jstep.make_prefill_step(jcfg, jrt, cache_size=n)(jp, jb)
     tok, cache, logits = make_prefill_step(cfg, rt, cache_size=n)(tp, tb)

@@ -265,9 +265,34 @@ def test_rng_state_pack_roundtrip():
     assert clone.bit_generator.state == rng.bit_generator.state
 
 
-@pytest.mark.parametrize("name", ["clustering", "hallucination_ref"])
+@pytest.mark.parametrize("name", ["hallucination_ref"])
 def test_unported_strategies_raise(name):
     with pytest.raises(ValueError, match="not ported yet"):
         T.AskTellOptimizer(SPACE, optimizer=name, device="cpu")
     with pytest.raises(ValueError, match="not ported yet"):
         T.StudyBank(SPACE, 2, optimizer=name, device="cpu")
+
+
+@pytest.mark.parametrize("where", ["optimizer", "bank"])
+def test_clustering_asks(where):
+    """``optimizer="clustering"`` asks past the random phase, alone and in
+    a bank: distinct, valid candidates, the studies' ask counts advance."""
+    if where == "optimizer":
+        opt = T.AskTellOptimizer(SPACE, optimizer="clustering", seed=3,
+                                 mc_samples=64, fit_steps=5, device="cpu")
+        ask = lambda: [opt.ask(3)]                       # noqa: E731
+        tell = lambda b, t, v: opt.tell(t.id, v)         # noqa: E731
+        views = [opt]
+    else:
+        bank = T.StudyBank(SPACE, 2, optimizer="clustering", seed=3,
+                           mc_samples=64, fit_steps=5, device="cpu")
+        ask = lambda: bank.ask_all(3)                    # noqa: E731
+        tell = lambda b, t, v: bank.tell(b, t.id, v)     # noqa: E731
+        views = bank.studies
+    for _ in range(3):
+        for b, ts in enumerate(ask()):
+            assert len({(t.params["x"], t.params["y"]) for t in ts}) == 3
+            for t in ts:
+                assert 0 <= t.params["x"] <= 1 and -1 <= t.params["y"] <= 1
+                tell(b, t, _objective(t.params))
+    assert all(v.n_observed == 9 and v._ask_count == 3 for v in views)

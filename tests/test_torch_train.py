@@ -75,9 +75,10 @@ def _first(cfg):
     return dataclasses.replace(cfg, n_layers=2)
 
 
-# (arch, cut) of the train-step tests
+# (arch, cut) of the train-step tests (the reduced whisper, two encoder
+# and two decoder layers, is not cut)
 STEP_CONFIGS = {"xlstm-1.3b": _cut, "jamba-v0.1-52b": _jamba_cut,
-                "phi3-mini-3.8b": _first}
+                "phi3-mini-3.8b": _first, "whisper-large-v3": lambda c: c}
 
 
 def _np(tree):
@@ -145,7 +146,16 @@ def _batch(cfg, B, S, seed, jnp, dtype=torch.float32):
         pat = rng.standard_normal((B, cfg.vision_tokens, cfg.d_model),
                                   dtype=np.float32)
         jb["patches"], tb["patches"] = jnp.asarray(pat), T(pat).to(dtype)
+    if cfg.encoder_layers:
+        fr = _frames(cfg, B, rng)
+        jb["frames"], tb["frames"] = jnp.asarray(fr), T(fr).to(dtype)
     return jb, tb
+
+
+def _frames(cfg, B, rng):
+    """Whisper's stub frame embeddings (B, encoder_seq, d)."""
+    return rng.standard_normal((B, cfg.encoder_seq, cfg.d_model),
+                               dtype=np.float32)
 
 
 @pytest.mark.parametrize("arch,S,pallas,bf16_states", [
@@ -157,9 +167,11 @@ def _batch(cfg, B, S, seed, jnp, dtype=torch.float32):
     ("jamba-v0.1-52b", 37, False, False),  # its chunked scan, ragged
     ("qwen2-moe-a2.7b", 16, True, False),
     ("olmoe-1b-7b", 16, True, False),
+    ("whisper-large-v3", 16, True, False),  # encoder + cross-attention
 ], ids=[*DENSE, "xlstm-1.3b-kernel", "xlstm-1.3b-ragged",
         "xlstm-1.3b-bf16-states", "jamba-v0.1-52b-kernel",
-        "jamba-v0.1-52b-ragged", "qwen2-moe-a2.7b", "olmoe-1b-7b"])
+        "jamba-v0.1-52b-ragged", "qwen2-moe-a2.7b", "olmoe-1b-7b",
+        "whisper-large-v3"])
 def test_forward_train_loss_matches_reference(arch, S, pallas, bf16_states):
     """The loss (ce + 0.01 lb + 0.001 z), the cross-entropy and the MoE
     auxiliaries summed over layers against the JAX package's; the
@@ -245,6 +257,8 @@ def _step_both(compression, n_micro=2, arch="xlstm-1.3b"):
     assert state["opt"]["step"] == 0
     batch = SyntheticLM(DataConfig(vocab_size=cfg.vocab_size, seq_len=16,
                                    global_batch=4, seed=7)).batch_at(3)
+    if cfg.encoder_layers:
+        batch["frames"] = _frames(cfg, 4, np.random.default_rng(7))
     jfn = jax.jit(jstep.make_train_step(
         jcfg, jrt, jstep.TrainHyper(opt=JCfg(**opt),
                                     grad_compression=compression), n_micro))
@@ -294,12 +308,16 @@ def test_train_step_matches_reference():
     _check_step(state, want)
 
 
-@pytest.mark.parametrize("arch", ["jamba-v0.1-52b", "phi3-mini-3.8b"])
+@pytest.mark.parametrize("arch", ["jamba-v0.1-52b", "phi3-mini-3.8b",
+                                  "whisper-large-v3"])
 def test_train_step_matches_reference_with_attention_mamba_and_moe(arch):
     """The same step of the cut reduced jamba (Mamba with and without MoE,
-    attention through the flash backward's plain version) and of a dense
-    config, now that attention trains: loss (ce plus the weighted MoE
-    auxiliaries), grad norm, AdamW m and v, parameters."""
+    attention through the flash backward's plain version), of a dense
+    config and of the reduced whisper (its encoder, decoder self- and
+    cross-attention, the parameters checked also holding the reference's
+    decay of every encoder leaf and not of ``enc_norm``): loss (ce plus
+    the weighted MoE auxiliaries), grad norm, AdamW m and v,
+    parameters."""
     state, m, want, jm = _step_both("none", arch=arch)
     for k in MOE_KEYS:
         assert float(m[k]) == pytest.approx(float(jm[k]), rel=LOSS_RTOL,
@@ -447,15 +465,26 @@ def _checkpoints_cross(tmp_path, dtype, arch):
     return np.load(tmp_path / "port" / "step_00000012.npz"), cfg
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
-                         ids=["fp32", "bf16"])
-def test_checkpoints_cross_both_ways(tmp_path, dtype):
+@pytest.mark.parametrize("dtype,arch", [
+    (torch.float32, "xlstm-1.3b"), (torch.bfloat16, "xlstm-1.3b"),
+    (torch.bfloat16, "whisper-large-v3")],
+    ids=["fp32", "bf16", "whisper-bf16"])
+def test_checkpoints_cross_both_ways(tmp_path, dtype, arch):
     """A JAX checkpoint restores into the port bit for bit (bf16 leaves
     too), and a port checkpoint restores into the JAX package; both use
-    the JAX key layout."""
-    flat, cfg = _checkpoints_cross(tmp_path, dtype, "xlstm-1.3b")
-    assert "params/blocks/pos1/mixer/r" in flat.files
+    the JAX key layout (whisper's encoder leaves stacked over its layers
+    under ``enc_blocks``, with no ``pos<i>`` level)."""
+    flat, cfg = _checkpoints_cross(tmp_path, dtype, arch)
     assert flat["params/blocks/pos0/mixer/wq"].shape[0] == cfg.n_periods
+    if arch == "xlstm-1.3b":
+        assert "params/blocks/pos1/mixer/r" in flat.files
+        return
+    for key in ("params/enc_blocks/mixer/wq", "opt/m/enc_blocks/ffn/w_up",
+                "opt/v/enc_norm/scale", "params/blocks/pos0/cross/wk",
+                "ef/enc_blocks/mixer_norm/bias"):
+        assert key in flat.files, key
+    assert flat["params/enc_blocks/mixer/wq"].shape[0] == cfg.encoder_layers
+    assert flat["params/enc_norm/scale"].shape == (cfg.d_model,)
 
 
 def test_jamba_checkpoints_cross_both_ways(tmp_path):
