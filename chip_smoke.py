@@ -99,11 +99,26 @@ Phases:
      21 clustering studies, one round, every family's kernels launching;
      phase 7's card-vs-CPU parity on the clustering fleet, near-ties
      judged by a float64 replay of the pick; ``Tuner(optimizer=
-     "clustering")`` batch 5 on phase 6's mixed Branin.
+     "clustering")`` batch 5 on phase 6's mixed Branin;
+ 20. the fault-tolerant schedulers and the durable service: (a)
+     ``Tuner`` (GP, batch 5 x 3) on phase 6's mixed Branin through
+     ``ProcessScheduler`` while this process holds a CUDA context, each
+     trial computed on the card in a spawned worker, with each batch's
+     wall and a two-worker pool's start by spawn and by forkserver; (b)
+     ``Tuner`` (GP) and ``AsyncTuner`` (TPE) over ``TaskQueueScheduler``
+     with injected failures and stragglers, the dropped submit sequences
+     equal to the CPU port's; (c) the service at a fleet's size over HTTP
+     on the card (64 studies: 22 GP, 21 TPE, 21 clustering; 40
+     observations each, one compaction, 3 rounds of ask(4) -> tell): ask
+     latency over HTTP and in the bank, journal ms an op, the launches;
+     a restart on its data dir JSON-equal to an uninterrupted twin and its
+     next asks bit-equal; (d) the chaos grid (5 seeded SIGKILLs of server
+     subprocesses on the card against an in-process oracle on the card).
 
 The kernels line's ``launches`` add up each kernel's launches over the
 main paths that run it (flash: phases 8, 13, 16 and 17; ``score_cov``:
-phases 3 and 19).
+phases 3, 19 and 20c; ``var_downdate``: phases 3 and 20c;
+``tpe_scores``: phases 4 and 20c).
 
 The second-to-last line is a JSON object with one entry per kernel; the last
 line is ``{"ok": true, "device": {...}}``.  Any failure exits non-zero before
@@ -111,11 +126,15 @@ that line.  Without a CUDA device it exits 2 and prints no result.
 """
 from __future__ import annotations
 
+import concurrent.futures as cf
 import ctypes
 import json
 import math
+import multiprocessing
+import os
 import subprocess
 import sys
+import threading
 import time
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
@@ -147,7 +166,12 @@ from repro_torch.models import (Runtime, forward_decode,  # noqa: E402
                                 forward_prefill, init_params)
 from repro_torch.models.transformer import layer_specs  # noqa: E402
 from repro_torch.optim.adamw import AdamWConfig  # noqa: E402
-from repro_torch.scheduler import SerialScheduler  # noqa: E402
+from repro_torch.scheduler import (FaultInjection,  # noqa: E402
+                                   ProcessScheduler, SerialScheduler,
+                                   TaskQueueScheduler)
+from repro_torch.service import (ServiceClient, TuningService,  # noqa
+                                 chaos)
+from repro_torch.service import serve as serve_service  # noqa: E402
 from repro_torch.train.step import (TrainHyper,  # noqa: E402
                                     init_train_state, make_decode_step,
                                     make_prefill_step, make_train_step)
@@ -2689,6 +2713,304 @@ def cluster_fleet_path(dev):
         raise AssertionError(f"clustering Tuner launches {ops.launches}")
     return launches["score_cov"]
 
+# --------------------------------------------------------------------------- #
+# phase 20: the fault-tolerant schedulers and the durable service
+# --------------------------------------------------------------------------- #
+SERVICE = dict(B=64, n_obs=40, batch=4, rounds=3)
+SERVICE_FAMILIES = (("bayesian", 22), ("tpe", 21), ("clustering", 21))
+QUEUE_FAULTS = dict(failure_rate=0.2, straggler_rate=0.1,
+                    straggler_delay=0.05, seed=0)
+
+
+def card_branin(p: dict) -> float:
+    """Phase 20a's trial, run in a worker process: the mixed Branin of
+    phase 6 computed on the card in float64."""
+    x = torch.tensor([p["x1"], float(p["x2"])], dtype=torch.float64,
+                     device="cuda")
+    a, b, c = 1.0, 5.1 / (4 * math.pi ** 2), 5 / math.pi
+    r, s, t = 6.0, 10.0, 1 / (8 * math.pi)
+    v = (a * (x[1] - b * x[0] ** 2 + c * x[0] - r) ** 2
+         + s * (1 - t) * torch.cos(x[0]) + s)
+    return float(v.item()) + {"low": 0.0, "high": 12.0}[p["mode"]]
+
+
+def _worker_pid(_):
+    return os.getpid()
+
+
+def pool_start_s(method: str, n_workers: int = 2) -> float:
+    """Seconds to start a pool of ``n_workers`` processes by ``method``,
+    run one no-op task on each and shut the pool down."""
+    ctx = multiprocessing.get_context(method)
+    t0 = time.perf_counter()
+    with cf.ProcessPoolExecutor(max_workers=n_workers, mp_context=ctx) as ex:
+        list(ex.map(_worker_pid, range(n_workers)))
+    return time.perf_counter() - t0
+
+
+def process_scheduler_path(dev):
+    """Phase 20a: ``Tuner`` (GP, batch 5, 3 iterations) on the mixed
+    Branin through ``ProcessScheduler``'s batch objective while this
+    process holds a CUDA context; every trial computes on the card in a
+    worker process.  Logs each batch's wall and the start cost of a
+    two-worker pool by spawn and by forkserver."""
+    torch.zeros(1, device=dev)                  # this process holds a context
+    sched = ProcessScheduler(n_workers=2)
+    batch_objective = sched.make_objective(card_branin)
+    walls = []
+
+    def timed(params_list):
+        t0 = time.perf_counter()
+        out = batch_objective(params_list)
+        walls.append(time.perf_counter() - t0)
+        return out
+
+    res = Tuner(branin_space(), timed,
+                dict(batch_size=5, num_iteration=3, seed=3,
+                     device=dev)).minimize()
+    assert res.n_failed == 0, res.n_failed
+    assert len(res.params_tried) == 2 + 5 * 3, len(res.params_tried)
+    worst = max(abs(v - modified_branin(p))
+                for p, v in zip(res.params_tried, res.objective_values))
+    starts = {m: pool_start_s(m) for m in ("spawn", "forkserver")}
+    starts["forkserver again"] = pool_start_s("forkserver")
+    log(f"[process] Tuner GP batch 5 x 3 through ProcessScheduler(2) "
+        f"(spawned workers): {len(walls)} batches, wall per batch "
+        + ", ".join(f"{w:.3f}" for w in walls) + " s (mean "
+        f"{sum(walls) / len(walls):.3f} s); card objective vs host: max "
+        f"abs diff {worst:.3e}; best {res.best_objective:.5f}")
+    log("[process] a two-worker pool's start (2 no-op tasks, shutdown): "
+        + ", ".join(f"{m} {v:.3f} s" for m, v in starts.items()))
+    if worst > 1e-9:
+        raise AssertionError(f"card objective differs by {worst}")
+
+
+def _fault_queue_run(kind, dev):
+    """One driver run over a fault-injecting task queue; returns the
+    results, the submit sequence numbers that were dropped and the count
+    of submits."""
+    sched = TaskQueueScheduler(n_workers=4,
+                               faults=FaultInjection(**QUEUE_FAULTS))
+    handles = []
+    submit = sched.submit
+
+    def recording(fn, params):     # submits come from one thread, in order
+        h = submit(fn, params)
+        handles.append(h)
+        return h
+
+    sched.submit = recording
+    if kind == "tuner":
+        res = Tuner(branin_space(), modified_branin,
+                    dict(batch_size=5, num_iteration=6, seed=3,
+                         scheduler=sched, device=dev)).minimize()
+    else:
+        res = AsyncTuner(branin_space(), modified_branin, sched,
+                         optimizer="tpe", num_evals=30, batch_size=4,
+                         initial_random=2, seed=3, device=dev).minimize()
+    if not sched.shutdown(timeout=30.0):
+        raise AssertionError("task queue did not drain")
+    dropped = [i for i, h in enumerate(handles) if h.error is not None]
+    return res, dropped, len(handles), dict(sched.stats)
+
+
+def fault_queue_path(dev):
+    """Phase 20b: ``Tuner`` (GP, batch 5) and ``AsyncTuner`` (TPE) over
+    ``TaskQueueScheduler`` with injected failures and stragglers, on the
+    card and on the CPU port: the dropped submit sequence numbers are a
+    pure function of the seed, so they must be equal."""
+    for kind in ("tuner", "async"):
+        t0 = time.perf_counter()
+        res, dropped, n, stats = _fault_queue_run(kind, dev)
+        wall = time.perf_counter() - t0
+        _, cpu_dropped, cpu_n, _ = _fault_queue_run(kind, "cpu")
+        log(f"[faults] {kind}: {n} submits, dropped seqs {dropped} (CPU "
+            f"port: {cpu_dropped} of {cpu_n}), stats {stats}, "
+            f"n_failed {res.n_failed}, best {res.best_objective:.5f}, "
+            f"{wall:.2f} s on the card")
+        if (dropped, n) != (cpu_dropped, cpu_n) or not dropped:
+            raise AssertionError(f"{kind}: dropped set differs from the "
+                                 "CPU port's or is empty")
+        if res.n_failed != len(dropped):
+            raise AssertionError(f"{kind}: {res.n_failed} failed trials "
+                                 f"for {len(dropped)} dropped")
+
+
+def _pct(xs, q):
+    return float(np.percentile(np.asarray(xs), q))
+
+
+def service_config():
+    return {"space": {f"x{i}": {"uniform": [0.0, 1.0]} for i in range(6)},
+            "max_studies": SERVICE["B"], "optimizer": "bayesian",
+            "seed": 0}
+
+
+def service_studies():
+    names = sum(([nm] * c for nm, c in SERVICE_FAMILIES), [])
+    return [(f"s{b:02d}", nm) for b, nm in enumerate(names)]
+
+
+def service_fill(ex):
+    """Create phase 20c's studies and give each ``n_obs`` observations
+    (one journaled op each), then compact."""
+    rng = np.random.default_rng(20)
+    for name, nm in service_studies():
+        ex.create_study(name, optimizer=nm)
+    for name, _ in service_studies():
+        for _ in range(SERVICE["n_obs"]):
+            p = {f"x{i}": float(x) for i, x in enumerate(rng.uniform(size=6))}
+            ex.observe(name, p, neg_hartmann6(p))
+
+
+def service_round(ex, rnd, lat=None):
+    """One round: ask(batch) -> tell for every study.  ``lat`` collects
+    (family, seconds) of each ask."""
+    for name, nm in service_studies():
+        t0 = time.perf_counter()
+        trials = ex.ask(name, SERVICE["batch"], req_id=f"r{rnd}{name}")
+        if lat is not None:
+            lat.append((nm, time.perf_counter() - t0))
+        rows = trials["trials"]
+        assert len(rows) == SERVICE["batch"] and not trials["cached"]
+        for t in rows:
+            assert all(0.0 <= v <= 1.0 for v in t["params"].values()), t
+            ex.tell(name, t["id"], neg_hartmann6(t["params"]))
+
+
+def service_path(dev):
+    """Phase 20c: the service at a fleet's size over HTTP on the card (64
+    studies: 22 bayesian, 21 tpe, 21 clustering, Hartmann-6, the default
+    candidate budget); 40 observations each through ``observe``, one
+    compaction, then 3 rounds of ask(4) -> tell per study through
+    ``ServiceClient``.  The service is then closed and restarted on its
+    data dir (snapshot + WAL suffix); every study's trials must be
+    JSON-equal to an uninterrupted twin's, and the next ask(4) of one study
+    per family bit-equal.  Returns the rounds' kernel launches."""
+    import tempfile
+    with tempfile.TemporaryDirectory() as tmp:
+        httpd, svc = serve_service(os.path.join(tmp, "svc"), port=0,
+                                   config=service_config(), device=dev)
+        thread = threading.Thread(target=httpd.serve_forever, daemon=True)
+        thread.start()
+        journal, bank_ask = [], []
+        append, apply_op = svc.wal.append, svc.bank.apply_op
+
+        def timed_append(record, mid_hook=None):
+            t0 = time.perf_counter()
+            append(record, mid_hook=mid_hook)
+            journal.append(time.perf_counter() - t0)
+
+        def timed_apply(op):
+            t0 = time.perf_counter()
+            out = apply_op(op)
+            if op["op"] == "ask":
+                bank_ask.append(time.perf_counter() - t0)
+            return out
+
+        svc.wal.append, svc.bank.apply_op = timed_append, timed_apply
+        client = ServiceClient(
+            f"http://127.0.0.1:{httpd.server_address[1]}", timeout=120.0,
+            retries=0)
+        t0 = time.perf_counter()
+        service_fill(client)
+        fill_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        client.compact()
+        compact_s = time.perf_counter() - t0
+        lat = []
+        torch.cuda.synchronize()
+        _reset(ops.launches, tpe_ops.launches)
+        t0 = time.perf_counter()
+        for rnd in range(SERVICE["rounds"]):
+            service_round(client, rnd, lat)
+        rounds_s = time.perf_counter() - t0
+        launches = {"score_cov": ops.launches["score_cov"],
+                    "var_downdate": ops.launches["var_downdate"],
+                    "tpe_scores": tpe_ops.launches["tpe_scores"]}
+        httpd.shutdown()
+        svc.close()
+        n_ops = svc.bank.op_seq
+        ms = [1e3 * x for _, x in lat]
+        log(f"[service] {SERVICE['B']} studies "
+            + " + ".join(f"{c} {nm}" for nm, c in SERVICE_FAMILIES)
+            + f", Hartmann-6, mc_samples "
+            f"{svc.bank.space.mc_samples(SERVICE['batch'])} a study; "
+            f"{SERVICE['B'] * SERVICE['n_obs']} observes over HTTP in "
+            f"{fill_s:.2f} s; {n_ops} journaled ops, journal append + fsync "
+            f"median {1e3 * _pct(journal, 50):.3f} ms, p90 "
+            f"{1e3 * _pct(journal, 90):.3f} ms, mean "
+            f"{1e3 * sum(journal) / len(journal):.3f} ms")
+        log(f"[service] one compaction over HTTP {1e3 * compact_s:.1f} ms; "
+            f"{SERVICE['rounds']} rounds of ask({SERVICE['batch']}) -> tell "
+            f"in {rounds_s:.2f} s; HTTP ask median {_pct(ms, 50):.1f} ms, "
+            f"p90 {_pct(ms, 90):.1f} ms; the same asks in the bank median "
+            f"{1e3 * _pct(bank_ask, 50):.1f} ms, p90 "
+            f"{1e3 * _pct(bank_ask, 90):.1f} ms; launches {launches}")
+        for nm, c in SERVICE_FAMILIES:      # lat is round by round
+            fam = [m for (f, _), m in zip(lat, ms) if f == nm]
+            log(f"[service] {nm}: HTTP ask median {_pct(fam, 50):.1f} ms, "
+                f"p90 {_pct(fam, 90):.1f} ms, max {max(fam):.1f} ms; "
+                "summed per round " + ", ".join(
+                    f"{sum(fam[r * c:(r + 1) * c]):.0f}"
+                    for r in range(SERVICE["rounds"])) + " ms")
+        gp, tpe, cl = (c for _, c in SERVICE_FAMILIES)
+        want = {"score_cov": SERVICE["rounds"] * (gp + cl),
+                "var_downdate": SERVICE["rounds"] * gp
+                * (SERVICE["batch"] - 1),
+                "tpe_scores": SERVICE["rounds"] * tpe}
+        if launches != want:
+            raise AssertionError(f"service asks launched {launches}, "
+                                 f"want {want}")
+        t0 = time.perf_counter()
+        back = TuningService(os.path.join(tmp, "svc"), device=dev)
+        torch.cuda.synchronize()
+        recovery_s = time.perf_counter() - t0
+        log(f"[service] restart on the data dir: {recovery_s:.2f} s "
+            f"({back.recovery})")
+        twin = TuningService(os.path.join(tmp, "twin"),
+                             config=service_config(), device=dev)
+        service_fill(twin)
+        twin.compact()
+        for rnd in range(SERVICE["rounds"]):
+            service_round(twin, rnd)
+        bad = [name for name, _ in service_studies()
+               if back.trials(name) != twin.trials(name)]
+        if bad or back.bank.op_seq != twin.bank.op_seq:
+            raise AssertionError(f"restarted service diverged from its "
+                                 f"twin: studies {bad}")
+        ends = [service_studies()[i][0] for i in (0, gp, gp + tpe)]
+        for name in ends:
+            a = back.ask(name, SERVICE["batch"], req_id="next")["trials"]
+            b = twin.ask(name, SERVICE["batch"], req_id="next")["trials"]
+            if a != b:
+                raise AssertionError(f"{name}: next proposals differ "
+                                     f"after recovery: {a} != {b}")
+        log(f"[service] restarted == uninterrupted twin: {SERVICE['B']} "
+            f"ledgers JSON-equal, op_seq {back.bank.op_seq}, next "
+            f"ask({SERVICE['batch']}) bit-equal for {ends}")
+        back.close()
+        twin.close()
+    return launches
+
+
+def chaos_path(dev):
+    """Phase 20d: the chaos grid (5 seeded SIGKILLs, the JAX package's
+    default config and workload), server subprocesses and the in-process
+    oracle on the card."""
+    import tempfile
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        rep = chaos.run(tmp, kills=5, seed=0, device=str(dev))
+        wall = time.perf_counter() - t0
+    log(f"[chaos] {rep['kills_fired']}/{rep['kills_requested']} kills fired "
+        f"({rep['fired']}) over {rep['steps']} steps in {wall:.2f} s; "
+        "seconds to SERVING per server start (first, restarts, final): "
+        + ", ".join(f"{x:.2f}" for x in rep["start_s"]))
+    if rep["failures"] or rep["kills_fired"] < 4:
+        raise AssertionError(f"chaos: {rep['failures']}, "
+                             f"{rep['kills_fired']} kills fired")
+
 
 def _profiled(fn):
     """``fn()`` under torch.profiler; returns (its result, the wall ms, the
@@ -2905,6 +3227,12 @@ def main(argv) -> int:
         launches[name] += counts[name]
     whisper_parity_path(dev)
     launches["score_cov"] += cluster_fleet_path(dev)
+    process_scheduler_path(dev)
+    fault_queue_path(dev)
+    counts = service_path(dev)
+    for name in ("score_cov", "var_downdate", "tpe_scores"):
+        launches[name] += counts[name]
+    chaos_path(dev)
     gp_src = "src/repro_torch/kernels/gp_acquisition/csrc/gp_acquisition.cu"
     tpe_src = "src/repro_torch/kernels/tpe_kde/csrc/tpe_kde.cu"
     flash_src = ("src/repro_torch/kernels/flash_attention/csrc/"

@@ -19,10 +19,10 @@ Because the ledger (including in-flight trials) lives in the core,
 the sync tuner: pending trials are re-dispatched on resume and the
 remaining proposals replay exactly.
 
-Not ported: the JAX package's ``make_engine`` hook, through which a service
-scheduler supplies a remote study as the core.  The service is a later
-slice; here the core is always a local ``AskTellOptimizer`` on ``device``
-(``cuda`` unless ``"cpu"`` is asked for).
+The core is a local ``AskTellOptimizer`` on ``device`` (``cuda`` unless
+``"cpu"`` is asked for), unless the scheduler supplies one through
+``make_engine`` (``ServiceScheduler``: a remote study on the durable tuning
+service, whose strategy settings live server-side).
 """
 from __future__ import annotations
 
@@ -41,7 +41,8 @@ class AsyncTuner:
                  trial_fn: Callable[[Dict[str, Any]], float],
                  scheduler, num_evals: int = 40, batch_size: int = 4,
                  initial_random: int = 4, seed: int = 0,
-                 mc_samples: Optional[int] = None, refit_every: int = 8,
+                 mc_samples: Optional[int] = None,
+                 poll_interval: float = 0.01, refit_every: int = 8,
                  optimizer: str = "bayesian", fit_steps: int = 40,
                  domain_size: Optional[float] = None,
                  early_stopping: Optional[Callable[[TunerResults], bool]]
@@ -50,17 +51,25 @@ class AsyncTuner:
                  strategy_kwargs: Optional[Dict[str, Any]] = None,
                  device: DeviceLike = None):
         self.trial_fn = trial_fn
-        self.sched = as_async(scheduler)
+        # poll_interval only matters for submit-only schedulers without a
+        # completion condition; everything in-repo wakes on wait_any
+        self.sched = as_async(scheduler, poll=poll_interval)
         self.num_evals = num_evals
         self.batch_size = batch_size
         self.initial_random = initial_random
+        self.poll = poll_interval
         self.early_stopping = early_stopping
         self.checkpoint_path = checkpoint_path
-        self.opt = AskTellOptimizer(
-            param_space, optimizer=optimizer, seed=seed,
-            domain_size=domain_size, mc_samples=mc_samples,
-            fit_steps=fit_steps, refit_every=refit_every,
-            strategy_kwargs=strategy_kwargs, device=device)
+        if hasattr(scheduler, "make_engine"):
+            # scheduler-supplied ask/tell core (ServiceScheduler: a remote
+            # study on the durable service; strategy config is server-side)
+            self.opt = scheduler.make_engine(param_space, None)
+        else:
+            self.opt = AskTellOptimizer(
+                param_space, optimizer=optimizer, seed=seed,
+                domain_size=domain_size, mc_samples=mc_samples,
+                fit_steps=fit_steps, refit_every=refit_every,
+                strategy_kwargs=strategy_kwargs, device=device)
         self.space = self.opt.space
         if checkpoint_path and Path(checkpoint_path).exists():
             self.load_state(checkpoint_path)

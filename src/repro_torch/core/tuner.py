@@ -15,7 +15,8 @@ Config keys (mirroring Mango's ``conf_dict``):
   seed (0), early_stopping (callable(results) -> bool),
   checkpoint_path (None), fit_steps (40), refit_every (8),
   scheduler (None; a ``repro_torch.scheduler`` scheduler — then
-  ``objective`` is a per-trial callable it wraps into the batch objective),
+  ``objective`` is a per-trial callable it wraps into the batch objective;
+  a scheduler with ``make_engine`` also supplies the ask/tell core),
   strategy_kwargs (None; TPE's ``gamma`` and ``pending_penalty``,
   clustering's ``top_frac``; an unknown key raises ``TypeError`` at the
   first ask), device (None ->
@@ -69,14 +70,21 @@ class Tuner:
             # paper's batch objective
             objective = sched.make_objective(objective)
         self.objective = objective
-        self.opt = AskTellOptimizer(
-            param_space, optimizer=self.conf["optimizer"],
-            seed=self.conf["seed"], domain_size=self.conf["domain_size"],
-            mc_samples=self.conf["mc_samples"],
-            fit_steps=self.conf["fit_steps"],
-            refit_every=self.conf["refit_every"],
-            strategy_kwargs=self.conf["strategy_kwargs"],
-            device=self.conf["device"])
+        if sched is not None and hasattr(sched, "make_engine"):
+            # the scheduler supplies the ask/tell core itself (e.g.
+            # ServiceScheduler: a remote study on the durable tuning
+            # service, where strategy config lives server-side)
+            self.opt = sched.make_engine(param_space, self.conf)
+        else:
+            self.opt = AskTellOptimizer(
+                param_space, optimizer=self.conf["optimizer"],
+                seed=self.conf["seed"],
+                domain_size=self.conf["domain_size"],
+                mc_samples=self.conf["mc_samples"],
+                fit_steps=self.conf["fit_steps"],
+                refit_every=self.conf["refit_every"],
+                strategy_kwargs=self.conf["strategy_kwargs"],
+                device=self.conf["device"])
         self.space = self.opt.space
         self._iteration = 0
         ckpt = self.conf["checkpoint_path"]

@@ -176,7 +176,7 @@ def run(args, cfg=None) -> dict:
 
 def make_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", default="xlstm-1.3b")
+    ap.add_argument("--arch", default="smollm-135m")
     ap.add_argument("--reduced", action="store_true")
     ap.add_argument("--steps", type=int, default=100)
     ap.add_argument("--batch", type=int, default=8)

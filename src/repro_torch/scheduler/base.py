@@ -14,9 +14,10 @@ framework.  Two execution protocols drive the same ask/tell core:
     exactly then (no polling).
 
 ``BatchToAsyncAdapter`` bridges the two: any batch-objective scheduler
-becomes submittable one trial at a time, keeping its own fault semantics (a
-dropped trial surfaces as a failed handle).  ``as_async`` picks the right
-view automatically, so both tuners accept *any* scheduler.
+(serial, thread pool, process pool, task queue) becomes submittable one
+trial at a time, keeping its own fault semantics (a dropped trial surfaces
+as a failed handle).  ``as_async`` picks the right view automatically, so
+both tuners accept *any* scheduler.
 
 The port's own copy of the JAX package's ``repro.scheduler.base``, plus the
 lock-ownership assertion ``assert_holds`` of ``repro.analysis.sanitizers``:
@@ -102,6 +103,35 @@ class BatchSchedulerBase:
         return BatchToAsyncAdapter(self, coalesce=coalesce)
 
 
+def _identity(x):
+    return x
+
+
+class _WeakTrial:
+    """The adapter's cached view of a trial fn: calls it through a weak
+    reference.  It pickles as the live fn itself, so a process pool's
+    workers receive the fn (the JAX package's closure over the weak
+    reference cannot be pickled: there every ``ProcessScheduler`` trial
+    submitted through the adapter was dropped)."""
+
+    __slots__ = ("ref",)
+
+    def __init__(self, fn: TrialFn):
+        self.ref = weakref.ref(fn)
+
+    def _live(self) -> TrialFn:
+        live = self.ref()
+        if live is None:
+            raise RuntimeError("trial fn was garbage-collected while cached")
+        return live
+
+    def __call__(self, par):
+        return self._live()(par)
+
+    def __reduce__(self):
+        return _identity, (self._live(),)
+
+
 class BatchToAsyncAdapter:
     """Drive a batch-objective ``Scheduler`` one trial at a time.
 
@@ -133,6 +163,8 @@ class BatchToAsyncAdapter:
         self._queue: List[tuple] = []   # (handle, objective, pinned fn)
         self._dispatcher: Optional[threading.Thread] = None
         self._cv = threading.Condition()
+        self._outstanding = 0           # submitted, not yet done
+        self._closed = False            # shutdown() called: submit refused
         # keyed by the fn object itself, weakly: an ``id(fn)`` key outlives
         # the fn, so a later fn allocated at the recycled address would
         # silently inherit the *old* objective (and every entry would leak
@@ -157,17 +189,9 @@ class BatchToAsyncAdapter:
             # (value -> fn -> key) could never be collected; the weak
             # indirection is resolved per call, and ``submit`` pins the
             # wrapped fn for each in-flight trial's duration
-            fn_ref = weakref.ref(fn)
-
-            def call_fn(par):
-                live = fn_ref()
-                if live is None:
-                    raise RuntimeError(
-                        "trial fn was garbage-collected while cached")
-                return live(par)
-
+            call_fn = _WeakTrial(fn)
             obj = self.scheduler.make_objective(call_fn)
-            self._objectives[fn] = (fn_ref, obj)
+            self._objectives[fn] = (call_fn.ref, obj)
             return obj, fn
         except TypeError:
             # unhashable / non-weak-referenceable callables: skip the cache
@@ -176,8 +200,18 @@ class BatchToAsyncAdapter:
     def submit(self, fn: TrialFn, params: Dict[str, Any]) -> TaskHandle:
         handle = TaskHandle(params)
         objective, pin = self._objective_for(fn)
-        if self.coalesce:
-            with self._cv:
+        with self._cv:
+            # closed-check and increment are one critical section:
+            # shutdown() flips _closed under this same lock, so a submit
+            # racing a drain either lands before _closed (counted in
+            # _outstanding, so drained=True waits for it) or raises —
+            # never a trial running after shutdown reported drained
+            if self._closed:
+                raise RuntimeError(
+                    "submit() after shutdown(): this adapter is "
+                    "draining/stopped and accepts no new trials")
+            self._outstanding += 1
+            if self.coalesce:
                 self._queue.append((handle, objective, pin))
                 if self._dispatcher is None:
                     self._dispatcher = threading.Thread(
@@ -185,7 +219,7 @@ class BatchToAsyncAdapter:
                         name="mango-async-coalesce")
                     self._dispatcher.start()
                 self._cv.notify_all()
-            return handle
+                return handle
 
         def run(_pin_fn=pin):   # keep the wrapped fn alive for this trial
             try:
@@ -199,6 +233,7 @@ class BatchToAsyncAdapter:
                 handle.error = e
             with self._cv:
                 handle.done.set()
+                self._outstanding -= 1
                 self._cv.notify_all()
 
         threading.Thread(target=run, daemon=True,
@@ -252,6 +287,7 @@ class BatchToAsyncAdapter:
         with self._cv:
             for h, _ in items:
                 h.done.set()
+            self._outstanding -= len(items)
             self._cv.notify_all()
 
     def wait_any(self, handles: List[TaskHandle],
@@ -263,16 +299,35 @@ class BatchToAsyncAdapter:
                 lambda: any(h.done.is_set() for h in handles), timeout)
             return [h for h in handles if h.done.is_set()]
 
+    # ------------------------------------------------------- graceful drain
+    def shutdown(self, timeout: Optional[float] = None) -> bool:
+        """Stop accepting submits; with a ``timeout``, block until every
+        in-flight trial has completed (drained) or the deadline passes.
+        ``timeout=None`` closes immediately without waiting.  Returns
+        whether the adapter is fully drained — a service caller snapshots
+        only after a ``True`` here, so a stop can't orphan pending trials.
+        Safe to call more than once."""
+        with self._cv:
+            self._closed = True
+            if timeout is None:
+                return self._drained_locked()
+            self._cv.wait_for(self._drained_locked, timeout)
+            return self._drained_locked()
+
+    def _drained_locked(self) -> bool:
+        """Caller must hold ``_cv`` — ``_outstanding`` is only coherent
+        under it (wait_for re-acquires before each predicate call)."""
+        assert_holds(self._cv)
+        return self._outstanding == 0
+
 
 class _PollingWaitShim:
     """Wrap a scheduler that has ``submit`` but no ``wait_any`` (third-party
-    implementations): fall back to polling the done events every
-    ``POLL_S`` seconds."""
+    implementations): fall back to polling the done events."""
 
-    POLL_S = 0.01
-
-    def __init__(self, scheduler):
+    def __init__(self, scheduler, poll: float = 0.01):
         self._sched = scheduler
+        self._poll = poll
 
     def submit(self, fn, params):
         return self._sched.submit(fn, params)
@@ -287,18 +342,19 @@ class _PollingWaitShim:
             if done or (deadline is not None
                         and time.monotonic() >= deadline):
                 return done
-            time.sleep(self.POLL_S)
+            time.sleep(self._poll)
 
 
-def as_async(scheduler, coalesce: bool = False) -> AsyncScheduler:
-    """Return the async (submit/wait_any) view of any scheduler.  Only the
-    shim around submit-only schedulers polls; everything else wakes on a
-    completion condition.  ``coalesce`` batches queued submits into one
-    dispatch per drain (batch-objective schedulers only)."""
+def as_async(scheduler, poll: float = 0.01,
+             coalesce: bool = False) -> AsyncScheduler:
+    """Return the async (submit/wait_any) view of any scheduler.  ``poll``
+    only applies to the shim around submit-only schedulers; everything else
+    wakes on a completion condition.  ``coalesce`` batches queued submits
+    into one dispatch per drain (batch-objective schedulers only)."""
     if hasattr(scheduler, "submit"):
         if hasattr(scheduler, "wait_any"):
             return scheduler
-        return _PollingWaitShim(scheduler)
+        return _PollingWaitShim(scheduler, poll=poll)
     if hasattr(scheduler, "make_objective"):
         return BatchToAsyncAdapter(scheduler, coalesce=coalesce)
     raise TypeError(f"{scheduler!r} implements neither the batch nor the "

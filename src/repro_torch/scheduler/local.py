@@ -1,11 +1,15 @@
-"""Local schedulers: serial (paper Listing 3) and thread pool.
+"""Local schedulers: serial (paper Listing 3), thread pool, process pool.
 
-Both implement the batch-objective protocol.  Copies of the JAX package's
-``repro.scheduler.local`` classes.
+All three implement the batch-objective protocol; ``.as_async()`` (from
+``BatchSchedulerBase``) returns the submit/wait_any view.  Copies of the
+JAX package's ``repro.scheduler.local`` classes, but for the process pool's
+start method: its workers are spawned, never forked.
 """
 from __future__ import annotations
 
+import concurrent.futures as cf
 import logging
+import multiprocessing
 import threading
 import time
 from typing import Any, Dict, List, Optional
@@ -92,5 +96,44 @@ class ThreadScheduler(BatchSchedulerBase):
                 out = (list(evals), list(params))
             cancelled.set()
             return out
+
+        return objective
+
+
+class ProcessScheduler(BatchSchedulerBase):
+    """Process-pool evaluation (trial_fn must be picklable).
+
+    One pool per batch, as in the reference; failed trials are dropped and
+    a batch past ``timeout`` cancels what has not started.  Workers are
+    spawned, not forked: a parent that has touched the card holds a CUDA
+    context, which a forked child cannot use (a forkserver context, which
+    would also do, started its pools no faster on an H100 machine:
+    ``chip_smoke.py`` phase 20a).
+    """
+
+    def __init__(self, n_workers: int = 2, timeout: Optional[float] = None):
+        self.n_workers = n_workers
+        self.timeout = timeout
+
+    def make_objective(self, trial_fn: TrialFn) -> Objective:
+        def objective(params_list):
+            evals, params = [], []
+            ctx = multiprocessing.get_context("spawn")
+            with cf.ProcessPoolExecutor(max_workers=self.n_workers,
+                                        mp_context=ctx) as ex:
+                futs = {ex.submit(trial_fn, par): par for par in params_list}
+                try:
+                    for fut in cf.as_completed(futs, timeout=self.timeout):
+                        par = futs[fut]
+                        try:
+                            evals.append(float(fut.result()))
+                            params.append(par)
+                        except Exception as e:
+                            # dropped -> tuner never observes it
+                            _log.debug("trial dropped (%s): %r", par, e)
+                except cf.TimeoutError:
+                    for fut in futs:
+                        fut.cancel()
+            return evals, params
 
         return objective

@@ -42,6 +42,11 @@ _BLOCKED_RUN = textwrap.dedent("""
     import repro_torch.data.pipeline, repro_torch.tree
     import repro_torch.kernels.ssm_scan.ops, repro_torch.kernels.ssm_scan.ref
     import repro_torch.models.mamba, repro_torch.models.moe
+    import repro_torch.scheduler.local, repro_torch.scheduler.distributed
+    import repro_torch.scheduler.service, repro_torch.service
+    import repro_torch.service.wal, repro_torch.service.recovery
+    import repro_torch.service.client, repro_torch.service.server
+    import repro_torch.service.chaos
     import chip_smoke
     from repro_torch.core import StudyBank
     for opt in ("bayesian", "tpe", ["bayesian", "tpe"]):
@@ -69,6 +74,28 @@ _BLOCKED_RUN = textwrap.dedent("""
         ["--device", "cpu", "--reduced", "--arch", "qwen2-moe-a2.7b",
          "--batch", "2", "--gen", "2"]))
     assert r["logits_finite"]
+    # the service's lazy imports: spaces, the bank, the optimizer's
+    # helpers, TunerResults, all reached through HTTP
+    import tempfile, threading
+    from repro_torch.service import RemoteOptimizer, ServiceClient, serve
+    with tempfile.TemporaryDirectory() as d:
+        httpd, svc = serve(d, port=0, device="cpu", config={{
+            "space": {{"x": {{"uniform": [0.0, 1.0]}},
+                      "n": {{"int": [1, 4]}}}},
+            "max_studies": 2, "mc_samples": 16, "fit_steps": 2}})
+        threading.Thread(target=httpd.serve_forever, daemon=True).start()
+        ro = RemoteOptimizer(ServiceClient(
+            f"http://127.0.0.1:{{httpd.server_address[1]}}"), "iso")
+        ro.sign = 1.0
+        ro.observe_params({{"x": 0.5, "n": 2}}, 0.25)
+        for _ in range(2):
+            for t in ro.ask(2):
+                ro.tell(t.id, t.params["x"])
+        res = ro.results()
+        assert len(res.objective_values) == 5, res
+        assert type(res).__module__ == "repro_torch.core.tuner"
+        httpd.shutdown()
+        svc.close()
     bad = [m for m in sys.modules
            if m.split(".")[0] in ("jax", "jaxlib", "repro")]
     assert not bad, bad

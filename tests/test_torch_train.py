@@ -517,13 +517,26 @@ def test_checkpointer_keeps_the_last_few(tmp_path):
 # --------------------------------------------------------------------------- #
 # the driver
 # --------------------------------------------------------------------------- #
+def test_parser_has_the_reference_flags():
+    """The JAX package's flags and defaults (``--arch`` smollm-135m among
+    them), without ``--pallas`` and with ``--device``."""
+    from repro.launch import train as jtrain
+    from repro_torch.launch import train
+    want = {a.dest: a.default for a in jtrain.make_parser()._actions}
+    got = {a.dest: a.default for a in train.make_parser()._actions}
+    assert got.pop("device") == "cuda"
+    want.pop("pallas")
+    assert got == want
+    assert got["arch"] == "smollm-135m"
+
+
 def test_train_driver_resumes_bit_for_bit(tmp_path):
     """``launch.train.run`` on the CPU: two steps, a checkpoint, a resumed
     run to step 4 equals an uninterrupted one; the JSON keys of the
     reference plus the port's, and no kernel launch on the CPU."""
     from repro_torch.launch import train
-    base = ["--reduced", "--device", "cpu", "--batch", "2", "--seq", "20",
-            "--warmup", "2", "--verbose"]
+    base = ["--arch", "xlstm-1.3b", "--reduced", "--device", "cpu",
+            "--batch", "2", "--seq", "20", "--warmup", "2", "--verbose"]
     full = train.run(train.make_parser().parse_args(base + ["--steps", "4"]))
     d = str(tmp_path / "ck")
     train.run(train.make_parser().parse_args(
@@ -568,7 +581,8 @@ def test_train_driver_runs_jamba_and_records_every_kernel():
 
 def test_train_driver_defaults_to_cuda_and_never_falls_back():
     from repro_torch.launch import train
-    args = train.make_parser().parse_args(["--reduced", "--steps", "1",
+    args = train.make_parser().parse_args(["--arch", "xlstm-1.3b",
+                                           "--reduced", "--steps", "1",
                                            "--batch", "2", "--seq", "8"])
     if torch.cuda.is_available():
         assert train.run(args)["device"].startswith("cuda")
