@@ -115,10 +115,24 @@ Phases:
      next asks bit-equal; (d) the chaos grid (5 seeded SIGKILLs of server
      subprocesses on the card against an in-process oracle on the card).
 
+ 21. the single-study strategy paths: (a) one study of phase 3's stream
+     (200 observations, 16,800 candidates, batch 4, 0 and 3 in flight):
+     ``HallucinationStrategy`` (``hallucination_ref``) and
+     ``FusedHallucinationStrategy`` with the ``chol`` and ``kinv_pallas``
+     scorers, ``ClusteringStrategy.propose`` and ``propose_host``,
+     ``TPEStrategy.propose`` with the pending penalty off and on; card vs
+     CPU picks from one fitted GP (phase 7's oracles, phase 19's replay),
+     each ask's launches of kernels 1-3 as the reference's dispatch implies,
+     the median of five card asks, the condition estimate card vs CPU; (b)
+     ``Tuner(optimizer="hallucination_ref")`` on the factor core, phase 6's
+     mixed Branin batch 5 x 15, and the same run checkpointed at iteration
+     7 and resumed by a fresh Tuner, trying the same configurations; (c)
+     the four examples (``repro_torch.examples``) on the card.
+
 The kernels line's ``launches`` add up each kernel's launches over the
 main paths that run it (flash: phases 8, 13, 16 and 17; ``score_cov``:
-phases 3, 19 and 20c; ``var_downdate``: phases 3 and 20c;
-``tpe_scores``: phases 4 and 20c).
+phases 3, 19, 20c and 21; ``var_downdate``: phases 3, 20c and 21;
+``tpe_scores``: phases 4, 20c and 21).
 
 The second-to-last line is a JSON object with one entry per kernel; the last
 line is ``{"ok": true, "device": {...}}``.  Any failure exits non-zero before
@@ -351,13 +365,17 @@ def top_b_oracle(score):
 # top-set boundary and at a cluster's pick, the acquisition gap over the
 # surface's largest magnitude (NEAR_TIE, the GP pick's margin); at a
 # seeding choice, the draw's distance to the nearest cumulative-weight
-# edge over the total (NEAR_TIE: a float32 sum of n_top = 3,360 weights,
-# in XLA's, cuBLAS's or torch's order, moves an edge by up to n_top x
-# 2^-24 = 2e-4 of it); at a Lloyd or final assignment, a point's two
+# edge over the total (1e-5: the replay sums the weights, rounded to
+# float32 as both devices hold them, in float64, so an edge moves only by
+# the float32 summation of the device that drew: the CPU's cumulative sum
+# accumulates in double and rounds each edge once, the card's scan in
+# float32 moves an edge by ~log2(n_top) 2^-24 = 7e-7 of the total at
+# n_top = 3,360; the rest of the margin is for weights that differ in their
+# last float32 bits); at a Lloyd or final assignment, a point's two
 # nearest centers' squared distances, their gap over the larger (1e-5:
 # ~100 float32 ulps of the distance, the centers being float32 weighted
 # means)
-CLUSTER_TIES = {"top": NEAR_TIE, "seed": NEAR_TIE, "assign": 1e-5,
+CLUSTER_TIES = {"top": NEAR_TIE, "seed": 1e-5, "assign": 1e-5,
                 "pick": NEAR_TIE}
 
 
@@ -380,7 +398,8 @@ def cluster_replay(acq, C, n, n_top, u, iters=10):
     X = C[top]
 
     def choice(p, ui):
-        cum = np.cumsum(p)
+        # the float32 weights both devices draw from, summed in float64
+        cum = np.cumsum(np.asarray(p, np.float32).astype(np.float64))
         r = cum[-1] * (1.0 - float(ui))
         i = min(int(np.searchsorted(cum, r, side="left")), len(p) - 1)
         lo = cum[i - 1] if i else 0.0
@@ -593,12 +612,16 @@ def time_kernels(t, reps: int):
     return recs
 
 
-# (tag, B, S, na, n_act, d): the fleet shape (K resident in shared memory)
-# and one shape for every other branch of score_cov: na 16 and 32 (one
+# (tag, B, S, na, n_act, d): the fleet shape (K resident in shared memory),
+# one study at phase 21's shape and at a small S (the persistent grid at
+# B = 1: one CTA per row block, most SMs idle), and one shape for every
+# other branch of score_cov: na 16 and 32 (one
 # k-slab, zero columns past na) with a ragged S, na 512 and 1024 (K
 # streamed from global memory) and dp 64 at na 256 (streamed: the
 # candidates take the room K would need)
 GP_KERNEL_SHAPES = [("fleet", FLEET["B"], 16800, 256, 212, 6),
+                    ("single", 1, 16800, 256, 207, 6),
+                    ("single-small", 1, 300, 64, 23, 2),
                     ("ragged", 3, 1000, 16, 11, 19),
                     ("na32-ragged", 2, 517, 32, 29, 6),
                     ("na512", 2, 700, 512, 400, 6),
@@ -643,6 +666,11 @@ def check_kernels(dev, reps_main: int):
             check_deterministic("score_cov fleet shape (mu, sig2, K)",
                                 lambda: ops.score_cov(*args), "kernels")
             recs = time_kernels(inputs, reps_main)
+        if tag.startswith("single"):
+            for name, r in time_kernels(inputs, reps_main).items():
+                log(f"[kernels] {name} at B = 1 ({tag}, S={S} na={na}): "
+                    f"kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} "
+                    f"ms, bound {r['bound_ms']:.6f} ms ({r['bound_by']})")
         del inputs
     for name, r in recs.items():
         r["max_abs_err"] = worst[name]
@@ -2505,7 +2533,7 @@ def oracle_judge(oracle_for):
     def judge(bank, led, C, in_flight, b, ig, ic):
         ok, slot = picks_agree(ig, ic, oracle_for(bank, led, C, in_flight,
                                                   b))
-        return ok, f"from slot {slot}", None
+        return ok, f"from slot {slot}", None, []
     return judge
 
 
@@ -2531,7 +2559,8 @@ def cluster_judge(bank, led, C, in_flight, b, ig, ic):
     return cluster_near_tie(m), (
         "float64 replay " + str(picks) + ", margins "
         + ", ".join(f"{k} {v:.2e} (tol {CLUSTER_TIES[k]:.0e})"
-                    for k, v in m.items())), picks
+                    for k, v in m.items())), picks, [
+        k for k, tol in CLUSTER_TIES.items() if m[k] <= tol]
 
 
 def parity_path(bank, tag, judge, taken_in_by, audit=False):
@@ -2539,7 +2568,8 @@ def parity_path(bank, tag, judge, taken_in_by, audit=False):
     on the CPU, each taking in the same batch of in-flight trials
     (``taken_in_by``); picks must agree except on near-ties, judged by
     ``judge(bank, ledger, C, in_flight, b, card picks, cpu picks)`` ->
-    (near-tie, what it saw, the replay's picks or None).  With ``audit``
+    (near-tie, what it saw, the replay's picks or None, the kinds of
+    margin under their tolerance).  With ``audit``
     the judge also replays every study whose picks agree, and the phase
     prints how many replays see a near-tie and how many of the others
     pick as the CPU did."""
@@ -2569,18 +2599,22 @@ def parity_path(bank, tag, judge, taken_in_by, audit=False):
         FLEET["B"], n_mc, -1)
     bad, ties = 0, 0
     tied, clean, faithful = 0, 0, 0
+    binding = {}
     for b in range(FLEET["B"]):
         ig, ic = ([int(np.flatnonzero((C[b] == r).all(1))[0])
                    for r in bank.space.encode([t.params for t in got[b]])]
                   for got in (got_gpu, got_cpu))
         if ig == ic:
             if audit:
-                tie, _, replay = judge(bank, led, C, in_flight, b, ig, ic)
+                tie, _, replay, kinds = judge(bank, led, C, in_flight, b, ig,
+                                              ic)
                 tied += tie
                 clean += not tie
                 faithful += (not tie) and replay == ic
+                for k in kinds:
+                    binding[k] = binding.get(k, 0) + 1
             continue
-        ok, where, _ = judge(bank, led, C, in_flight, b, ig, ic)
+        ok, where = judge(bank, led, C, in_flight, b, ig, ic)[:2]
         ties += ok
         bad += not ok
         log(f"[{tag}-parity] study {b}: picks differ "
@@ -2590,8 +2624,9 @@ def parity_path(bank, tag, judge, taken_in_by, audit=False):
         f"disagreements {bad}")
     if audit:
         log(f"[{tag}-parity] audit of the {tied + clean} studies whose "
-            f"picks agree: the float64 replay sees a near-tie in {tied}; "
-            f"of the other {clean}, it picks as the CPU did in {faithful}")
+            f"picks agree: the float64 replay sees a near-tie in {tied} "
+            f"(studies under each margin's tolerance: {binding}); of the "
+            f"other {clean}, it picks as the CPU did in {faithful}")
     if bad:
         raise AssertionError(f"{bad} {tag} studies disagree beyond "
                              "near-ties")
@@ -3012,6 +3047,254 @@ def chaos_path(dev):
                              f"{rep['kills_fired']} kills fired")
 
 
+# --------------------------------------------------------------------------- #
+# phase 21: the single-study strategies, hallucination_ref and the examples
+# --------------------------------------------------------------------------- #
+SINGLE = dict(n_obs=FLEET["n_obs"], batch=FLEET["batch"], pending=3, asks=5)
+# launches of (score_cov, var_downdate, tpe_scores) per ask of batch b, from
+# the reference's dispatch: hallucination_ref scores every slot on the host
+# loop; the fused factor core scores once and downdates b - 1 times
+SINGLE_LAUNCHES = {
+    "hallucination_ref chol": lambda b: (0, 0, 0),
+    "hallucination_ref kinv_pallas": lambda b: (b, 0, 0),
+    "fused chol": lambda b: (0, 0, 0),
+    "fused kinv_pallas": lambda b: (1, b - 1, 0),
+    "clustering": lambda b: (1, 0, 0),
+    "clustering propose_host": lambda b: (0, 0, 0),
+    "tpe": lambda b: (0, 0, 1),
+    "tpe pending_penalty": lambda b: (0, 0, 1),
+}
+
+
+def single_study_inputs(seed=0):
+    """Phase 3's Hartmann-6 stream for one study (its 200 observations),
+    three more of its points in flight, and one draw of the default
+    candidate budget."""
+    from repro_torch.core import ParamSpace
+    rng = np.random.default_rng(seed + 1000)
+    rows = rng.uniform(size=(SINGLE["n_obs"] + SINGLE["pending"], 6))
+    y = np.array([neg_hartmann6({f"x{i}": float(x) for i, x in enumerate(r)})
+                  for r in rows[:SINGLE["n_obs"]]], np.float32)
+    space = ParamSpace(hartmann_space())
+    n_mc = space.mc_samples(SINGLE["batch"])
+    cols = space.sample_columns(n_mc, np.random.default_rng(seed + 21))
+    C = np.asarray(space.encode_columns(cols, n_mc), np.float32)
+    X = rows.astype(np.float32)
+    return X[:SINGLE["n_obs"]], y, C, X[SINGLE["n_obs"]:], space.domain_size
+
+
+def _single_strategy(tag, dom, dev):
+    from repro_torch.core.strategies import (ClusteringStrategy,
+                                             FusedHallucinationStrategy,
+                                             HallucinationStrategy)
+    from repro_torch.core.tpe import TPEStrategy
+    if tag.startswith("tpe"):
+        return TPEStrategy(6, dom, device=dev,
+                           pending_penalty="penalty" in tag)
+    if tag.startswith("clustering"):
+        return ClusteringStrategy(6, dom, device=dev)
+    cls = (HallucinationStrategy if tag.startswith("hallucination_ref")
+           else FusedHallucinationStrategy)
+    return cls(6, dom, device=dev, scorer=tag.split()[-1])
+
+
+def _single_judge(tag, cpu, X, y, C, P, dom, seed, got, want):
+    """(near-tie, what the judge saw) for differing card and CPU picks of
+    one single-study ask: phase 7's oracles on the CPU strategy's fitted
+    GP (GP-BUCB, TPE) and phase 19's float64 replay ``cluster_replay``
+    (clustering)."""
+    from repro_torch.core.kmeans import kmeans_uniforms
+    from repro_torch.core.strategies import n_top_candidates
+    if tag.startswith("tpe"):
+        oracle = top_b_oracle(tpe_score64(X, y, C, cpu.gamma,
+                                          P if "penalty" in tag else None))
+        ok, slot = picks_agree(got, want, oracle)
+        return ok, f"from slot {slot}"
+    st = cpu.gp.state
+    z = (y - st.y_mean) / st.y_std
+    hyp = (st.ls.cpu().numpy(), float(st.var), float(st.noise))
+    if tag.startswith("clustering"):
+        acq = bucb_acquisition(X, z, C, *hyp, [], dom, P)
+        n = len(got)
+        _, m = cluster_replay(acq, C, n, n_top_candidates(len(C), n, 0.2),
+                              kmeans_uniforms([seed], n)[0])
+        return cluster_near_tie(m), "margins " + ", ".join(
+            f"{k} {v:.2e}" for k, v in m.items())
+    ok, slot = picks_agree(got, want, lambda prev: bucb_acquisition(
+        X, z, C, *hyp, prev, dom, P))
+    return ok, f"from slot {slot}"
+
+
+def single_study_path(dev):
+    """Phase 21a: one study's asks on the card: ``HallucinationStrategy``
+    and ``FusedHallucinationStrategy`` on the L-based path and the factor
+    core, ``ClusteringStrategy.propose`` (and ``propose_host``),
+    ``TPEStrategy.propose`` with the pending penalty off and on, each with
+    0 and 3 trials in flight.  Each configuration: the CPU strategy asks
+    once; the card strategy starts from a copy of the CPU strategy's GP
+    (``convert``) and asks ``SINGLE["asks"]`` times, with each ask's
+    launches held to ``SINGLE_LAUNCHES``; the card's picks are held against
+    the CPU's (near-ties by ``_single_judge``) and the condition estimate
+    card vs CPU.  Returns the launches summed over the phase."""
+    from repro_torch import convert
+    X, y, C, P_all, dom = single_study_inputs()
+    n = SINGLE["batch"]
+    log(f"[single] one study: {len(y)} Hartmann-6 observations, "
+        f"{len(C)} candidates, batch {n}, 0 and {len(P_all)} in flight, "
+        f"{SINGLE['asks']} card asks each")
+    total = dict(score_cov=0, var_downdate=0, tpe_scores=0)
+    bad = ties = 0
+    for tag in SINGLE_LAUNCHES:
+        for n_pend in (0, SINGLE["pending"]):
+            P = P_all[:n_pend] if n_pend else None
+            seed = 7
+            cpu = _single_strategy(tag, dom, "cpu")
+            card = _single_strategy(tag, dom, dev)
+            if hasattr(cpu, "gp"):
+                # both sides start from one fitted GP: the fused and
+                # clustering asks observe nothing new and keep it; the
+                # reference loop refits from its log-params
+                cpu.gp.observe(X, y)
+                card.gp = convert.gaussian_process_from_numpy(
+                    convert.gaussian_process_to_numpy(cpu.gp), dev)
+            host = tag.endswith("propose_host")
+            call = "propose_host" if host else "propose"
+            t0 = time.perf_counter()
+            want = getattr(cpu, call)(X, y, C, n, seed=seed, pending=P)
+            cpu_s = time.perf_counter() - t0
+            times, got = [], None
+            for _ in range(SINGLE["asks"]):
+                _reset(ops.launches, tpe_ops.launches)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                picks = getattr(card, call)(X, y, C, n, seed=seed, pending=P)
+                torch.cuda.synchronize()
+                times.append((time.perf_counter() - t0) * 1e3)
+                seen = (ops.launches["score_cov"],
+                        ops.launches["var_downdate"],
+                        tpe_ops.launches["tpe_scores"])
+                if seen != SINGLE_LAUNCHES[tag](n):
+                    raise AssertionError(
+                        f"{tag}: launches (score_cov, var_downdate, "
+                        f"tpe_scores) {seen}, expected "
+                        f"{SINGLE_LAUNCHES[tag](n)}")
+                for k, v in zip(total, seen):
+                    total[k] += v
+                got = got or picks
+            cond = ""
+            if hasattr(card, "gp") and cpu.last_cond_proxy is not None:
+                # staged by the fused and clustering asks (as in the JAX
+                # package, the reference loop stages none)
+                cc, cg = cpu.last_cond_proxy, card.last_cond_proxy
+                cond = (f", last_cond_proxy card {cg:.6e} cpu {cc:.6e}")
+                if abs(cg - cc) > 1e-3 * cc:
+                    raise AssertionError(f"{tag}: condition estimates "
+                                         f"{cg} vs {cc}")
+            verdict = "equal"
+            if got != want:
+                ok, seen_by = _single_judge(tag, cpu, X, y, C, P, dom, seed,
+                                            got, want)
+                verdict = ("near-tie" if ok else "DISAGREE") + \
+                    f" ({seen_by}): cuda {got} cpu {want}"
+                ties += ok
+                bad += not ok
+            log(f"[single] {tag}, {n_pend} in flight: picks {verdict}; "
+                f"median ask {float(np.median(times)):.2f} ms (host clock, "
+                f"synchronized; all {', '.join(f'{t:.2f}' for t in times)})"
+                f"; launches per ask {SINGLE_LAUNCHES[tag](n)}; CPU ask "
+                f"{cpu_s:.2f} s{cond}")
+    log(f"[single] configurations {2 * len(SINGLE_LAUNCHES)}, near-ties "
+        f"{ties}, disagreements {bad}; launches {total}")
+    if bad:
+        raise AssertionError(f"{bad} single-study asks disagree")
+    return total
+
+
+def ref_tuner_path(dev):
+    """Phase 21b: ``Tuner(optimizer="hallucination_ref")`` with the factor
+    core on phase 6's mixed Branin, batch 5 x 15, on the card; the same
+    run checkpointed at iteration 7 and resumed by a fresh Tuner must try
+    the same configurations.  Returns the launches of both runs."""
+    import tempfile
+    conf = dict(optimizer="hallucination_ref", batch_size=5,
+                num_iteration=15, seed=3, scheduler=SerialScheduler(),
+                strategy_kwargs={"scorer": "kinv_pallas"}, device=dev)
+    _reset(ops.launches)
+    t0 = time.perf_counter()
+    full = Tuner(branin_space(), modified_branin, conf).minimize()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    got = dict(ops.launches)
+    log(f"[ref-tuner] mixed Branin, hallucination_ref (kinv_pallas) batch "
+        f"5 x 15: best {full.best_objective:.5f} at {full.best_params} "
+        f"({wall:.2f} s, launches {got})")
+    if got != {"score_cov": 15 * 5, "var_downdate": 0}:
+        raise AssertionError(f"hallucination_ref Tuner launched {got}")
+    with tempfile.TemporaryDirectory() as tmp:
+        ckpt = os.path.join(tmp, "ref_tuner.json")
+        Tuner(branin_space(), modified_branin,
+              dict(conf, num_iteration=7, checkpoint_path=ckpt)).minimize()
+        t0 = time.perf_counter()
+        resumed = Tuner(branin_space(), modified_branin,
+                        dict(conf, checkpoint_path=ckpt)).minimize()
+        torch.cuda.synchronize()
+        rwall = time.perf_counter() - t0
+    same = resumed.params_tried == full.params_tried
+    log(f"[ref-tuner] checkpointed at iteration 7, resumed by a fresh "
+        f"Tuner: {len(resumed.params_tried)} configurations tried, "
+        f"{'identical to' if same else 'DIFFERENT from'} the uninterrupted "
+        f"run ({rwall:.2f} s for the last 8 iterations)")
+    if not same:
+        raise AssertionError("the resumed hallucination_ref Tuner differs")
+    return {"score_cov": ops.launches["score_cov"], "var_downdate": 0}
+
+
+EXAMPLE_RUNS = (("quickstart", []), ("distributed_tuning", []),
+                ("serve_batched", []),
+                ("tune_training", ["--full-width", "--iterations", "2",
+                                   "--batch", "2", "--trial-steps", "5"]))
+
+
+def examples_path(dev):
+    """Phase 21c: the four examples, each through its ``main`` on the card
+    (``tune_training`` at smollm-135m's full width, 2 iterations of 2
+    trials, 5 steps a trial).  Returns the GP and TPE kernels' launches
+    over the four."""
+    import importlib
+    _reset(ops.launches, tpe_ops.launches)
+    for name, argv in EXAMPLE_RUNS:
+        mod = importlib.import_module(f"repro_torch.examples.{name}")
+        t0 = time.perf_counter()
+        out = mod.main(argv + ["--device", str(dev)])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        if name == "distributed_tuning":
+            res = out["sync"]
+            summary = (f"sync best {res.best_objective:.4f} "
+                       f"({len(res.objective_values)} observed, "
+                       f"{res.n_failed} lost), async best "
+                       f"{out['async'].best_objective:.4f} "
+                       f"({len(out['async'].objective_values)} evals)")
+            ok = res.best_objective > 0.9
+        elif name == "serve_batched":
+            summary = (f"generated {out['generated_shape']}, decode "
+                       f"{out['decode_tok_s']} tokens/s")
+            ok = out["generated_shape"][1] == 12 and out["logits_finite"]
+        else:
+            summary = (f"best {out.best_objective:.5f} over "
+                       f"{len(out.objective_values)} trials")
+            ok = math.isfinite(out.best_objective) and (
+                name != "quickstart" or out.best_objective > 0.85)
+        log(f"[examples] {name}: {summary}; {wall:.2f} s")
+        if not ok:
+            raise AssertionError(f"example {name}: {summary}")
+    got = {**ops.launches, **tpe_ops.launches}
+    log(f"[examples] launches over the four: {got}")
+    if got["score_cov"] < 1:
+        raise AssertionError(f"the examples' tuners skipped score_cov: {got}")
+    return got
+
+
 def _profiled(fn):
     """``fn()`` under torch.profiler; returns (its result, the wall ms, the
     profiler)."""
@@ -3130,6 +3413,12 @@ def main(argv) -> int:
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 2
     dev = torch.device("cuda")
+    start = time.perf_counter()
+
+    def wall(phases):
+        log(f"[wall] phases {phases} done at "
+            f"{time.perf_counter() - start:.1f} s")
+
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     card = card_line()
@@ -3189,6 +3478,7 @@ def main(argv) -> int:
     recs.update(check_mlstm_kernels(dev, reps_main=10))
     recs.update(check_ssm_kernels(dev, reps_main=10))
     recs["flash_attention_bwd"] = check_flash_bwd_kernel(dev, reps_main=10)
+    wall("1-2")
     bank, launches = fleet_path(dev)
     tpe_bank, launches["tpe_scores"] = tpe_fleet_path(dev)
     launches["parzen_logdens"] = parzen_path(dev)
@@ -3198,6 +3488,7 @@ def main(argv) -> int:
     parity_path(bank, "gp", oracle_judge(gp_oracle), "bank_absorb")
     parity_path(tpe_bank, "tpe", oracle_judge(tpe_oracle),
                 "joined to the bad split")
+    wall("3-7")
     launches["flash_attention"] = serve_path(dev)
     serve_parity_path(dev)
     if "--profile" in argv:
@@ -3205,6 +3496,7 @@ def main(argv) -> int:
         profile_serve(dev)
     del bank, tpe_bank
     torch.cuda.empty_cache()
+    wall("8-9")
     counts = train_path(dev)
     launches["mlstm_chunk"] = counts["mlstm_chunk"]
     launches["mlstm_chunk_bwd"] = counts["mlstm_chunk_bwd"]
@@ -3213,6 +3505,7 @@ def main(argv) -> int:
     if "--profile" in argv:
         profile_train(dev)
     torch.cuda.empty_cache()
+    wall("10-12")
     counts = jamba_train_path(dev)
     for name in ("ssm_scan", "ssm_scan_bwd", "flash_attention_bwd"):
         launches[name] = counts[name]
@@ -3221,18 +3514,27 @@ def main(argv) -> int:
     if "--profile" in argv:
         profile_jamba_train(dev)
     torch.cuda.empty_cache()
+    wall("13-15")
     launches["flash_attention"] += whisper_serve_path(dev)
     counts = whisper_train_path(dev)
     for name in ("flash_attention", "flash_attention_bwd"):
         launches[name] += counts[name]
     whisper_parity_path(dev)
+    wall("16-18")
     launches["score_cov"] += cluster_fleet_path(dev)
+    wall("19")
     process_scheduler_path(dev)
     fault_queue_path(dev)
     counts = service_path(dev)
     for name in ("score_cov", "var_downdate", "tpe_scores"):
         launches[name] += counts[name]
     chaos_path(dev)
+    wall("20")
+    for counts in (single_study_path(dev), ref_tuner_path(dev),
+                   examples_path(dev)):
+        for name in ("score_cov", "var_downdate", "tpe_scores"):
+            launches[name] += counts.get(name, 0)
+    wall("21")
     gp_src = "src/repro_torch/kernels/gp_acquisition/csrc/gp_acquisition.cu"
     tpe_src = "src/repro_torch/kernels/tpe_kde/csrc/tpe_kde.cu"
     flash_src = ("src/repro_torch/kernels/flash_attention/csrc/"

@@ -5,7 +5,12 @@ checkpoint format, see ``StudyBank.load``) and the GP observation stage.
 ``bank_state_from_numpy`` takes the observation-stage arrays as
 ``repro.core.StudyBank._obs_stage`` caches them, fetched to numpy, and
 returns the port's tensors under the same names, ready for
-``gp.bank_pick`` / ``gp.bank_absorb``.
+``gp.bank_pick`` / ``gp.bank_absorb``.  One study's GP moves with
+``gp_state_from_numpy`` / ``gp_state_to_numpy`` (a ``GPState``: padded
+buffers, factors, hyperparameters, host scalars) and
+``gaussian_process_from_numpy`` / ``gaussian_process_to_numpy`` (the
+facade: its state, fit schedule and observed history), so both packages
+can pick from one fitted state.
 
 The model stack's state is its parameters and, in training, the AdamW
 moments and step (and the error-feedback buffer).  The JAX package stacks
@@ -46,6 +51,76 @@ def bank_state_from_numpy(arrays: Dict[str, np.ndarray],
     return {k: torch.as_tensor(np.ascontiguousarray(arrays[k], np.float32),
                                device=dev).contiguous()
             for k in BANK_STATE_KEYS}
+
+
+# --------------------------------------------------------------------------- #
+# one study's GP
+# --------------------------------------------------------------------------- #
+GP_STATE_ARRAYS = ("X", "y", "mask", "L", "ls", "var", "noise", "Linv")
+GP_STATE_SCALARS = ("n", "y_mean", "y_std")
+
+
+def gp_state_from_numpy(arrays: Dict[str, Any], device: DeviceLike = None):
+    """A ``repro_torch.core.gp.GPState`` on ``device`` from the fields of
+    the JAX package's ``GPState`` as numpy arrays and host scalars
+    (``GP_STATE_ARRAYS``, ``Linv`` may be None, and ``GP_STATE_SCALARS``)."""
+    from repro_torch.core.gp import GPState
+    dev = resolve_device(device)
+    t = {k: None if arrays.get(k) is None else torch.as_tensor(
+        np.array(arrays[k], np.float32), device=dev)
+        for k in GP_STATE_ARRAYS}
+    return GPState(n=int(arrays["n"]), y_mean=float(arrays["y_mean"]),
+                   y_std=float(arrays["y_std"]), **t)
+
+
+def gp_state_to_numpy(st) -> Dict[str, Any]:
+    """The inverse of ``gp_state_from_numpy``."""
+    out = {k: None if getattr(st, k) is None
+           else getattr(st, k).detach().cpu().numpy()
+           for k in GP_STATE_ARRAYS}
+    out.update(n=st.n, y_mean=st.y_mean, y_std=st.y_std)
+    return out
+
+
+GP_FIELDS = ("dim", "fit_steps", "warm_fit_steps", "refit_every",
+             "track_factor", "n_fit")
+
+
+def gaussian_process_from_numpy(fields: Dict[str, Any],
+                                device: DeviceLike = None):
+    """A ``repro_torch.core.gp.GaussianProcess`` on ``device`` from a JAX
+    package ``GaussianProcess`` as plain data: ``GP_FIELDS``, ``state``
+    (``gp_state_from_numpy``'s input or None), ``fit_params`` (the log
+    hyperparameters of the last fit or None) and ``obs_X`` / ``obs_y``
+    (the observed history or None).  It then observes, picks and exports
+    as the original would."""
+    from repro_torch.core.gp import GaussianProcess
+    g = GaussianProcess(fields["dim"], fit_steps=fields["fit_steps"],
+                        refit_every=fields["refit_every"],
+                        track_factor=fields["track_factor"],
+                        warm_fit_steps=fields["warm_fit_steps"],
+                        device=device)
+    g.n_fit = int(fields["n_fit"])
+    if fields.get("state") is not None:
+        g.state = gp_state_from_numpy(fields["state"], g.device)
+    fp = fields.get("fit_params")
+    g._fit_params = None if fp is None else {
+        k: torch.as_tensor(np.array(v, np.float32), device=g.device)
+        for k, v in fp.items()}
+    for k in ("obs_X", "obs_y"):
+        v = fields.get(k)
+        setattr(g, "_" + k, None if v is None else np.asarray(v, np.float32))
+    return g
+
+
+def gaussian_process_to_numpy(g) -> Dict[str, Any]:
+    """The inverse of ``gaussian_process_from_numpy``."""
+    out = {k: getattr(g, k) for k in GP_FIELDS}
+    out["state"] = None if g.state is None else gp_state_to_numpy(g.state)
+    out["fit_params"] = None if g._fit_params is None else {
+        k: v.detach().cpu().numpy() for k, v in g._fit_params.items()}
+    out["obs_X"], out["obs_y"] = g._obs_X, g._obs_y
+    return out
 
 
 # --------------------------------------------------------------------------- #

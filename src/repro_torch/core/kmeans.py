@@ -1,7 +1,8 @@
 """Weighted k-means (k-means++ seeding and Lloyd iterations) for the
 clustering batch strategy (Groves & Pyzer-Knapp 2018), batched over studies.
 
-The counterpart of ``repro.core.kmeans._kmeans``, vmapped over the bank.
+The counterpart of ``repro.core.kmeans._kmeans``, vmapped over the bank,
+and of its host entry ``kmeans_assign``.
 Its random draws depend on the PRNG key alone, not on the points:
 ``jax.random.choice(key, n, p=p)`` is ``r = cumsum(p)[-1] * (1 - u)`` with
 ``u`` a float32 uniform of the key, then ``searchsorted(cumsum(p), r)``
@@ -19,6 +20,7 @@ import numpy as np
 import torch
 
 from repro_torch.core import prng
+from repro_torch.device import DeviceLike, resolve_device
 
 
 def kmeans_uniforms(seeds, k: int) -> np.ndarray:
@@ -78,3 +80,19 @@ def kmeans(X: torch.Tensor, w: torch.Tensor, u: torch.Tensor,
         centers = torch.where(counts > 0,
                               sums / torch.clamp(counts, min=1e-9), centers)
     return torch.argmin(_sqdist(X, centers), dim=-1)
+
+
+def kmeans_assign(X: np.ndarray, weights: np.ndarray, k: int,
+                  seed: int = 0, iters: int = 10,
+                  device: DeviceLike = None) -> np.ndarray:
+    """Host-facing k-means of one point set (the clustering strategy's
+    ``propose_host``): assignment (n,) of X (n, d) with weights (n,) into
+    k clusters, seeded from ``PRNGKey(seed)`` as ``repro.core.kmeans``
+    seeds it, run on ``device``."""
+    if len(X) <= k:
+        return np.arange(len(X))
+    dev = resolve_device(device)
+    t = lambda a: torch.as_tensor(                       # noqa: E731
+        np.asarray(a, np.float32)[None], device=dev)
+    return kmeans(t(X), t(weights), t(kmeans_uniforms([seed], k)[0]),
+                  iters)[0].cpu().numpy()

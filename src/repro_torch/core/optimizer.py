@@ -13,15 +13,17 @@ The array-shaped state lives in a ``StudyLedger`` and an optimizer is a view
 into one of its rows (a private bank of one unless a ``StudyBank`` passes
 its shared ledger).  A GP, clustering or TPE ask past the random phase is
 served by the bank's batched device pipeline on ``device`` (``cuda`` unless
-``"cpu"`` is asked for).  ``strategy_kwargs`` (TPE's ``gamma`` and
-``pending_penalty``, clustering's ``top_frac``) are forwarded to the
-strategy, whose constructor raises ``TypeError`` on an unknown key at the
-first ask.  Trials that never come back are simply
-never told; ``tell_failed`` (or a non-finite ``tell``) records the loss
-without reaching the GP.
+``"cpu"`` is asked for); a ``hallucination_ref`` ask by its strategy's own
+``propose`` on the same device.  ``strategy_kwargs`` (TPE's ``gamma`` and
+``pending_penalty``, clustering's ``top_frac``, the GP strategies'
+``scorer``) are forwarded to the strategy, whose constructor raises
+``TypeError`` on an unknown key at the first ask.  Trials that never come
+back are simply never told; ``tell_failed`` (or a non-finite ``tell``)
+records the loss without reaching the GP.
 ``state_dict``/``load_state_dict`` carry the ledger, the RNG stream and the
-GP fit schedule, so a killed run resumes to the exact proposals of an
-uninterrupted one.
+GP fit schedule (the bank's, or the strategy GP's for ``hallucination_ref``,
+replayed by ``GaussianProcess.restore_exact``), so a killed run resumes to
+the exact proposals of an uninterrupted one.
 """
 from __future__ import annotations
 
@@ -43,7 +45,8 @@ PENDING = "pending"
 OBSERVED = "observed"
 FAILED = "failed"
 
-# strategies whose asks are served by the bucketed StudyBank pipeline
+# strategies whose asks are served by the bucketed StudyBank pipeline; the
+# reference strategy (hallucination_ref) and random keep their own paths
 _BANKABLE = {"bayesian", "hallucination", "tpe", "clustering"}
 
 _STATUS_CODE = {PENDING: S_PENDING, OBSERVED: S_OBSERVED, FAILED: S_FAILED}
@@ -250,7 +253,20 @@ class AskTellOptimizer:
         if self._strat is None:
             self._strat = STRATEGIES[self.optimizer](
                 self.space.dim, self.domain_size, fit_steps=self.fit_steps,
-                refit_every=self.refit_every, **self.strategy_kwargs)
+                refit_every=self.refit_every, device=self.device,
+                **self.strategy_kwargs)
+            if self.optimizer not in _BANKABLE:
+                # the reference strategy replays its GP from the snapshot;
+                # bank-served paths restored theirs into the ledger when
+                # the state dict was loaded
+                gp = getattr(self._strat, "gp", None)
+                if gp is not None and self._gp_snapshot is not None:
+                    obs = self.observed_trials()
+                    if obs:
+                        gp.restore_exact(
+                            self.space.encode([t.params for t in obs]),
+                            self._signed_y(obs), self._gp_snapshot)
+                self._gp_snapshot = None
         return self._strat
 
     def _engine(self):
@@ -283,7 +299,7 @@ class AskTellOptimizer:
             # not enough observations to model: explore at random (the
             # drivers' initial_random phase lands here too)
             chosen = self.space.sample(n, self._rng)
-        else:
+        elif self.optimizer in _BANKABLE:
             # bank-of-one: the bucketed StudyBank pipeline serves the ask,
             # with candidates from this view's own RNG via the columnar
             # sampler (the exact byte stream ``sample`` would consume)
@@ -292,6 +308,17 @@ class AskTellOptimizer:
             cfgs, enc = self._engine().ask_view(self, n, cols, n_mc)
             self._ask_count += 1
             return self._register_asked(list(cfgs), enc)
+        else:
+            n_mc = self.mc_samples or self.space.mc_samples(n)
+            cands = self.space.sample(n_mc, self._rng)
+            C = self.space.encode(cands)
+            X = self.space.encode([t.params for t in obs])
+            y = self._signed_y(obs)
+            pend = self.pending_trials()
+            P = (self.space.encode([t.params for t in pend])
+                 if pend else None)
+            idx = strat.propose(X, y, C, n, seed=seed, pending=P)
+            chosen = [cands[i] for i in idx]
         self._ask_count += 1
         return self._register_asked(chosen)
 
@@ -426,8 +453,14 @@ class AskTellOptimizer:
     # --------------------------------------------------------- state dict
     def _gp_export(self) -> Optional[Dict[str, Any]]:
         """Fit-schedule snapshot for the state dict's ``"gp"`` key, in the
-        v1 format: the ledger row's bank fit schedule, else whatever
-        snapshot a load handed us that has not been consumed yet."""
+        v1 format: the live strategy GP's when it has one (the reference
+        strategy's propose path), else the ledger row's bank fit schedule,
+        else whatever snapshot a load handed us that has not been consumed
+        yet."""
+        gp = getattr(self._strat, "gp", None) if self._strat else None
+        snap = gp.export_state() if gp is not None else None
+        if snap is not None:
+            return snap
         led, b = self._led, self._b
         if int(led.have_fit[b]):
             return {

@@ -19,6 +19,7 @@ from __future__ import annotations
 
 import math
 
+import numpy as np
 import torch
 
 from repro_torch.kernels.gp_acquisition import ops
@@ -143,9 +144,15 @@ def absorb_pending(Xs, y, mask, L, Linv, Ps, n_pending, n_obs, var, noise):
     prescaled like ``Xs``, into its system (GP-BUCB): posterior mean at the
     pending point from the current extended system, hardened rank-1 append,
     phantom y at the mean.  Study b absorbs its first ``n_pending[b]`` rows
-    into slots ``n_obs[b] + j``.  Updates the given tensors in place."""
+    into slots ``n_obs[b] + j``.  Updates the given tensors in place.
+    ``n_pending`` is a tensor (the bank's) or a host sequence, whose rows
+    are chosen without reading the device back (a single study's)."""
     for j in range(Ps.shape[1]):
-        sub = torch.nonzero(n_pending > j)[:, 0]
+        if isinstance(n_pending, torch.Tensor):
+            sub = torch.nonzero(n_pending > j)[:, 0]
+        else:
+            sub = torch.as_tensor(np.nonzero(np.asarray(n_pending) > j)[0],
+                                  device=Ps.device)
         if not len(sub):
             break
         x_new = Ps[sub, j]
@@ -195,3 +202,107 @@ def pick_downdate_from_scores(Cs, mu, sig2, Kc, L, Linv, var, noise, n_obs,
                                    u.contiguous(), schur, sig2, var,
                                    slot=slot)
     return picks
+
+
+# --------------------------------------------------------------------------- #
+# single-study entry points (the strategies' device programs)
+# --------------------------------------------------------------------------- #
+def cond_proxy_from_chol(L: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    """Diagonal lower bound of cond2(K) from its Cholesky factor on the
+    active block: ``(max diag L / min diag L)^2``.  L (..., n, n), mask
+    (..., n) -> (...)."""
+    d = torch.abs(torch.diagonal(L, dim1=-2, dim2=-1))
+    act = mask > 0
+    dmax = torch.where(act, d, 0.0).amax(-1)
+    dmin = torch.where(act, d, torch.inf).amin(-1)
+    return (dmax / torch.clamp(dmin, min=1e-30)) ** 2
+
+
+def scalar(v, device) -> torch.Tensor:
+    """A float32 0-d tensor on ``device``, filled there (no copy from the
+    host)."""
+    return torch.full((), v, dtype=torch.float32, device=device)
+
+
+def prescale_rows(A: torch.Tensor, ls: torch.Tensor) -> torch.Tensor:
+    """Rows A (B, n, d) divided by each study's ARD lengthscales ls (B, d),
+    zero-padded to dp = 8k columns (padded columns add nothing to a
+    distance)."""
+    B, n, d = A.shape
+    out = torch.zeros((B, n, max(8, -(-d // 8) * 8)), dtype=torch.float32,
+                      device=A.device)
+    out[..., :d] = A / ls[:, None, :]
+    return out
+
+
+def prescale(X: torch.Tensor, C: torch.Tensor, ls: torch.Tensor):
+    """One study's observations X (n, d) and candidates C (S, d),
+    prescaled (``prescale_rows``).  The reference also pads S to a Pallas
+    block multiple and masks the padded rows unavailable; ``ops.score_cov``
+    masks its ragged last block itself, so S stays as it is, as in the
+    bank."""
+    return (prescale_rows(X[None], ls[None])[0],
+            prescale_rows(C[None], ls[None])[0])
+
+
+def absorb_pending_one(Xs, y, mask, L, Linv, P, ls, var, noise,
+                       n_obs: int):
+    """One study's in-flight rows P (n_pending, d, raw) absorbed into
+    copies of its system by ``absorb_pending``, at slots ``n_obs + j``;
+    returns the extended (Xs, y, mask, L, Linv)."""
+    if not P.shape[0]:
+        return Xs, y, mask, L, Linv
+    sys_ = [t.clone()[None] for t in (Xs, y, mask, L, Linv)]
+    absorb_pending(*sys_, prescale_rows(P[None], ls[None]), [P.shape[0]],
+                   torch.full((1,), n_obs, dtype=torch.float32,
+                              device=P.device),
+                   var.reshape(1), noise.reshape(1))
+    return tuple(t[0] for t in sys_)
+
+
+def posterior_scores(Cs, Xs, y, mask, Linv, var, noise):
+    """(mu, sig2, Kc, alpha) of one study: prescaled candidates Cs (S, dp)
+    against its prescaled observations Xs (na, dp), mask and standardized y
+    (na,), through the factor Linv (na, na); var and noise 0-d.
+
+    The one scoring entry point of the single-study strategies (the
+    fused GP-BUCB factor core and the clustering pipeline): ``ops.score_cov``
+    at B = 1, the Hopper kernel for a CUDA tensor and its plain version for
+    a CPU one."""
+    alpha = kinv_matvec(Linv[None], (y * mask)[None])
+    mu, sig2, Kc = ops.score_cov(
+        Cs[None].contiguous(), Xs[None].contiguous(),
+        mask[None].contiguous(), Linv[None].contiguous(),
+        alpha.contiguous(), var.reshape(1), noise.reshape(1))
+    return mu[0], sig2[0], Kc[0], alpha[0]
+
+
+def var_downdate(Cs, x_star, Kc, u, schur, sig2, var, slot):
+    """One study's rank-1 variance downdate (``ops.var_downdate`` at B = 1):
+    returns (sig2', knew) and writes knew into column ``slot`` of Kc."""
+    sig2_new, knew = ops.var_downdate(
+        Cs[None], x_star[None].contiguous(), Kc[None], u[None].contiguous(),
+        schur.reshape(1), sig2[None].contiguous(), var.reshape(1),
+        torch.as_tensor([slot], dtype=torch.int32, device=Cs.device)
+        if isinstance(slot, int) else slot.reshape(1).to(torch.int32))
+    return sig2_new[0], knew[0]
+
+
+def pick_downdate_loop(Cs, Xs, y, mask, L, Linv, var, noise, n_obs: int,
+                       domain_size, batch_size: int) -> torch.Tensor:
+    """One study's GP-BUCB slot loop on the factor core: one
+    ``posterior_scores`` pass scores every candidate and caches the masked
+    cross-covariance block, then each slot appends its pick to (L, Linv)
+    and downdates the variance by ``ops.var_downdate``: O(n S) a slot.
+    ``n_obs`` is the host count of rows already in the system; the loop
+    extends copies of L and Linv.  Returns the picks (batch_size,) on the
+    device; nothing is read back inside the loop."""
+    import repro_torch.core.scoring as scoring   # the dispatch test's spy
+    mu, sig2, Kc, _ = scoring.posterior_scores(Cs, Xs, y, mask, Linv, var,
+                                               noise)
+    dev = Cs.device
+    return pick_downdate_from_scores(
+        Cs[None], mu[None], sig2[None], Kc[None], L[None].clone(),
+        Linv[None].clone(), var.reshape(1), noise.reshape(1),
+        scalar(n_obs, dev).reshape(1), scalar(domain_size, dev).reshape(1),
+        batch_size)[0]

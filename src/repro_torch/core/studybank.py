@@ -1,8 +1,9 @@
 """StudyBank: many studies over one array ledger, one batched ask.
 
 The PyTorch counterpart of ``repro.core.studybank`` for the GP-BUCB family
-(``bayesian`` / ``hallucination``), clustering, TPE and the random
-strategy.
+(``bayesian`` / ``hallucination``), clustering, TPE, the random strategy
+and the reference strategy (``hallucination_ref``, which asks through its
+own view).
 
   * ``StudyLedger`` holds every study's trial ledger in fixed-capacity numpy
     arrays (encoded X rows, raw y, status, completion order), counters, RNG
@@ -57,14 +58,15 @@ def _pow2(n: int) -> int:
 
 # strategy name -> dispatch family.  "gp", "cluster" and "tpe" studies ask
 # through the batched device pipeline (each family its own pick; "gp" and
-# "cluster" share the observation stage); "random" studies ask through
-# their own view.
+# "cluster" share the observation stage); "random" and "legacy" (the
+# reference strategy) studies ask through their own view.
 _FAMILY = {
     "bayesian": "gp",
     "hallucination": "gp",
     "clustering": "cluster",
     "tpe": "tpe",
     "random": "random",
+    "hallucination_ref": "legacy",
 }
 
 
@@ -456,10 +458,9 @@ class StudyBank:
         """Propose ``n`` new trials for every study.
 
         Studies still in the random phase (< 2 observations) or with the
-        random strategy ask through their own view; every other study is
-        served by the batched device pipeline, one pass per strategy
-        family.  Returns
-        ``[trials_of_study_0, ...]``.
+        random or reference strategy ask through their own view; every
+        other study is served by the batched device pipeline, one pass per
+        strategy family.  Returns ``[trials_of_study_0, ...]``.
         """
         if n < 1:
             raise ValueError("ask_all(n) requires n >= 1")

@@ -9,7 +9,8 @@ PyTorch counterpart of ``repro.core.tpe``.
     candidate set,
   * parallel batches take the top-b scores (Hyperopt's naive parallelism).
 
-One ask is one batched pass over B studies (``fused_tpe_propose_bank``):
+One ask is one batched pass over B studies (``fused_tpe_propose_bank``;
+one study's, ``fused_tpe_propose``, is the same pass at B = 1):
 the split runs as masked ranks over the padded observation buffer, the
 O(S n d) product-Parzen scorer is ``kernels.tpe_kde.ops.tpe_scores`` (the
 CUDA kernel on the card, its plain version on the CPU), and the batch is
@@ -19,7 +20,8 @@ index comes first, as ``lax.top_k`` orders them in the JAX package.
 Pending trials: ``pending_penalty=True`` (opt-in) hallucinates the
 in-flight configurations into the bad-split KDE ("pessimistic liar"), so
 replacement picks steer away from work already in flight.  The numpy seed
-pipeline is kept as ``TPEStrategy.propose_host``, the parity oracle.
+pipeline is kept as ``TPEStrategy.propose_host``, the parity oracle;
+``TPEStrategy.propose`` is the single-study ask on the device.
 """
 from __future__ import annotations
 
@@ -29,6 +31,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.strategies import STRATEGIES, BaseStrategy
+from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.kernels.tpe_kde import ops
 from repro_torch.kernels.tpe_kde.ref import scott_bandwidth
 
@@ -104,16 +107,26 @@ def fused_tpe_propose_bank(X, y, C, meta, *, batch_size: int,
     return idx[:, :batch_size]
 
 
+def fused_tpe_propose(X, y, C, meta, *, batch_size: int,
+                      d_true: int) -> torch.Tensor:
+    """One study's split, l/g scoring and top-b: ``fused_tpe_propose_bank``
+    at B = 1.  X (na, dp), y (na,), C (Sp, dp), meta (4,) -> (batch_size,)
+    pick indices on X's device."""
+    return fused_tpe_propose_bank(
+        X[None], y[None], C[None], meta[None], batch_size=batch_size,
+        d_true=d_true)[0]
+
+
 class TPEStrategy(BaseStrategy):
-    """Validates TPE's knobs for the bank, whose ``_dispatch_tpe`` serves
-    every ask past the random phase; ``propose_host`` is the numpy oracle
-    of that program."""
+    """TPE's knobs, validated; the bank's ``_dispatch_tpe`` serves a bank's
+    asks past the random phase, ``propose`` one study's on ``device``, and
+    ``propose_host`` is the numpy oracle of both."""
 
     needs_gp = True  # needs observations (not an actual GP)
 
     def __init__(self, dim: int, domain_size: float, gamma: float = 0.25,
                  pending_penalty: bool = False, fit_steps: int = 40,
-                 refit_every: int = 8):
+                 refit_every: int = 8, device: DeviceLike = None):
         # fit_steps/refit_every belong to the strategy-constructor
         # contract; TPE has no GP to apply them to.  Anything else is a
         # typo -> TypeError.
@@ -129,6 +142,11 @@ class TPEStrategy(BaseStrategy):
         self.domain_size = float(domain_size)
         self.gamma = float(gamma)
         self.pending_penalty = bool(pending_penalty)
+        self._device = device      # resolved where ``propose`` runs
+
+    @property
+    def device(self):
+        return resolve_device(self._device)
 
     # ------------------------------------------------------------ host oracle
     def _split_count(self, n: int) -> int:
@@ -205,6 +223,37 @@ class TPEStrategy(BaseStrategy):
         lb = np.log(bad_sum / nb + 1e-12).sum(axis=1)
         top = np.argsort(-(lg - lb), kind="stable")[:batch_size]
         return [int(i) for i in top]
+
+    # --------------------------------------------------------- device program
+    def propose(self, X, y, candidates, batch_size, seed=0,
+                pending=None) -> List[int]:
+        """One pass on the device (``fused_tpe_propose``; the ``tpe_scores``
+        kernel on the card): rows padded to a multiple of 64, candidates to
+        one of 256, as the JAX package pads them; one read-back."""
+        X = np.asarray(X, dtype=np.float32)
+        y = np.asarray(y, dtype=np.float32)
+        C = np.ascontiguousarray(candidates, dtype=np.float32)
+        n, d = X.shape
+        S = len(C)
+        batch_size = min(batch_size, S)
+        n_pend = (len(pending)
+                  if self.pending_penalty and pending is not None else 0)
+        dp = ops.pad_dims(d)
+        na = ops.pad_rows(n + n_pend, 64)
+        Sp = ops.pad_rows(S, 256)
+        Xb = np.zeros((na, dp), np.float32)
+        Xb[:n, :d] = X
+        yb = np.zeros(na, np.float32)
+        yb[:n] = y
+        if n_pend:
+            Xb[n:n + n_pend, :d] = np.asarray(pending, dtype=np.float32)
+        Cb = np.zeros((Sp, dp), np.float32)
+        Cb[:S, :d] = C
+        meta = np.array([n, n_pend, S, self.gamma], np.float32)
+        t = lambda a: torch.as_tensor(a, device=self.device)  # noqa: E731
+        picks = fused_tpe_propose(t(Xb), t(yb), t(Cb), t(meta),
+                                  batch_size=batch_size, d_true=d)
+        return [int(i) for i in picks.cpu().numpy()]   # one exit
 
 
 STRATEGIES["tpe"] = TPEStrategy

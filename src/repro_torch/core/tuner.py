@@ -9,8 +9,8 @@ failed and never reach the surrogate.
 
 Config keys (mirroring Mango's ``conf_dict``):
   batch_size (1), num_iteration (20), initial_random (2),
-  optimizer ("bayesian" | "hallucination" | "clustering" | "tpe" |
-  "random"),
+  optimizer ("bayesian" | "hallucination" | "hallucination_ref" |
+  "clustering" | "tpe" | "random"),
   domain_size (None -> heuristic), mc_samples (None -> heuristic),
   seed (0), early_stopping (callable(results) -> bool),
   checkpoint_path (None), fit_steps (40), refit_every (8),
@@ -18,8 +18,8 @@ Config keys (mirroring Mango's ``conf_dict``):
   ``objective`` is a per-trial callable it wraps into the batch objective;
   a scheduler with ``make_engine`` also supplies the ask/tell core),
   strategy_kwargs (None; TPE's ``gamma`` and ``pending_penalty``,
-  clustering's ``top_frac``; an unknown key raises ``TypeError`` at the
-  first ask), device (None ->
+  clustering's ``top_frac``, the GP strategies' ``scorer``; an unknown key
+  raises ``TypeError`` at the first ask), device (None ->
   "cuda"; "cpu" runs the plain PyTorch versions on the CPU).
 """
 from __future__ import annotations

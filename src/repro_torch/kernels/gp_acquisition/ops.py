@@ -7,13 +7,15 @@ launch raises.  ``launches`` counts kernel launches per wrapper (CPU calls
 leave it alone), so a run can show that its main path went through the
 kernels; one ``score_cov`` call enqueues the split of L^-1 into TF32 parts
 and the scoring kernel, and counts once.  ``ref.score_cov_split`` is the
-scoring kernel's arithmetic for the CPU tests.
+scoring kernel's arithmetic for the CPU tests.  ``gp_mean_std`` is the
+single-study entry of the strategies' host loop (``HallucinationStrategy``).
 """
 from __future__ import annotations
 
 import ctypes
 from pathlib import Path
 
+import numpy as np
 import torch
 
 from repro_torch.kernels import build
@@ -162,3 +164,29 @@ def var_downdate(Cs, x_star, Kc, u, schur, sig2, var, slot):
     _raise_on(lib, err, "var_downdate")
     launches["var_downdate"] += 1
     return sig2_new, knew
+
+
+def gp_mean_std(st, cands):
+    """(mu, sd) of one study's GP at the candidates, in the original y
+    scale, as host arrays: ``score_cov`` at B = 1, both moments from one
+    launch.  ``st`` is a ``repro_torch.core.gp.GPState``; its tracked
+    factor L^-1 is used when it has one, else solved from L.  ``cands``
+    (S, d) is a host array or a tensor."""
+    dev = st.L.device
+    if st.Linv is not None:
+        Linv = st.Linv
+    else:
+        eye = torch.eye(st.L.shape[0], dtype=torch.float32, device=dev)
+        Linv = torch.linalg.solve_triangular(st.L, eye, upper=False)
+    Linv = Linv.contiguous()
+    alpha = Linv.T @ (Linv @ (st.y * st.mask))
+    C = torch.as_tensor(cands, dtype=torch.float32, device=dev)
+    d = C.shape[1]
+    dp = max(8, -(-d // 8) * 8)
+    pad = lambda A: torch.nn.functional.pad(        # noqa: E731
+        A / st.ls, (0, dp - d)).contiguous()[None]
+    mu, sig2, _ = score_cov(pad(C), pad(st.X), st.mask[None].contiguous(),
+                            Linv[None], alpha[None].contiguous(),
+                            st.var.reshape(1), st.noise.reshape(1))
+    mu, sig2 = mu[0].cpu().numpy(), sig2[0].cpu().numpy()   # one exit
+    return mu * st.y_std + st.y_mean, np.sqrt(sig2) * st.y_std

@@ -2,6 +2,7 @@
 scheduler protocol: ``AsyncTuner`` with TPE replays the JAX package's
 trials and its own proposals across a kill, and the adapters that make any
 batch scheduler submittable keep their fault and coalescing contracts."""
+import torch_threads  # noqa: F401  (xdist workers share the cores)
 import gc
 import threading
 import time
@@ -48,17 +49,22 @@ TPE_KW = dict(optimizer="tpe", num_evals=10, batch_size=2, initial_random=2,
               seed=7, strategy_kwargs={"pending_penalty": True})
 
 
-@pytest.mark.parametrize("optimizer", ["tpe", "random"])
+@pytest.mark.parametrize("optimizer", ["tpe", "random",
+                                       "hallucination_ref"])
 def test_async_tuner_matches_repro(optimizer):
     """Same seed, same inline scheduler: the port's async run tries the JAX
     package's configs in the same order (TPE with in-flight trials in the
-    bad split)."""
+    bad split; the reference GP-BUCB loop hallucinating them, on the
+    factor core, against the JAX package's Pallas kernels in interpret
+    mode)."""
     from repro.core import AsyncTuner as JAsyncTuner
     from repro.scheduler.base import TaskHandle as JTaskHandle
 
     kw = dict(TPE_KW, optimizer=optimizer, mc_samples=500, fit_steps=10)
     if optimizer != "tpe":
         kw.pop("strategy_kwargs")
+    if optimizer == "hallucination_ref":   # the trial in flight absorbed
+        kw["strategy_kwargs"] = {"scorer": "kinv_pallas"}
     want = JAsyncTuner(SPACE, quad, InlineScheduler(JTaskHandle),
                        **kw).maximize()
     got = AsyncTuner(SPACE, quad, InlineScheduler(), device="cpu",

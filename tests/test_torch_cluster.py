@@ -13,6 +13,7 @@ Hyperparameters are frozen in the bank tests, as in
 float32 fits (Adam, summed in their own orders) do not enter.  The card
 test at the end skips without a card.
 """
+import torch_threads  # noqa: F401  (xdist workers share the cores)
 import json
 import math
 import sys

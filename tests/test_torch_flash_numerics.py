@@ -13,6 +13,7 @@ of their largest magnitude.  The oracle computes in fp32 on the same bf16
 values, so what the check measures is what the kernels' rounding of P and
 dS costs, at every shape kind the card checks hold the kernels at.
 """
+import torch_threads  # noqa: F401  (xdist workers share the cores)
 import sys
 from pathlib import Path
 

@@ -7,6 +7,7 @@ factors agree to about 100 ulps of their largest entries; the fit carries
 those differences through 40 Adam steps.  Picks are compared under the
 near-tie rule of ``chip_smoke.picks_agree``.
 """
+import torch_threads  # noqa: F401  (xdist workers share the cores)
 import sys
 from pathlib import Path
 

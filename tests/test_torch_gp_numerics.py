@@ -25,6 +25,7 @@ Tolerances: those of ``chip_smoke.kernel_errors`` against the Pallas kernel
 (|c|^2 + |x|^2) var), and 2e-5 against the float64 direct posterior,
 ``tests/test_kernels.py``'s bound for the Pallas kernel.
 """
+import torch_threads  # noqa: F401  (xdist workers share the cores)
 import sys
 from pathlib import Path
 

@@ -1,7 +1,8 @@
 """PyTorch port isolation: the port and ``chip_smoke.py`` import nothing of JAX
-or of the JAX package (the tuner, serving and training entry points run in
-a process that blocks both), and entry points never fall back to the
-CPU."""
+or of the JAX package (the tuner, the single-study strategies, the
+examples, serving and training entry points run in a process that blocks
+both), and entry points never fall back to the CPU."""
+import torch_threads  # noqa: F401  (xdist workers share the cores)
 import subprocess
 import sys
 import textwrap
@@ -47,6 +48,12 @@ _BLOCKED_RUN = textwrap.dedent("""
     import repro_torch.service.wal, repro_torch.service.recovery
     import repro_torch.service.client, repro_torch.service.server
     import repro_torch.service.chaos
+    import repro_torch.core.strategies, repro_torch.core.acquisition
+    import repro_torch.core.kmeans, repro_torch.core.gp
+    import repro_torch.examples, repro_torch.examples.quickstart
+    import repro_torch.examples.distributed_tuning
+    import repro_torch.examples.serve_batched
+    import repro_torch.examples.tune_training
     import chip_smoke
     from repro_torch.core import StudyBank
     for opt in ("bayesian", "tpe", ["bayesian", "tpe"]):
@@ -57,6 +64,20 @@ _BLOCKED_RUN = textwrap.dedent("""
                 p = {{f"x{{j}}": (i + j + b) / 10 for j in range(6)}}
                 bank.study(b).observe_params(p, chip_smoke.neg_hartmann6(p))
         assert all(len(t) == 2 for t in bank.ask_all(2))
+    # the single-study strategies and the reference loop
+    import numpy as np
+    from repro_torch.core.strategies import STRATEGIES
+    from repro_torch.core.tpe import TPEStrategy
+    rng = np.random.default_rng(0)
+    X = rng.uniform(size=(12, 2)).astype(np.float32)
+    y = -((X - 0.5) ** 2).sum(1).astype(np.float32)
+    C = rng.uniform(size=(64, 2)).astype(np.float32)
+    for name, kw in (("hallucination_ref", {{"scorer": "kinv_pallas"}}),
+                     ("bayesian", {{"scorer": "kinv_jnp"}}),
+                     ("clustering", {{}})):
+        s = STRATEGIES[name](2, 1e4, fit_steps=3, device="cpu", **kw)
+        assert len(set(s.propose(X, y, C, 3, pending=C[:2]))) == 3
+    assert len(TPEStrategy(2, 1e4, device="cpu").propose(X, y, C, 3)) == 3
     from repro_torch.launch import serve
     r = serve.run(serve.make_parser().parse_args(
         ["--device", "cpu", "--reduced", "--batch", "2", "--gen", "3"]))

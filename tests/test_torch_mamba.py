@@ -19,6 +19,7 @@ and skips without a card:
     PYTHONPATH=src python -m pytest -q -m cuda --noconftest \\
         tests/test_torch_mamba.py
 """
+import torch_threads  # noqa: F401  (xdist workers share the cores)
 import dataclasses
 import sys
 from pathlib import Path

@@ -20,6 +20,7 @@ sums drift toward zero (at xlstm-1.3b's training length, as the card
 showed).  That is why the kernels split and start a fresh accumulator each
 k-step.
 """
+import torch_threads  # noqa: F401  (xdist workers share the cores)
 import sys
 from pathlib import Path
 

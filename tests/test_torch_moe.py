@@ -11,6 +11,7 @@ near-tied router probabilities could pick another expert in the two
 packages; the inputs here are drawn so that no token's k-th and (k+1)-th
 probabilities are within 1e-5, which the test asserts rather than assumes.
 """
+import torch_threads  # noqa: F401  (xdist workers share the cores)
 import dataclasses
 
 import numpy as np

@@ -7,6 +7,7 @@ the drivers' signatures against the JAX package's.
 Copies of the JAX package's ``tests/test_scheduler.py`` cases, on the port.
 The JAX package is imported inside the tests that compare with it, so the
 card test runs where JAX is absent (``--noconftest``)."""
+import torch_threads  # noqa: F401  (xdist workers share the cores)
 import inspect
 import threading
 import time

@@ -7,6 +7,7 @@ than 1e-4, twice the fp32 logit tolerance of ``tests/test_torch_models.py``
 (5e-5); a closer pair is a near-tie that the two packages' summation
 orders may resolve either way.
 """
+import torch_threads  # noqa: F401  (xdist workers share the cores)
 import dataclasses
 
 import numpy as np

@@ -8,6 +8,7 @@ the signatures.  Copies of the JAX package's ``tests/test_service.py``
 cases, on the port.  The JAX package is imported inside the tests that
 compare with it, so the card test runs where JAX is absent
 (``--noconftest``)."""
+import torch_threads  # noqa: F401  (xdist workers share the cores)
 import inspect
 import json
 import os
@@ -602,6 +603,40 @@ def test_wal_and_ledgers_match_repro(tmp_path):
             ref.ask(name, 3, req_id="fin")["trials"], name
         assert mine.results(name) == ref.results(name)
     mine.close()
+    ref.close()
+
+
+def test_hallucination_ref_study_matches_repro_and_recovers(tmp_path):
+    """A ``hallucination_ref`` study asks through its strategy's own loop
+    in the service: the same trials as the JAX package's service, and a
+    restart from snapshot + WAL suffix (the snapshot's ``"gp"`` entry
+    carrying the strategy GP's fit schedule) asks what the uninterrupted
+    service asks."""
+    from repro.service.server import CrashPoints as JCrash
+    from repro.service.server import TuningService as JService
+
+    def drive(svc):
+        svc.create_study("h", optimizer="hallucination_ref")
+        for rnd in range(4):
+            ids = [t["id"] for t in
+                   svc.ask("h", 2, req_id=f"h{rnd}")["trials"]]
+            svc.tell("h", ids[0], float(np.cos(rnd)))
+            svc.tell("h", ids[1], float(np.sin(rnd)))
+            if rnd == 2:
+                svc.compact()
+
+    mine = _svc(tmp_path, name="port")
+    ref = JService(tmp_path / "ref", config=CFG, crash=JCrash(""))
+    drive(mine)
+    drive(ref)
+    assert mine.trials("h") == ref.trials("h")
+    mine.close()
+    back = TuningService(tmp_path / "port", crash=CrashPoints(""),
+                         device="cpu")
+    assert back.recovery.snapshot_loaded
+    assert back.ask("h", 2, req_id="fin")["trials"] == \
+        ref.ask("h", 2, req_id="fin")["trials"]
+    back.close()
     ref.close()
 
 

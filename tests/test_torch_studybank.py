@@ -3,6 +3,7 @@ search spaces and random-phase asks bit-identical, GP-phase picks equal at
 bucket edges (up to near-ties judged by the float64 oracle of
 ``chip_smoke``), npz checkpoints readable both ways, and kill -> resume
 replaying the port's own proposals bitwise.  Everything runs on the CPU."""
+import torch_threads  # noqa: F401  (xdist workers share the cores)
 import json
 import sys
 from pathlib import Path
@@ -265,12 +266,74 @@ def test_rng_state_pack_roundtrip():
     assert clone.bit_generator.state == rng.bit_generator.state
 
 
-@pytest.mark.parametrize("name", ["hallucination_ref"])
-def test_unported_strategies_raise(name):
-    with pytest.raises(ValueError, match="not ported yet"):
-        T.AskTellOptimizer(SPACE, optimizer=name, device="cpu")
-    with pytest.raises(ValueError, match="not ported yet"):
-        T.StudyBank(SPACE, 2, optimizer=name, device="cpu")
+REF = dict(optimizer="hallucination_ref", mc_samples=300, fit_steps=10)
+
+
+def _ref_rounds(opt, rounds, n=3):
+    """Ask/tell rounds of one optimizer; returns the asked params."""
+    out = []
+    for _ in range(rounds):
+        ts = opt.ask(n)
+        out.append([t.params for t in ts])
+        for t in ts:
+            opt.tell(t.id, _objective(t.params))
+    return out
+
+
+@pytest.mark.parametrize("where", ["optimizer", "tuner", "bank"])
+def test_hallucination_ref_asks_match_repro(where):
+    """``optimizer="hallucination_ref"`` asks through its strategy's own
+    ``propose`` (the reference loop) in ``AskTellOptimizer``, in ``Tuner``
+    (with the factor-core scorer through ``strategy_kwargs``) and as one
+    study of a mixed ``StudyBank``: the same trials as the JAX package."""
+    if where == "optimizer":
+        jo = J.AskTellOptimizer(SPACE, seed=4, **REF)
+        to = T.AskTellOptimizer(SPACE, seed=4, device="cpu", **REF)
+        assert _ref_rounds(to, 4) == _ref_rounds(jo, 4)
+        assert type(to._strat).__name__ == "HallucinationStrategy"
+        assert to._bank is None          # never reached the bank pipeline
+    elif where == "tuner":
+        conf = dict(REF, batch_size=3, num_iteration=4, seed=2,
+                    strategy_kwargs={"scorer": "kinv_jnp"})
+
+        def objective(batch):
+            return [_objective(p) for p in batch], list(batch)
+        jr = J.Tuner(SPACE, objective, conf).maximize()
+        tr = T.Tuner(SPACE, objective, dict(conf, device="cpu")).maximize()
+        assert tr.params_tried == jr.params_tried
+        assert tr.objective_values == jr.objective_values
+    else:
+        names = ["bayesian", "hallucination_ref", "tpe"]
+        kw = dict(seed=6, mc_samples=300, fit_steps=10, optimizer=names)
+        jb, tb = J.StudyBank(SPACE, 3, **kw), T.StudyBank(SPACE, 3,
+                                                          device="cpu", **kw)
+        for _ in range(3):
+            jt, tt = jb.ask_all(2), tb.ask_all(2)
+            assert [t.params for t in tt[1]] == [t.params for t in jt[1]]
+            assert [len(ts) for ts in tt] == [2, 2, 2]
+            for bank, trials in ((jb, jt), (tb, tt)):
+                for b, ts in enumerate(trials):
+                    for t in ts:
+                        bank.tell(b, t.id, _objective(t.params))
+
+
+def test_hallucination_ref_checkpoints_resume_both_ways():
+    """A JAX package state dict of a ``hallucination_ref`` optimizer (its
+    ``"gp"`` entry the strategy GP's fit schedule) resumes in the port with
+    the remaining proposals of the uninterrupted JAX run, and the
+    reverse."""
+    pk = {"jax": (J, {}), "port": (T, {"device": "cpu"})}
+    for src, dst in (("jax", "port"), ("port", "jax")):
+        (sm, skw), (dm, dkw) = pk[src], pk[dst]
+        full = _ref_rounds(sm.AskTellOptimizer(SPACE, seed=8, **REF, **skw),
+                           5)
+        part = sm.AskTellOptimizer(SPACE, seed=8, **REF, **skw)
+        assert _ref_rounds(part, 3) == full[:3]
+        sd = json.loads(json.dumps(part.state_dict()))
+        assert sd["gp"]["n_fit"] == 6   # the third ask fit the six told
+        resumed = dm.AskTellOptimizer(SPACE, seed=0, **REF, **dkw)
+        resumed.load_state_dict(sd)
+        assert _ref_rounds(resumed, 2) == full[3:], (src, dst)
 
 
 @pytest.mark.parametrize("where", ["optimizer", "bank"])

@@ -17,6 +17,7 @@ also runs where JAX is not installed:
     PYTHONPATH=src python -m pytest -q -m cuda --noconftest \\
         tests/test_torch_tpe.py
 """
+import torch_threads  # noqa: F401  (xdist workers share the cores)
 import json
 import sys
 from pathlib import Path

@@ -19,6 +19,7 @@ package's own kernel-vs-oracle tolerance, against the Pallas kernel, the
 jnp oracle and the port's plain version: they add the same positive terms
 in other orders and floor every density at 1e-12.
 """
+import torch_threads  # noqa: F401  (xdist workers share the cores)
 import sys
 from pathlib import Path
 

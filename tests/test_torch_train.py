@@ -12,6 +12,7 @@ compared only where |g| exceeds 1e-3 of its leaf's largest, to 1e-6
 absolute.  Host-side parts (data batches, the learning-rate schedule,
 int8 quantization, checkpoint arrays) are bit-identical.
 """
+import torch_threads  # noqa: F401  (xdist workers share the cores)
 import dataclasses
 import json
 

@@ -1,6 +1,7 @@
 """PyTorch port, the Tuner driver on the CPU: its random phase matches
 ``repro.Tuner`` bitwise, its checkpoint resume is exact, and it runs the
 GP-BUCB path through both local schedulers."""
+import torch_threads  # noqa: F401  (xdist workers share the cores)
 import math
 import threading
 

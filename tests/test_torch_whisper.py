@@ -13,6 +13,7 @@ are multiples of its tiles; at a ragged encoder length (37 frames) it takes
 ways) and serve's greedy tokens are cases of the parametrized tests in
 ``test_torch_train.py`` and ``test_torch_serve.py``.
 """
+import torch_threads  # noqa: F401  (xdist workers share the cores)
 import dataclasses
 
 import numpy as np

@@ -26,6 +26,7 @@ the CUDA kernels against the plain version and skip without a card:
     PYTHONPATH=src python -m pytest -q -m cuda --noconftest \\
         tests/test_torch_xlstm.py
 """
+import torch_threads  # noqa: F401  (xdist workers share the cores)
 import sys
 from pathlib import Path
 
