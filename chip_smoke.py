@@ -129,10 +129,22 @@ Phases:
      7 and resumed by a fresh Tuner, trying the same configurations; (c)
      the four examples (``repro_torch.examples``) on the card.
 
+ 22. the steady-state contract under the sanitizers
+     (``repro_torch.analysis.sanitizers``): (a) ``analysis.smoke.run`` on
+     the card at the reference's size; (b) phase 3's fleet as GP, TPE
+     (pending penalty on) and clustering families, each warmed, then three
+     ask -> tell rounds and an ask with a batch in flight (``bank_absorb``)
+     under ``no_transfer()`` and ``no_retrace()``: no hidden sync, no new
+     signature of a bank entry point and no kernel build, each family's
+     launches as ``SANITIZE_LAUNCHES``; each fleet's ask wall with a batch in
+     flight; (c) the negative controls on the GP fleet: an injected
+     ``.item()`` inside ``no_transfer()`` and an ask of another batch size
+     inside ``no_retrace()`` both raise.
+
 The kernels line's ``launches`` add up each kernel's launches over the
 main paths that run it (flash: phases 8, 13, 16 and 17; ``score_cov``:
-phases 3, 19, 20c and 21; ``var_downdate``: phases 3, 20c and 21;
-``tpe_scores``: phases 4, 20c and 21).
+phases 3, 19, 20c, 21 and 22; ``var_downdate``: phases 3, 20c, 21 and 22;
+``tpe_scores``: phases 4, 20c, 21 and 22).
 
 The second-to-last line is a JSON object with one entry per kernel; the last
 line is ``{"ok": true, "device": {...}}``.  Any failure exits non-zero before
@@ -3295,6 +3307,144 @@ def examples_path(dev):
     return got
 
 
+# --------------------------------------------------------------------------- #
+# phase 22: the steady-state contract under the sanitizers
+# --------------------------------------------------------------------------- #
+SANITIZE_FAMILIES = (
+    ("gp", {}),
+    ("tpe", dict(optimizer="tpe", strategy_kwargs={"pending_penalty": True})),
+    ("cluster", dict(optimizer="clustering")))
+# the audited asks of each family: FLEET["rounds"] ask -> tell rounds, then
+# one ask left in flight and one that takes it in (``bank_absorb``)
+SANITIZE_ASKS = FLEET["rounds"] + 2
+SANITIZE_LAUNCHES = {   # (score_cov, var_downdate, tpe_scores) per family
+    "gp": (SANITIZE_ASKS, SANITIZE_ASKS * (FLEET["batch"] - 1), 0),
+    "tpe": (0, 0, SANITIZE_ASKS),
+    "cluster": (SANITIZE_ASKS, 0, 0)}
+
+
+def sanitizer_smoke_path(dev):
+    """Phase 22a: ``repro_torch.analysis.smoke.run`` on the card at the
+    reference's size (4 studies, 32 candidates, 3 warm and 6 audited rounds
+    of ask_all(1)).  Returns its launches."""
+    from repro_torch.analysis import smoke
+    _reset(ops.launches, tpe_ops.launches)
+    t0 = time.perf_counter()
+    smoke.run(device=dev, verbose=False)
+    torch.cuda.synchronize()
+    got = dict(ops.launches)
+    log(f"[sanitize] smoke.run on the card: 6 audited ask_all(1) rounds x 4 "
+        f"studies under no_transfer() + no_retrace() passed in "
+        f"{time.perf_counter() - t0:.2f} s; launches of its 9 rounds {got}")
+    if got["score_cov"] < 6:
+        raise AssertionError(f"the smoke's asks skipped score_cov: {got}")
+    return got
+
+
+def _audited_fleet(dev, fam, kw):
+    """Phase 22b for one family: phase 3's fleet warmed through every
+    signature its audited asks meet (an ask -> tell round, then an ask with
+    a batch in flight), then ``SANITIZE_ASKS`` asks under
+    ``no_transfer()`` and ``no_retrace()``: 0 hidden syncs (the guard's
+    error mode raises on the first), 0 new signatures and 0 builds.
+    Returns the bank (a batch in flight) and the audited launches."""
+    from repro_torch.analysis.sanitizers import no_retrace, no_transfer
+    n = FLEET["batch"]
+    bank = seeded_fleet(dev, seed=5, **kw)
+    _tell_all(bank, bank.ask_all(n))
+    bank.ask_all(n)
+    _tell_all(bank, bank.ask_all(n))
+    for b, v in enumerate(bank.studies):
+        for t in v.pending_trials():
+            bank.tell(b, t.id, neg_hartmann6(t.params))
+    _reset(ops.launches, tpe_ops.launches)
+    t0 = time.perf_counter()
+    with no_transfer(device=dev), no_retrace() as rep:
+        for _ in range(FLEET["rounds"]):
+            trials = bank.ask_all(n)
+            check_picks(trials, n)
+            _tell_all(bank, trials)
+        bank.ask_all(n)                        # left in flight
+        trials = bank.ask_all(n)               # takes them in
+        check_picks(trials, n)
+    wall = time.perf_counter() - t0
+    got = (ops.launches["score_cov"], ops.launches["var_downdate"],
+           tpe_ops.launches["tpe_scores"])
+    log(f"[sanitize] {fam} fleet: {SANITIZE_ASKS} audited ask_all({n}) "
+        f"(the last with {n} trials per study in flight) in {wall:.2f} s: "
+        f"0 hidden syncs, new signatures {sum(rep.deltas.values())} over "
+        f"{len(rep.jits)} audited entries (builds included); launches "
+        f"(score_cov, var_downdate, tpe_scores) {got}")
+    if got != SANITIZE_LAUNCHES[fam]:
+        raise AssertionError(f"{fam}: audited launches {got}, expected "
+                             f"{SANITIZE_LAUNCHES[fam]}")
+    _tell_all(bank, trials)
+    return bank, dict(zip(("score_cov", "var_downdate", "tpe_scores"), got))
+
+
+def _in_flight_walls(bank, reps=3):
+    """Ask walls (ms, host clock around synchronized work) with one batch
+    per study in flight; each ask's own trials are told failed."""
+    n = FLEET["batch"]
+    walls = []
+    for _ in range(reps):
+        trials, ms = _timed_ask(bank, n)
+        walls.append(ms)
+        for b, ts in enumerate(trials):
+            for t in ts:
+                bank.tell_failed(b, t.id)
+    return walls
+
+
+def _negative_controls(bank, dev):
+    """Phase 22c: an injected ``.item()`` on a bank tensor inside
+    ``no_transfer()`` and a forced new bucket (an ask of another batch
+    size) inside ``no_retrace()`` must both raise."""
+    from repro_torch.analysis.sanitizers import (RetraceError, no_retrace,
+                                                 no_transfer)
+    try:
+        with no_transfer(device=dev):
+            bank._gp_cache["L"].sum().item()
+    except RuntimeError as e:
+        if "synchroniz" not in str(e):
+            raise
+        log(f"[sanitize] negative control: .item() on the bank's L inside "
+            f"no_transfer() raised: {str(e).splitlines()[0]}")
+    else:
+        raise AssertionError("an injected .item() passed no_transfer()")
+    try:
+        with no_retrace():
+            bank.ask_all(FLEET["batch"] + 1)
+    except RetraceError as e:
+        if "bank_pick=1/0" not in str(e):
+            raise
+        log(f"[sanitize] negative control: ask_all({FLEET['batch'] + 1}) "
+            f"inside no_retrace() raised: {e}")
+    else:
+        raise AssertionError("a new bucket passed no_retrace()")
+
+
+def sanitizer_fleet_path(dev):
+    """Phase 22b and 22c: each family of ``SANITIZE_FAMILIES`` audited, its
+    ask walls with a batch in flight, then the negative controls on the GP
+    fleet.  Returns the audited launches summed."""
+    total = dict(score_cov=0, var_downdate=0, tpe_scores=0)
+    for fam, kw in SANITIZE_FAMILIES:
+        bank, got = _audited_fleet(dev, fam, kw)
+        for k in total:
+            total[k] += got[k]
+        walls = _in_flight_walls(bank)
+        log(f"[sanitize] {fam} fleet: ask_all({FLEET['batch']}) with "
+            f"{FLEET['batch']} trials per study in flight "
+            + ", ".join(f"{w:.2f}" for w in walls)
+            + " ms (host clock, synchronized)")
+        if fam == "gp":
+            _negative_controls(bank, dev)
+        del bank
+    log(f"[sanitize] audited launches over the three fleets {total}")
+    return total
+
+
 def _profiled(fn):
     """``fn()`` under torch.profiler; returns (its result, the wall ms, the
     profiler)."""
@@ -3535,6 +3685,10 @@ def main(argv) -> int:
         for name in ("score_cov", "var_downdate", "tpe_scores"):
             launches[name] += counts.get(name, 0)
     wall("21")
+    for counts in (sanitizer_smoke_path(dev), sanitizer_fleet_path(dev)):
+        for name in ("score_cov", "var_downdate", "tpe_scores"):
+            launches[name] += counts.get(name, 0)
+    wall("22")
     gp_src = "src/repro_torch/kernels/gp_acquisition/csrc/gp_acquisition.cu"
     tpe_src = "src/repro_torch/kernels/tpe_kde/csrc/tpe_kde.cu"
     flash_src = ("src/repro_torch/kernels/flash_attention/csrc/"

@@ -46,6 +46,7 @@ def fused_cluster_propose(X, y, mask, L, Linv, P, C, ls, var, noise,
        not yet picked (``gp.cluster_pick``).
 
     Only the (batch_size,) picks leave the device, once, at the caller."""
+    from repro_torch.analysis.sanitizers import to_device
     from repro_torch.core import gp, kmeans, scoring
     dev = C.device
     Xs, Cs = scoring.prescale(X, C, ls)
@@ -56,6 +57,5 @@ def fused_cluster_propose(X, y, mask, L, Linv, P, C, ls, var, noise,
     beta = scoring.adaptive_beta_dev(scoring.scalar(n_obs + P.shape[0], dev),
                                      scoring.scalar(domain_size, dev))
     acq = mu + torch.sqrt(beta) * torch.sqrt(sig2)
-    u = torch.as_tensor(kmeans.kmeans_uniforms([seed], batch_size),
-                        device=dev)
+    u = to_device(kmeans.kmeans_uniforms([seed], batch_size), dev)
     return gp.cluster_pick(acq[None], C[None], u, n_top, batch_size)[0]

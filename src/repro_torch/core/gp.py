@@ -28,6 +28,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from repro_torch.analysis.sanitizers import EntryPoint, to_device, to_host
 from repro_torch.core import kmeans, scoring
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.kernels.gp_acquisition import ops, ref
@@ -184,15 +185,29 @@ def cluster_pick(acq, C, u, n_top: int, batch_size: int) -> torch.Tensor:
     rows = torch.arange(B, device=C.device)
     assign = kmeans.kmeans(C[rows[:, None], top_idx], w, u)
     picked = torch.zeros((B, n_top), dtype=torch.bool, device=C.device)
+    taken = torch.ones((), dtype=torch.bool, device=C.device)
     picks = torch.zeros((B, batch_size), dtype=torch.int64,
                         device=C.device)
     for c in range(batch_size):
         in_c = (assign == c) & ~picked
         sel = torch.where(in_c.any(-1, keepdim=True), in_c, ~picked)
         j = torch.argmax(torch.where(sel, top_vals, -torch.inf), dim=-1)
-        picked[rows, j] = True
+        picked[rows, j] = taken        # a device value: True would sync
         picks[:, c] = top_idx[rows, j]
     return picks
+
+
+# Every bank entry point, by name, behind a wrapper that records each
+# distinct dispatch signature (``sanitizers.EntryPoint``): the port's
+# counterpart of the JAX package's ``BANK_JITS``, audited by
+# ``sanitizers.no_retrace`` (one signature per shape bucket, ever, is the
+# bucketing contract).  ``StudyBank`` calls its entry points through this
+# registry, so an entry replaced here is what runs.  ``core.tpe`` adds
+# ``fused_tpe_propose_bank``.  The reference's ``bank_dist`` / ``bank_exp``
+# split exists only for XLA:CPU and has no counterpart.
+BANK_ENTRY_POINTS = {fn.__name__: EntryPoint(fn) for fn in (
+    bank_factors, bank_prescale_X, bank_prescale_C, bank_absorb, bank_pick,
+    bank_cluster_pick, fit_hypers_bank)}
 
 
 # --------------------------------------------------------------------------- #
@@ -222,7 +237,7 @@ def fit_hypers(X, y, mask, steps: int = 40, init=None):
     fit's log-params (fresh moments); None starts cold."""
     dev = X.device
     p = _cold_params(X.shape[1]) if init is None else init
-    lp = [torch.as_tensor(p[k], dtype=torch.float32, device=dev).reshape(sh)
+    lp = [to_device(p[k], dev, np.float32).reshape(sh)
           for k, sh in (("log_ls", (1, -1)), ("log_var", (1,)),
                         ("log_noise", (1,)))]
     zero = torch.zeros(1, dtype=torch.float32, device=dev)
@@ -348,13 +363,14 @@ def _fused_pick(X, y, mask, L, C, ls, var, noise, n_obs: int, domain_size,
         n_obs + torch.arange(batch_size, device=dev),
         scoring.scalar(domain_size, dev))
     avail = torch.ones(S, dtype=torch.bool, device=dev)
+    taken = torch.zeros((), dtype=torch.bool, device=dev)
     picks = torch.zeros(batch_size, dtype=torch.int64, device=dev)
     for b in range(batch_size):
         acq = torch.where(avail, mu + torch.sqrt(beta[b]) * torch.sqrt(sig2),
                           -torch.inf)
         idx = torch.argmax(acq)
         picks[b] = idx
-        avail[idx] = False
+        avail[idx] = taken
         if b == batch_size - 1:
             break
         slot = n_obs + b
@@ -462,8 +478,7 @@ def _grow_state(st: GPState) -> GPState:
 
     def eye_pad(M):
         out = torch.nn.functional.pad(M, (0, grow, 0, grow))
-        idx = torch.arange(grow, 2 * grow, device=M.device)
-        out[idx, idx] = 1.0
+        out.diagonal()[grow:].fill_(1.0)
         return out
 
     zeros = torch.zeros_like
@@ -505,8 +520,7 @@ class GaussianProcess:
         self._obs_y: Optional[np.ndarray] = None
 
     def _t(self, a) -> torch.Tensor:
-        return torch.as_tensor(np.asarray(a, np.float32),
-                               device=self.device).contiguous()
+        return to_device(a, self.device, np.float32)
 
     def _padded(self, X, y, n):
         """(Xp, yp standardized, mask) host buffers and the frozen
@@ -550,8 +564,7 @@ class GaussianProcess:
         """Append one row (x_new, standardized y_new) in O(n^2)."""
         if st.n >= st.X.shape[0]:
             st = _grow_state(st)
-        x_new = torch.as_tensor(x_new, dtype=torch.float32,
-                                device=self.device)
+        x_new = to_device(x_new, self.device, np.float32)
         if st.Linv is not None:
             L, Linv, X, mask = chol_factor_append(
                 st.L, st.Linv, st.X, st.mask, st.n, x_new, st.ls, st.var,
@@ -620,8 +633,7 @@ class GaussianProcess:
             return None
         return {"n_fit": int(self.n_fit),
                 "log_params": {
-                    k: np.asarray(v.cpu() if isinstance(v, torch.Tensor)
-                                  else v, np.float32).tolist()
+                    k: np.asarray(to_host(v), np.float32).tolist()
                     for k, v in self._fit_params.items()}}
 
     def restore_exact(self, X: np.ndarray, y: np.ndarray,
@@ -660,7 +672,7 @@ class GaussianProcess:
         st = state or self.state
         mu, var_s = posterior(st.X, st.y, st.mask, st.L, self._t(Xs),
                               st.ls, st.var, st.noise)
-        mu, var_s = mu.cpu().numpy(), var_s.cpu().numpy()  # one exit
+        mu, var_s = to_host(mu, var_s)                     # one exit
         return mu * st.y_std + st.y_mean, np.sqrt(var_s) * st.y_std
 
     def hallucinate(self, st: GPState, x_new: np.ndarray) -> GPState:

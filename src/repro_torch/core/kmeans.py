@@ -19,6 +19,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from repro_torch.analysis.sanitizers import to_device, to_host
 from repro_torch.core import prng
 from repro_torch.device import DeviceLike, resolve_device
 
@@ -92,7 +93,7 @@ def kmeans_assign(X: np.ndarray, weights: np.ndarray, k: int,
     if len(X) <= k:
         return np.arange(len(X))
     dev = resolve_device(device)
-    t = lambda a: torch.as_tensor(                       # noqa: E731
-        np.asarray(a, np.float32)[None], device=dev)
-    return kmeans(t(X), t(weights), t(kmeans_uniforms([seed], k)[0]),
-                  iters)[0].cpu().numpy()
+    t = lambda a: to_device(np.asarray(a, np.float32)[None],  # noqa: E731
+                            dev)
+    return to_host(kmeans(t(X), t(weights),
+                          t(kmeans_uniforms([seed], k)[0]), iters)[0])

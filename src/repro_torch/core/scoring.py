@@ -22,6 +22,7 @@ import math
 import numpy as np
 import torch
 
+from repro_torch.analysis.sanitizers import to_device, to_host
 from repro_torch.kernels.gp_acquisition import ops
 from repro_torch.kernels.gp_acquisition.ref import matern52
 
@@ -145,16 +146,26 @@ def absorb_pending(Xs, y, mask, L, Linv, Ps, n_pending, n_obs, var, noise):
     pending point from the current extended system, hardened rank-1 append,
     phantom y at the mean.  Study b absorbs its first ``n_pending[b]`` rows
     into slots ``n_obs[b] + j``.  Updates the given tensors in place.
-    ``n_pending`` is a tensor (the bank's) or a host sequence, whose rows
-    are chosen without reading the device back (a single study's)."""
+
+    ``n_pending`` holds host counts (a numpy array or a sequence; a tensor
+    is read back once, through ``to_host``).  Each slot's rows are chosen
+    on the host and all of them go up in one upload before the loop, so
+    the loop reads nothing back from the device."""
+    counts = to_host(n_pending)
+    subs = []
     for j in range(Ps.shape[1]):
-        if isinstance(n_pending, torch.Tensor):
-            sub = torch.nonzero(n_pending > j)[:, 0]
-        else:
-            sub = torch.as_tensor(np.nonzero(np.asarray(n_pending) > j)[0],
-                                  device=Ps.device)
-        if not len(sub):
+        rows = np.nonzero(counts > j)[0]
+        if not len(rows):
             break
+        subs.append(rows)
+    if not subs:
+        return Xs, y, mask, L, Linv
+    flat = to_device(np.concatenate(subs), Ps.device)
+    one = torch.ones((), dtype=mask.dtype, device=mask.device)
+    start = 0
+    for j, rows in enumerate(subs):
+        sub = flat[start:start + len(rows)]
+        start += len(rows)
         x_new = Ps[sub, j]
         k_vec = (matern52(Xs[sub], x_new[:, None, :], var[sub])[..., 0]
                  * mask[sub])
@@ -165,7 +176,7 @@ def absorb_pending(Xs, y, mask, L, Linv, Ps, n_pending, n_obs, var, noise):
         L[sub], Linv[sub] = L_s, Linv_s
         Xs[sub, slot] = x_new
         y[sub, slot] = mu
-        mask[sub, slot] = 1.0
+        mask[sub, slot] = one     # a device value: a Python 1.0 would sync
     return Xs, y, mask, L, Linv
 
 
@@ -182,6 +193,7 @@ def pick_downdate_from_scores(Cs, mu, sig2, Kc, L, Linv, var, noise, n_obs,
     B, S = mu.shape
     rows = torch.arange(B, device=mu.device)
     avail = torch.ones((B, S), dtype=torch.bool, device=mu.device)
+    taken = torch.zeros((), dtype=torch.bool, device=mu.device)
     picks = torch.zeros((B, batch_size), dtype=torch.int64, device=mu.device)
     for b in range(batch_size):
         beta = adaptive_beta_dev(n_obs + b, domain_size)
@@ -189,7 +201,7 @@ def pick_downdate_from_scores(Cs, mu, sig2, Kc, L, Linv, var, noise, n_obs,
         acq = torch.where(avail, acq, -torch.inf)
         idx = torch.argmax(acq, dim=1)
         picks[:, b] = idx
-        avail[rows, idx] = False
+        avail[rows, idx] = taken       # a device value: False would sync
         if b == batch_size - 1:
             break
         slot = (n_obs + b).to(torch.int32)
@@ -283,7 +295,7 @@ def var_downdate(Cs, x_star, Kc, u, schur, sig2, var, slot):
     sig2_new, knew = ops.var_downdate(
         Cs[None], x_star[None].contiguous(), Kc[None], u[None].contiguous(),
         schur.reshape(1), sig2[None].contiguous(), var.reshape(1),
-        torch.as_tensor([slot], dtype=torch.int32, device=Cs.device)
+        to_device(np.array([slot], np.int32), Cs.device)
         if isinstance(slot, int) else slot.reshape(1).to(torch.int32))
     return sig2_new[0], knew[0]
 

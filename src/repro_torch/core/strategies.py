@@ -33,6 +33,7 @@ from typing import List, Optional
 import numpy as np
 import torch
 
+from repro_torch.analysis.sanitizers import to_device, to_host
 from repro_torch.core import scoring
 from repro_torch.core.acquisition import (adaptive_beta,
                                           fused_cluster_propose, ucb)
@@ -184,13 +185,12 @@ class FusedHallucinationStrategy(BaseStrategy):
         na = _window(st, st.n + n_pend + batch_size)
         self._update_cond_proxy(st, na)
         dev = self.device
-        C = torch.as_tensor(np.ascontiguousarray(candidates, np.float32),
-                            device=dev)
+        C = to_device(candidates, dev, np.float32)
         win = (st.X[:na], st.y[:na], st.mask[:na], st.L[:na, :na])
         tail = (C, st.ls, st.var, st.noise, st.n, self.domain_size,
                 batch_size)
         if n_pend:
-            P = torch.as_tensor(np.asarray(pending, np.float32), device=dev)
+            P = to_device(pending, dev, np.float32)
         if self.factor_core:
             Linv = st.Linv[:na, :na]
             picks = (fused_propose_pallas_pending(*win, Linv, P, *tail)
@@ -198,7 +198,7 @@ class FusedHallucinationStrategy(BaseStrategy):
         else:
             picks = (fused_propose_pending(*win, P, *tail) if n_pend
                      else fused_propose(*win, *tail))
-        return [int(i) for i in picks.cpu().numpy()]   # one exit
+        return [int(i) for i in to_host(picks)]   # one exit
 
 
 class ClusteringStrategy(BaseStrategy):
@@ -235,16 +235,15 @@ class ClusteringStrategy(BaseStrategy):
         self._update_cond_proxy(st, na)
         dev = self.device
         d = st.X.shape[1]
-        P = torch.as_tensor(np.asarray(pending if n_pend else np.zeros(
-            (0, d)), np.float32).reshape(n_pend, d), device=dev)
-        C = torch.as_tensor(np.ascontiguousarray(candidates, np.float32),
-                            device=dev)
+        P = to_device(np.asarray(pending if n_pend else np.zeros(
+            (0, d)), np.float32).reshape(n_pend, d), dev)
+        C = to_device(candidates, dev, np.float32)
         picks = fused_cluster_propose(
             st.X[:na], st.y[:na], st.mask[:na], st.L[:na, :na],
             st.Linv[:na, :na], P, C, st.ls, st.var, st.noise, st.n,
             self.domain_size, seed, batch_size=batch_size,
             n_top=self._n_top(S, batch_size))
-        return [int(i) for i in picks.cpu().numpy()]   # one exit
+        return [int(i) for i in to_host(picks)]   # one exit
 
     def propose_host(self, X, y, candidates, batch_size, seed=0,
                      pending=None):
@@ -259,10 +258,10 @@ class ClusteringStrategy(BaseStrategy):
             st = self._absorb_pending(st, pending)
         mu, var_s = posterior(
             st.X, st.y, st.mask, st.L,
-            torch.as_tensor(np.asarray(candidates, np.float32),
-                            device=self.device),
+            to_device(candidates, self.device, np.float32),
             st.ls, st.var, st.noise)
-        mu, sd = mu.cpu().numpy(), np.sqrt(var_s.cpu().numpy())
+        mu, var_s = to_host(mu, var_s)
+        sd = np.sqrt(var_s)
         beta = adaptive_beta(len(y) + n_pend, self.domain_size)
         acq = ucb(mu, sd, beta)
         if batch_size == 1:

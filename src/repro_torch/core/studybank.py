@@ -40,6 +40,7 @@ from typing import Any, Dict, List, Optional
 import numpy as np
 import torch
 
+from repro_torch.analysis.sanitizers import to_device, to_host
 from repro_torch.device import DeviceLike, resolve_device
 
 # trial-status codes (ledger ``status`` array; 0 = empty slot)
@@ -522,7 +523,7 @@ class StudyBank:
                 continue
             idx = self._pick_family(fam, rows, C[rows], k_obs, k_pend, n, na,
                                     pend_cap)
-            idx = idx.cpu().numpy()               # one exit sync per family
+            idx = to_host(idx)                    # one exit per family
             flat = (rows[:, None] * n_mc + idx).astype(np.int64)  # (R, n)
             cfgs = space.configs_at(cols, flat.ravel())
             enc = Cflat[flat.ravel()].reshape(len(rows), -1, Cflat.shape[1])
@@ -558,7 +559,7 @@ class StudyBank:
         rows = np.array([b], np.int64)
         idx = self._pick_family(self._fams[b], rows, C, k_obs, k_pend, n, na,
                                 pend_cap)
-        idx = idx.cpu().numpy()[0].astype(np.int64)
+        idx = to_host(idx)[0].astype(np.int64)
         return space.configs_at(cols, idx), Cflat[idx]
 
     def _gather_obs(self, k_obs: np.ndarray, na: int, rows: np.ndarray):
@@ -607,7 +608,7 @@ class StudyBank:
         return Pd
 
     def _tensor(self, a) -> torch.Tensor:
-        return torch.as_tensor(np.asarray(a), device=self.device).contiguous()
+        return to_device(a, self.device)
 
     def _fit_if_due(self, Xd, yraw, mask, ko, rows) -> bool:
         """Count-based fit schedule: (re)fit hypers for every study whose
@@ -642,11 +643,11 @@ class StudyBank:
         for i in sel:
             ym[i], ys[i] = _y_standardization(yraw[i, :int(ko64[i])])
         t = self._tensor
-        lls, lv, ln = gp_lib.fit_hypers_bank(
+        lls, lv, ln = gp_lib.BANK_ENTRY_POINTS["fit_hypers_bank"](
             t(Xd), t(yraw), t(mask), t(led.log_ls[rows]),
             t(led.log_var[rows]), t(led.log_noise[rows]), t(ym), t(ys),
             steps=self.fit_steps)
-        lls, lv, ln = (a.cpu().numpy() for a in (lls, lv, ln))
+        lls, lv, ln = to_host(lls, lv, ln)   # one exit for the hypers
         g = np.asarray(rows)[sel]
         led.log_ls[g] = lls[sel]
         led.log_var[g] = lv[sel]
@@ -684,16 +685,18 @@ class StudyBank:
         t = self._tensor
         Xd_t, mask_t, ls_t = t(Xd), t(mask), t(ls)
         var_t, noise_t = t(var), t(noise)
-        L, Linv, cond = gp_lib.bank_factors(Xd_t, mask_t, ls_t, var_t,
-                                            noise_t)
-        Xs = gp_lib.bank_prescale_X(Xd_t, ls_t)
+        entry = gp_lib.BANK_ENTRY_POINTS
+        L, Linv, cond = entry["bank_factors"](Xd_t, mask_t, ls_t, var_t,
+                                              noise_t)
+        Xs = entry["bank_prescale_X"](Xd_t, ls_t)
         led.ensure_gp_capacity(na)
-        led.L[gpr, :na, :na] = L.cpu().numpy()
-        led.Linv[gpr, :na, :na] = Linv.cpu().numpy()
+        L_host, Linv_host, cond_host = to_host(L, Linv, cond)
+        led.L[gpr, :na, :na] = L_host
+        led.Linv[gpr, :na, :na] = Linv_host
         cache = self._gp_cache = {
             "key": key, "Xs": Xs, "z": t(z), "mask": mask_t, "L": L,
             "Linv": Linv, "ls": ls_t, "var": var_t, "noise": noise_t,
-            "cond": cond.cpu().numpy().astype(np.float64)}
+            "cond": cond_host.astype(np.float64)}
         self._warn_if_ill_conditioned(cache["cond"], gpr)
         return cache
 
@@ -724,7 +727,7 @@ class StudyBank:
         pos = np.array([self._gp_pos[int(r)] for r in rows])
         full = (len(pos) == len(self._gp_fam_rows)
                 and np.array_equal(pos, np.arange(len(pos))))
-        sel = None if full else torch.as_tensor(pos, device=self.device)
+        sel = None if full else to_device(pos, self.device)
         parts = {k: cache[k] if full else cache[k][sel]
                  for k in ("ls", "var", "noise", "Xs", "z", "mask", "L",
                            "Linv")}
@@ -739,11 +742,14 @@ class StudyBank:
                 f"bucket na={Xs.shape[1]} has no room for {n} picks after "
                 f"{int((ko + kp).max())} observed and pending rows")
         t = self._tensor
-        Cs = gp_lib.bank_prescale_C(t(C), ls)
+        entry = gp_lib.BANK_ENTRY_POINTS
+        Cs = entry["bank_prescale_C"](t(C), ls)
         if int(kp.max()):
             Pd = self._gather_pend(kp, pend_cap, rows)
-            Xs, z, maskd, L, Linv = gp_lib.bank_absorb(
-                Xs, z, maskd, L, Linv, t(Pd), t(kp.astype(np.float32)),
+            # the pending counts stay on the host: absorb chooses each
+            # slot's rows there and reads nothing back
+            Xs, z, maskd, L, Linv = entry["bank_absorb"](
+                Xs, z, maskd, L, Linv, t(Pd), kp.astype(np.float32),
                 t(ko.astype(np.float32)), ls, var, noise)
         n_eff = t((ko + kp).astype(np.float32))
         dom = t(np.float32(self._members[int(rows[0])].domain_size))
@@ -754,18 +760,18 @@ class StudyBank:
             n_top = n_top_candidates(
                 S, n, self.strategy_kwargs.get("top_frac", 0.2))
             u = t(kmeans_uniforms(self.ledger.ask_count[rows], n))
-            return gp_lib.bank_cluster_pick(
+            return entry["bank_cluster_pick"](
                 Cs, t(C), Xs, z, maskd, Linv, var, noise, n_eff, dom, u,
                 n_top=n_top, batch_size=n)
-        return gp_lib.bank_pick(Cs, Xs, z, maskd, L, Linv, var, noise,
-                                n_eff, dom, batch_size=n)
+        return entry["bank_pick"](Cs, Xs, z, maskd, L, Linv, var, noise,
+                                  n_eff, dom, batch_size=n)
 
     def _dispatch_tpe(self, Xd, yraw, Pd, C, k_obs, k_pend, n, na):
         """TPE pick for a sub-batch: lay each study out as observed rows,
         then pending rows, then zeros (the layout the ``tpe_scores`` kernel
         relies on to stop at n_obs + n_pend), and run the fused proposal.
         ``gamma`` and ``pending_penalty`` come from ``strategy_kwargs``."""
-        from repro_torch.core import tpe as tpe_lib
+        from repro_torch.core import gp as gp_lib
         from repro_torch.kernels.tpe_kde.ops import pad_dims
         d = self.ledger.dim
         R = Xd.shape[0]
@@ -789,7 +795,7 @@ class StudyBank:
         t = self._tensor
         # candidates go up unpadded and gain their zero columns on the device
         Ct = torch.nn.functional.pad(t(C), (0, dp - d)).contiguous()
-        return tpe_lib.fused_tpe_propose_bank(
+        return gp_lib.BANK_ENTRY_POINTS["fused_tpe_propose_bank"](
             t(Xt), t(yt), Ct, t(meta), batch_size=n, d_true=d)
 
     # ---------------------------------------------------------- checkpoint

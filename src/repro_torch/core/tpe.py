@@ -30,6 +30,8 @@ from typing import List
 import numpy as np
 import torch
 
+from repro_torch.analysis.sanitizers import EntryPoint, to_device, to_host
+from repro_torch.core import gp as gp_lib
 from repro_torch.core.strategies import STRATEGIES, BaseStrategy
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.kernels.tpe_kde import ops
@@ -250,10 +252,14 @@ class TPEStrategy(BaseStrategy):
         Cb = np.zeros((Sp, dp), np.float32)
         Cb[:S, :d] = C
         meta = np.array([n, n_pend, S, self.gamma], np.float32)
-        t = lambda a: torch.as_tensor(a, device=self.device)  # noqa: E731
-        picks = fused_tpe_propose(t(Xb), t(yb), t(Cb), t(meta),
-                                  batch_size=batch_size, d_true=d)
-        return [int(i) for i in picks.cpu().numpy()]   # one exit
+        dev = self.device
+        picks = fused_tpe_propose(
+            to_device(Xb, dev), to_device(yb, dev), to_device(Cb, dev),
+            to_device(meta, dev), batch_size=batch_size, d_true=d)
+        return [int(i) for i in to_host(picks)]   # one exit
 
 
 STRATEGIES["tpe"] = TPEStrategy
+# the bank's TPE program joins the GP family's in the audited registry
+gp_lib.BANK_ENTRY_POINTS["fused_tpe_propose_bank"] = EntryPoint(
+    fused_tpe_propose_bank)

@@ -26,6 +26,16 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _LOADED: Dict[str, ctypes.CDLL] = {}
+# load() calls per suite that found nothing in ``_LOADED`` (built or loaded
+# a library): a sanitizer audits them as compiles
+MISSES: Dict[str, int] = {}
+
+
+def suite_names() -> Sequence[str]:
+    """Every kernel suite: the directories beside this file with CUDA
+    sources."""
+    here = Path(__file__).resolve().parent
+    return sorted(p.parent.name for p in here.glob("*/csrc"))
 
 
 def find_nvcc() -> str:
@@ -56,6 +66,7 @@ def load(name: str, sources: Sequence[Path]) -> ctypes.CDLL:
     lib = _LOADED.get(name)
     if lib is not None:
         return lib
+    MISSES[name] = MISSES.get(name, 0) + 1
     out = library_path(name, sources)
     if not out.exists():
         BUILD_DIR.mkdir(parents=True, exist_ok=True)

@@ -18,6 +18,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from repro_torch.analysis.sanitizers import to_device, to_host
 from repro_torch.kernels import build
 from repro_torch.kernels.checks import check_aligned as _check_aligned
 from repro_torch.kernels.checks import check_dp as _check_dp
@@ -83,7 +84,7 @@ def sqrt_mismatches() -> int:
     _raise_on(lib, lib.gp_sqrt_check(
         0x2B8CBCCC, 0x7F7FFFFF, bad.data_ptr(),
         torch.cuda.current_stream(bad.device).cuda_stream), "sqrt_check")
-    return int(bad.cpu()[0])   # the one read-back, after the check
+    return int(to_host(bad)[0])   # the one read-back, after the check
 
 
 def score_cov(Cs, Xs, mask, Linv, alpha, var, noise):
@@ -180,7 +181,7 @@ def gp_mean_std(st, cands):
         Linv = torch.linalg.solve_triangular(st.L, eye, upper=False)
     Linv = Linv.contiguous()
     alpha = Linv.T @ (Linv @ (st.y * st.mask))
-    C = torch.as_tensor(cands, dtype=torch.float32, device=dev)
+    C = to_device(cands, dev, np.float32)
     d = C.shape[1]
     dp = max(8, -(-d // 8) * 8)
     pad = lambda A: torch.nn.functional.pad(        # noqa: E731
@@ -188,5 +189,5 @@ def gp_mean_std(st, cands):
     mu, sig2, _ = score_cov(pad(C), pad(st.X), st.mask[None].contiguous(),
                             Linv[None], alpha[None].contiguous(),
                             st.var.reshape(1), st.noise.reshape(1))
-    mu, sig2 = mu[0].cpu().numpy(), sig2[0].cpu().numpy()   # one exit
+    mu, sig2 = to_host(mu[0], sig2[0])   # one exit
     return mu * st.y_std + st.y_mean, np.sqrt(sig2) * st.y_std

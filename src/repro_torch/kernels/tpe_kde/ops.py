@@ -21,6 +21,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from repro_torch.analysis.sanitizers import to_device, to_host
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.kernels import build
 from repro_torch.kernels.checks import check_dp, check_tensor
@@ -178,8 +179,8 @@ def parzen_logdens(cands, pts, *, bw=None,
     scal = np.array([[inv2bw2, 1.0 / max(n, 1), 0.0, 0.0]], np.float32)
 
     def t(x):
-        return torch.as_tensor(x, device=dev)
+        return to_device(x, dev)
 
     out = parzen_logdens_bank(t(cb), t(xb), t(w), t(scal),
                               t(np.array([n], np.int32)), d_true=d)
-    return out[0].cpu().numpy()
+    return to_host(out[0])   # one exit

@@ -19,42 +19,19 @@ trial at a time, keeping its own fault semantics (a dropped trial surfaces
 as a failed handle).  ``as_async`` picks the right view automatically, so
 both tuners accept *any* scheduler.
 
-The port's own copy of the JAX package's ``repro.scheduler.base``, plus the
-lock-ownership assertion ``assert_holds`` of ``repro.analysis.sanitizers``:
-the port imports nothing of either.
+The port's own copy of the JAX package's ``repro.scheduler.base`` (the port
+imports nothing of it); ``assert_holds`` is re-exported from the port's
+``repro_torch.analysis.sanitizers``.
 """
 from __future__ import annotations
 
-import os
 import threading
 import time
 import weakref
 from typing import (Any, Callable, Dict, List, Optional, Protocol,
                     Tuple)
 
-# caller-must-hold lock checks run only in debug mode (REPRO_DEBUG_LOCKS=1)
-_DEBUG_LOCKS = os.environ.get("REPRO_DEBUG_LOCKS", "") not in ("", "0")
-
-
-def assert_holds(lock) -> None:
-    """Assert the calling thread holds ``lock`` (a no-op outside debug
-    mode).  RLock/Condition check true ownership; a plain Lock only
-    held-by-someone."""
-    if not _DEBUG_LOCKS:
-        return
-    owned = getattr(lock, "_is_owned", None)
-    if owned is not None:
-        if not owned():
-            raise AssertionError(
-                f"assert_holds: {lock!r} is not held by "
-                f"{threading.current_thread().name}")
-        return
-    locked = getattr(lock, "locked", None)
-    if locked is not None and not locked():
-        raise AssertionError(
-            f"assert_holds: {lock!r} is not held (plain Lock: ownership "
-            "is unverifiable, only held-by-someone)")
-
+from repro_torch.analysis.sanitizers import assert_holds
 
 TrialFn = Callable[[Dict[str, Any]], float]
 Objective = Callable[[List[Dict[str, Any]]],

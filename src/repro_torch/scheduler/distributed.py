@@ -30,8 +30,8 @@ import threading
 import time
 from typing import Any, Dict, List, Optional, Tuple
 
-from repro_torch.scheduler.base import (Objective, TaskHandle, TrialFn,
-                                        assert_holds)
+from repro_torch.analysis.sanitizers import assert_holds
+from repro_torch.scheduler.base import Objective, TaskHandle, TrialFn
 
 
 @dataclasses.dataclass

@@ -58,8 +58,8 @@ from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import Any, Callable, Dict, List, Optional
 from urllib.parse import unquote, urlparse
 
+from repro_torch.analysis.sanitizers import assert_holds
 from repro_torch.device import DeviceLike
-from repro_torch.scheduler.base import assert_holds
 from repro_torch.service.client import ServiceError
 from repro_torch.service.recovery import CONFIG, SNAPSHOT, WAL_FILE, recover
 from repro_torch.service.wal import WriteAheadLog, atomic_write_text

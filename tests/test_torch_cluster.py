@@ -283,7 +283,8 @@ def test_top_frac_threads_to_the_pick_and_unknown_keys_raise(monkeypatch):
         seen.append(k["n_top"])
         return orig(*a, **k)
 
-    monkeypatch.setattr(gp_lib, "bank_cluster_pick", spy)
+    # the bank calls its entry points through the registry
+    monkeypatch.setitem(gp_lib.BANK_ENTRY_POINTS, "bank_cluster_pick", spy)
     opt = T.AskTellOptimizer(SPACE, optimizer="clustering", seed=0,
                              mc_samples=N_MC, fit_steps=5, device="cpu",
                              strategy_kwargs={"top_frac": 0.5})

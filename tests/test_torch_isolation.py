@@ -1,7 +1,8 @@
 """PyTorch port isolation: the port and ``chip_smoke.py`` import nothing of JAX
 or of the JAX package (the tuner, the single-study strategies, the
-examples, serving and training entry points run in a process that blocks
-both), and entry points never fall back to the CPU."""
+examples, serving and training entry points, the sanitizer smoke and the
+port's lint run in a process that blocks both), and entry points never
+fall back to the CPU."""
 import torch_threads  # noqa: F401  (xdist workers share the cores)
 import subprocess
 import sys
@@ -54,6 +55,9 @@ _BLOCKED_RUN = textwrap.dedent("""
     import repro_torch.examples.distributed_tuning
     import repro_torch.examples.serve_batched
     import repro_torch.examples.tune_training
+    import repro_torch.analysis, repro_torch.analysis.rules
+    import repro_torch.analysis.sanitizers, repro_torch.analysis.smoke
+    import repro_torch.analysis.__main__
     import chip_smoke
     from repro_torch.core import StudyBank
     for opt in ("bayesian", "tpe", ["bayesian", "tpe"]):
@@ -78,6 +82,14 @@ _BLOCKED_RUN = textwrap.dedent("""
         s = STRATEGIES[name](2, 1e4, fit_steps=3, device="cpu", **kw)
         assert len(set(s.propose(X, y, C, 3, pending=C[:2]))) == 3
     assert len(TPEStrategy(2, 1e4, device="cpu").propose(X, y, C, 3)) == 3
+    # the analysis package: rules, the sanitizer smoke, the lint CLI
+    from repro_torch.analysis.rules import all_rules
+    assert len(all_rules()) == 11
+    from repro_torch.analysis import smoke
+    assert smoke.run(device="cpu", verbose=False) == 0
+    from repro_torch.analysis.__main__ import main as lint_main
+    assert lint_main([{src!r} + "/repro_torch", "--baseline",
+                      {root!r} + "/.repro-torch-lint-baseline"]) == 0
     from repro_torch.launch import serve
     r = serve.run(serve.make_parser().parse_args(
         ["--device", "cpu", "--reduced", "--batch", "2", "--gen", "3"]))

@@ -81,7 +81,8 @@ def test_gp_tuner_through_schedulers(sched):
 def test_assert_holds_checks_ownership_only_in_debug_mode(monkeypatch, debug):
     """``assert_holds`` passes a held lock; an unheld one raises only when
     lock checks are on (``REPRO_DEBUG_LOCKS``)."""
-    monkeypatch.setattr(base, "_DEBUG_LOCKS", debug)
+    from repro_torch.analysis import sanitizers
+    monkeypatch.setattr(sanitizers, "_DEBUG_LOCKS", debug)
     cv = threading.Condition()
     with cv:
         base.assert_holds(cv)
