@@ -141,8 +141,26 @@ Phases:
      ``.item()`` inside ``no_transfer()`` and an ask of another batch size
      inside ``no_retrace()`` both raise.
 
+ 23. the launch layer (``repro_torch.launch.{mesh,sharding,cost,dryrun}``):
+     a one-rank NCCL process group (a ``FileStore`` under ``build/``) and a
+     (data=1, model=1) ``DeviceMesh``; (a) smollm-135m at full width and
+     depth in bf16 (B 8, S 1024, remat none), four AdamW steps with DTensor
+     state placed by ``param_specs`` beside the plain step from the same
+     state, losses and grad norms within phase 11's tolerances, 30 flash
+     forward and 30 backward launches per DTensor step (the kernel on each
+     rank's shard through ``local_map``); (b) a 1024-token prefill and 16
+     greedy tokens with a DTensor cache placed by ``cache_specs``, tokens
+     equal to the plain path's but on near-ties; (c) the step's wall and
+     peak memory beside ``estimate_plan(..., n_devices=1)``, its ``fits``
+     held against the peak and the card's memory; (d) ``compressed_psum``
+     over the data group on NCCL against the local quantise-dequantise;
+     (e) the DTensor state saved and restored onto its placements,
+     bitwise; (f) in CPU subprocesses started with the phase, the analytic
+     dry run of all 64 cells and smollm-135m ``train_4k`` traced on a fake
+     256- and 512-rank process group, every cell OK.
+
 The kernels line's ``launches`` add up each kernel's launches over the
-main paths that run it (flash: phases 8, 13, 16 and 17; ``score_cov``:
+main paths that run it (flash: phases 8, 13, 16, 17 and 23; ``score_cov``:
 phases 3, 19, 20c, 21 and 22; ``var_downdate``: phases 3, 20c, 21 and 22;
 ``tpe_scores``: phases 4, 20c, 21 and 22).
 
@@ -188,6 +206,7 @@ from repro_torch.kernels.tpe_kde import ops as tpe_ops  # noqa: E402
 from repro_torch.kernels.tpe_kde import ref as tpe_ref  # noqa: E402
 from repro_torch.data.pipeline import DataConfig, SyntheticLM  # noqa
 from repro_torch.launch import serve, train  # noqa: E402
+from repro_torch.launch.roofline import H100  # noqa: E402
 from repro_torch.models import (Runtime, forward_decode,  # noqa: E402
                                 forward_prefill, init_params)
 from repro_torch.models.transformer import layer_specs  # noqa: E402
@@ -206,15 +225,16 @@ from repro_torch.tree import tree_items, tree_map  # noqa: E402
 # H100 SXM peaks (NVIDIA data sheet): fp32 outside the tensor cores, HBM3,
 # and the special-function units (16 exponentials per clock per SM, CUDA
 # programming guide's arithmetic-instruction throughput table for compute
-# capability 9.0) at the 1,980 MHz maximum boost clock on 132 SMs
+# capability 9.0) at the 1,980 MHz maximum boost clock on 132 SMs; the
+# dense bf16 rate and the HBM rate are the launch layer's card record
 PEAK_FP32 = 67e12
-PEAK_BF16 = 989e12   # dense bf16 tensor-core rate
+PEAK_BF16 = H100.peak_flops   # dense bf16 tensor-core rate
 PEAK_TF32 = 495e12   # dense TF32 tensor-core rate
 # the mLSTM kernels and score_cov's product K L^-T run each fp32 product as
 # three TF32 products (split TF32), so those operations go at a third of
 # the TF32 rate
 PEAK_SPLIT_TF32 = PEAK_TF32 / 3
-PEAK_BYTES = 3.35e12
+PEAK_BYTES = H100.hbm_bw
 SM_CLOCK_HZ = 1.98e9
 PEAK_EXP = 16 * 132 * SM_CLOCK_HZ
 # fp32 operations around each exponential of the TPE kernels: difference,
@@ -1399,6 +1419,7 @@ FLASH_BWD_SHAPES = [
      torch.bfloat16),
     ("whisper-large-v3 cross bf16", 4, 448, 1500, 20, 20, 64, False,
      torch.bfloat16),
+    ("smollm-135m train", 8, 1024, 1024, 9, 3, 64, True, torch.bfloat16),
 ]
 FLASH_BWD_MAIN = "jamba attention"
 # small shapes for the card test (tests/test_torch_models.py), each kind in
@@ -3558,6 +3579,283 @@ def profile_path(bank, tpe_bank):
     _profile_ask(tpe_bank, f"TPE, {n} trials per study in flight", n)
 
 
+# --------------------------------------------------------------------------- #
+# phase 23: the launch layer (meshes, DTensor layouts, plan cost, dry run)
+# --------------------------------------------------------------------------- #
+MESH_TRAIN = dict(arch="smollm-135m", batch=8, seq=1024, steps=4)
+MESH_SERVE = dict(prompt=1024, gen=16)
+# a greedy pick of the DTensor path may differ from the plain path's only
+# where the plain path's two logits lie within this of each other (bf16
+# activations; at one rank both paths run the same local ops)
+MESH_TIE = 5e-2
+DRYRUN_CELLS = (
+    ["--all", "--mesh", "both"],
+    ["--arch", "smollm-135m", "--shape", "train_4k", "--mesh", "single",
+     "--trace"],
+    ["--arch", "smollm-135m", "--shape", "train_4k", "--mesh", "multi",
+     "--trace"])
+
+
+def _dryrun_procs():
+    """Phase 23f's dry runs, started at once as CPU subprocesses (no card):
+    the analytic pass over every cell and both meshes, and smollm-135m
+    train_4k traced on a fake 256- and 512-rank process group."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"),
+               CUDA_VISIBLE_DEVICES="")
+    out = ROOT / "build" / "dryrun"
+    return [(argv, subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", *argv, "--out",
+         str(out)], cwd=ROOT, env=env, stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True)) for argv in DRYRUN_CELLS]
+
+
+def _dryrun_wait(procs, t0):
+    for argv, p in procs:
+        out, _ = p.communicate(timeout=600)
+        lines = out.strip().splitlines()
+        for line in lines:
+            if line.startswith(("OK ", "FAIL")) and (
+                    "--trace" in argv or line.startswith("FAIL")):
+                log(f"[mesh-dryrun] {line}")
+        log(f"[mesh-dryrun] {' '.join(argv)}: exit {p.returncode}, "
+            f"{lines[-1] if lines else 'no output'} "
+            f"({time.perf_counter() - t0:.1f} s since phase 23 began)")
+        if p.returncode != 0 or not lines or " cells OK" not in lines[-1]:
+            raise AssertionError(f"dry run {argv} failed:\n" + "\n".join(
+                lines[-30:]))
+
+
+def _mesh_batches(cfg, n, B, S, dev, seed=23):
+    rng = np.random.default_rng(seed)
+    return [{k: torch.as_tensor(rng.integers(0, cfg.vocab_size, (B, S),
+                                             dtype=np.int32), device=dev)
+             for k in ("tokens", "labels")} for _ in range(n)]
+
+
+def mesh_path(dev):
+    """Phase 23: smollm-135m at full width and depth on a one-rank NCCL
+    ``DeviceMesh`` (data=1, model=1) with DTensor state, beside the plain
+    path from the same state.  (a) ``MESH_TRAIN`` AdamW steps in bf16
+    (remat none) with the state placed by ``param_specs``: losses and grad
+    norms within phase 11's tolerances of the plain step's, 30 flash forward
+    and 30 backward launches per DTensor step (counters set to 0 just before
+    each DTensor step and read just after); (b) a 1024-token prefill and 16
+    greedy tokens with a DTensor cache placed by ``cache_specs``: tokens
+    equal to the plain path's but on near-ties; (c) the step's wall and
+    its own peak memory (its state and batch plus what it allocates above
+    what was live when it began) beside ``estimate_plan(..., n_devices=1)``,
+    ``fits`` held against that peak and the card's memory; (d) ``compressed_psum`` over the
+    data group on NCCL against the local quantise-dequantise; (e) a save
+    from the DTensor state restored onto its placements, bitwise; (f) the
+    dry runs of ``DRYRUN_CELLS`` in CPU subprocesses, started first.
+    Returns the flash launches of the DTensor steps and the prefill."""
+    import tempfile
+    import torch.distributed as dist
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch import cost, roofline
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.launch import sharding
+    from repro_torch.optim.compression import compressed_psum
+    from repro_torch.train.checkpoint import Checkpointer
+
+    t0 = time.perf_counter()
+    procs = _dryrun_procs()
+    store_path = ROOT / "build" / "mesh_store"
+    store_path.parent.mkdir(parents=True, exist_ok=True)
+    store_path.unlink(missing_ok=True)
+    on_card = dev.type == "cuda"
+    dist.init_process_group(
+        "nccl" if on_card else "gloo",
+        store=dist.FileStore(str(store_path), 1), rank=0, world_size=1,
+        device_id=(torch.device("cuda", torch.cuda.current_device())
+                   if on_card else None))
+    try:
+        dm = mesh_lib.device_mesh(mesh_lib.make_test_mesh((1, 1)), dev.type)
+        T = MESH_TRAIN
+        cfg = get_config(T["arch"])
+        rt = Runtime(sc=mesh_lib.make_shard_ctx(dm), remat_policy="none")
+        rt0 = Runtime(remat_policy="none")
+        hyper = TrainHyper()
+        state0 = init_train_state(torch.Generator(device=dev).manual_seed(0),
+                                  cfg, rt0)
+        specs = sharding.train_state_specs(state0["params"], cfg, rt.sc)
+        state = sharding.distribute_tree(_copy_to(state0, dev), specs, dm)
+        step = make_train_step(cfg, rt, hyper)
+        step0 = make_train_step(cfg, rt0, hyper)
+        per = sum(s.mixer == "attn" for s in layer_specs(cfg))
+        counts = {"flash_attention": 0, "flash_attention_bwd": 0}
+        walls, walls0, worst = [], [], (0.0, 0.0)
+        # each step's own peak: its inputs' bytes plus the most allocated
+        # above what was live when it began (the twin's state, earlier
+        # phases' leftovers), read from a peak reset just before the step
+        peaks = {"dtensor": (0, 0), "plain": (0, 0)}
+
+        def own_peak(key, inputs, run):
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            s0 = time.perf_counter()
+            out = run()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - s0
+            held = sharding.local_bytes(inputs)
+            over = torch.cuda.max_memory_allocated() - base
+            if held + over > sum(peaks[key]):
+                peaks[key] = (held, over)
+            return out, wall
+
+        for i, batch in enumerate(_mesh_batches(cfg, T["steps"], T["batch"],
+                                                T["seq"], dev)):
+            placed = sharding.distribute_tree(
+                batch, sharding.batch_specs(batch, rt.sc, T["batch"]), dm)
+            _reset(flash_ops.launches)
+            (state, m), w = own_peak("dtensor", (state, placed),
+                                     lambda: step(state, placed))
+            walls.append(w)
+            n = dict(flash_ops.launches)
+            for k in counts:
+                counts[k] += n[k]
+            (state0, m0), w = own_peak("plain", (state0, batch),
+                                       lambda: step0(state0, batch))
+            walls0.append(w)
+            loss, gn = (float(m["loss"].full_tensor()),
+                        float(m["grad_norm"].full_tensor()))
+            loss0, gn0 = float(m0["loss"]), float(m0["grad_norm"])
+            worst = (max(worst[0], _rel(loss, loss0)),
+                     max(worst[1], _rel(gn, gn0)))
+            log(f"[mesh-train] {T['arch']} bf16 B={T['batch']} S={T['seq']} "
+                f"mesh (data=1, model=1) {dist.get_backend()} step {i}: loss "
+                f"{loss:.6f} vs "
+                f"plain {loss0:.6f}, grad norm {gn:.6f} vs {gn0:.6f}; "
+                f"DTensor step {walls[-1] * 1e3:.1f} ms, plain step "
+                f"{walls0[-1] * 1e3:.1f} ms (host clock, synchronized); "
+                f"flash launches {n}")
+            if n != {"flash_attention": per, "flash_attention_bwd": per}:
+                raise AssertionError(f"step {i}: flash launches {n}, "
+                                     f"expected {per} each way")
+            if not (math.isfinite(loss) and math.isfinite(gn)):
+                raise AssertionError("non-finite loss or grad norm")
+        peak = sum(peaks["dtensor"])
+        log(f"[mesh-train] largest relative difference DTensor vs plain: "
+            f"loss {worst[0]:.3g} (tolerance {TRAIN_LOSS_RTOL}), grad norm "
+            f"{worst[1]:.3g} (tolerance {TRAIN_GNORM_RTOL})")
+        if worst[0] > TRAIN_LOSS_RTOL or worst[1] > TRAIN_GNORM_RTOL:
+            raise AssertionError(f"DTensor step off the plain step: {worst}")
+
+        # (b) prefill + greedy decode on the mesh
+        S = MESH_SERVE["prompt"]
+        prompt = {"tokens": _mesh_batches(cfg, 1, T["batch"], S, dev,
+                                          seed=24)[0]["tokens"]}
+        cache_size = S + MESH_SERVE["gen"]
+        pre = make_prefill_step(cfg, rt, cache_size=cache_size)
+        pre0 = make_prefill_step(cfg, rt0, cache_size=cache_size)
+        dec, dec0 = make_decode_step(cfg, rt), make_decode_step(cfg, rt0)
+        pt = sharding.distribute_tree(
+            prompt, sharding.batch_specs(prompt, rt.sc, T["batch"]), dm)
+        _reset(flash_ops.launches)
+        tok, cache, _ = pre(state["params"], pt)
+        n_pre = dict(flash_ops.launches)
+        tok0, cache0, lg0 = pre0(state0["params"], prompt)
+        placements = {str(cache[0]["k"].placements)}
+        same, ties = 0, 0
+        for i in range(MESH_SERVE["gen"] + 1):
+            a, b = tok.full_tensor(), tok0
+            diff = (a != b).nonzero().flatten().tolist()
+            for r in diff:
+                gap = abs(float(lg0[r, a[r]]) - float(lg0[r, b[r]]))
+                if gap > MESH_TIE:
+                    raise AssertionError(
+                        f"token {i} row {r}: DTensor {int(a[r])} vs plain "
+                        f"{int(b[r])}, logit gap {gap:.4g}")
+                ties += 1
+            if diff:
+                break  # the streams diverge on a near-tie
+            same += 1
+            if i == MESH_SERVE["gen"]:
+                break
+            tok, cache, _ = dec(state["params"], tok[:, None], cache, S + i)
+            tok0, cache0, lg0 = dec0(state0["params"], tok0[:, None], cache0,
+                                     S + i)
+        log(f"[mesh-serve] {T['arch']} bf16 B={T['batch']} prompt {S}, "
+            f"{MESH_SERVE['gen']} greedy tokens on the mesh, cache "
+            f"placements {placements}: {same} of {MESH_SERVE['gen'] + 1} "
+            f"token rows equal to the plain path's, {ties} near-ties; flash "
+            f"launches in the prefill {n_pre}")
+        if n_pre["flash_attention"] != per:
+            raise AssertionError(f"prefill flash launches {n_pre}")
+        counts["flash_attention"] += n_pre["flash_attention"]
+
+        # (c) estimate vs measured
+        shape = ShapeConfig("phase23", T["seq"], T["batch"], "train")
+        plan = {"tp": 1, "remat": "none", "micro": 1}
+        est = cost.estimate_plan(cfg, shape, plan, n_devices=1)
+        steady = walls[1:] or walls
+        wall = sum(steady) / len(steady)
+        wall0 = sum(walls0[1:] or walls0) / len(walls0[1:] or walls0)
+        total = torch.cuda.get_device_properties(0).total_memory
+        # the estimate's resident terms at one device: bf16 parameters
+        # (2 B) and fp32 optimizer state (12 B) a parameter; the rest is
+        # its stored activations
+        est_state = 14.0 * cfg.param_count()["total"]
+        est_act = est["hbm_gb"] * 1e9 - est_state
+        (held, over), (held0, over0) = peaks["dtensor"], peaks["plain"]
+        log(f"[mesh-cost] estimate_plan(n_devices=1, {plan}) on "
+            f"{roofline.H100.name}: step {est['t_step_s'] * 1e3:.2f} ms "
+            f"(compute {est['t_compute_s'] * 1e3:.2f}, memory "
+            f"{est['t_memory_s'] * 1e3:.2f}), {est['hbm_gb']:.3f} GB "
+            f"(state {est_state / 1e9:.3f}, activations "
+            f"{est_act / 1e9:.3f}), fits {est['fits']}; measured DTensor "
+            f"step {wall * 1e3:.1f} ms (ratio measured/estimate "
+            f"{wall / est['t_step_s']:.2f}), plain step {wall0 * 1e3:.1f} ms "
+            f"(DTensor/plain {wall / wall0:.3f}); the DTensor step's own "
+            f"peak {peak / 1e9:.3f} GB = its state and batch "
+            f"{held / 1e9:.3f} + {over / 1e9:.3f} allocated above them "
+            f"(ratios measured/estimate: peak "
+            f"{peak / 1e9 / est['hbm_gb']:.2f}, state "
+            f"{held / est_state:.2f}, above-state/activations "
+            f"{over / est_act:.2f}); the plain step's own peak "
+            f"{(held0 + over0) / 1e9:.3f} GB = {held0 / 1e9:.3f} + "
+            f"{over0 / 1e9:.3f}; card memory {total / 1e9:.1f} GB")
+        fits_measured = peak <= roofline.H100.hbm_bytes and peak <= total
+        if est["fits"] != fits_measured:
+            raise AssertionError(f"fits {est['fits']} but the peak "
+                                 f"{peak} says {fits_measured}")
+
+        # (d) int8 all-reduce over the data group
+        x = torch.randn(1 << 20, generator=torch.Generator(
+            device=dev).manual_seed(5), device=dev)
+        got = compressed_psum(x, dm.get_group("data"))
+        scale = torch.clamp(x.abs().max(), min=1e-12) / 127.0
+        want = torch.clamp(torch.round(x / scale), -127, 127) * scale
+        err = float((got - want).abs().max())
+        log(f"[mesh-psum] compressed_psum of {x.numel()} floats over the "
+            f"data group ({dist.get_backend()}, 1 rank): max |got - local dequantised| "
+            f"{err:.3g}, one quantum {float(scale):.3g}")
+        if not err <= float(scale):
+            raise AssertionError("compressed_psum off by more than a quantum")
+
+        # (e) save from the DTensor state, restore onto its placements
+        with tempfile.TemporaryDirectory() as d:
+            ck = Checkpointer(d, cfg, async_save=False)
+            ck.save(T["steps"], state)
+            got, meta = ck.restore(None, state,
+                                   placements=sharding.to_shardings(specs,
+                                                                    dm))
+        bad = [p for (p, a), (_, b) in zip(tree_items(got), tree_items(state))
+               if torch.is_tensor(a) and not (
+                   a.placements == b.placements
+                   and torch.equal(a.full_tensor(), b.full_tensor()))]
+        log(f"[mesh-ckpt] saved the DTensor state at step {meta['step']} and "
+            f"restored it onto its placements: {len(bad)} leaves differ")
+        if bad or got["opt"]["step"] != state["opt"]["step"]:
+            raise AssertionError(f"restore differs at {bad[:4]}")
+    finally:
+        dist.destroy_process_group()
+    _dryrun_wait(procs, t0)
+    log(f"[mesh] phase 23 took {time.perf_counter() - t0:.1f} s")
+    return counts
+
+
 def main(argv) -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -3689,6 +3987,10 @@ def main(argv) -> int:
         for name in ("score_cov", "var_downdate", "tpe_scores"):
             launches[name] += counts.get(name, 0)
     wall("22")
+    counts = mesh_path(dev)
+    for name in ("flash_attention", "flash_attention_bwd"):
+        launches[name] += counts[name]
+    wall("23")
     gp_src = "src/repro_torch/kernels/gp_acquisition/csrc/gp_acquisition.cu"
     tpe_src = "src/repro_torch/kernels/tpe_kde/csrc/tpe_kde.cu"
     flash_src = ("src/repro_torch/kernels/flash_attention/csrc/"

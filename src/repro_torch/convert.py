@@ -34,7 +34,7 @@ import torch
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.device import DeviceLike, resolve_device
-from repro_torch.models.common import Runtime
+from repro_torch.models.common import Runtime, is_dtensor
 from repro_torch.models import mamba, moe, xlstm
 from repro_torch.models.transformer import layer_specs
 from repro_torch.tree import tree_map
@@ -204,7 +204,10 @@ def numpy_to_tensor(a, dtype: torch.dtype, device) -> torch.Tensor:
 
 def tensor_to_numpy(t) -> np.ndarray:
     """float32 numpy of a tensor (bfloat16 widens exactly; JAX casts it back
-    on restore)."""
+    on restore); a DTensor is gathered whole first (a collective every rank
+    of its mesh joins)."""
+    if is_dtensor(t):
+        t = t.full_tensor()
     return t.detach().float().cpu().numpy()
 
 

@@ -21,9 +21,23 @@ Decode (``attn_decode``, ``cross_attn_decode``) stays plain PyTorch on the
 card, as the JAX package computes it outside any Pallas kernel: one query
 row per sequence against the cached keys.  The self-attention cache is
 updated in place at ``cache_len``; the cross cache is only read.
+
+On a mesh (``DTensor`` activations, ``rt.sc`` set) the kernel stays:
+``_sdpa`` places q, k and v with the batch over the data axes and the heads
+over the model axis, or the heads replicated where they do not divide it
+(smollm's 9, yi's 56 on a 16-wide axis), and runs ``flash_ops.sdpa`` on
+each rank's local q, k and v through ``local_map``; its gradient goes
+through the kernel's autograd Function.  Where the query heads divide the
+axis and the key/value heads do not, k and v are expanded to the query
+heads first, as the reference's dense path expands them.  The reference's
+``kvseq``/``qseq`` fallbacks have no counterpart.  A DTensor cache, whose
+position dim may be sharded (``launch.sharding.cache_specs``), is written
+whole through a position mask and scored whole with the positions past
+``cache_len`` masked to -1e30, as the reference scores its cache.
 """
 from __future__ import annotations
 
+import functools
 from typing import Optional, Tuple
 
 import torch
@@ -31,6 +45,7 @@ import torch
 from repro_torch.configs.base import ArchConfig
 from repro_torch.kernels.flash_attention import ops as flash_ops
 from repro_torch.models.common import (Runtime, accum_product, apply_rope,
+                                       is_dtensor,
                                        dense_init, rope_tables)
 
 
@@ -44,11 +59,22 @@ def attn_init(gen: torch.Generator, cfg: ArchConfig, rt: Runtime) -> dict:
     }
 
 
+def _heads(y: torch.Tensor, n_heads: int, cfg: ArchConfig,
+           rt: Runtime) -> torch.Tensor:
+    """A projection (B, S, n_heads*hd) as (B, S, n_heads, hd); on a mesh,
+    its heads split over the model axis where they divide it (the
+    reference's ``_shard_plan``), replicated otherwise."""
+    sc = rt.sc
+    B, S, _ = y.shape
+    y = sc.constrain(y, sc.div(B, sc.dp_axes), None,
+                     sc.div(n_heads, sc.tp_axis))
+    return y.view(B, S, n_heads, cfg.hd)
+
+
 def _project_q(p: dict, x: torch.Tensor, cfg: ArchConfig,
                rt: Runtime) -> torch.Tensor:
-    B, S, _ = x.shape
     cd = rt.compute_dtype
-    return (x.to(cd) @ p["wq"].to(cd)).view(B, S, cfg.n_heads, cfg.hd)
+    return _heads(x.to(cd) @ p["wq"].to(cd), cfg.n_heads, cfg, rt)
 
 
 def _project_qkv(p: dict, x: torch.Tensor, cfg: ArchConfig, rt: Runtime,
@@ -56,11 +82,10 @@ def _project_qkv(p: dict, x: torch.Tensor, cfg: ArchConfig, rt: Runtime,
     """q (B, S, H, hd) from x, k and v (B, Sk, KV, hd) from ``kv_x`` (x
     when None), in the compute dtype."""
     src = x if kv_x is None else kv_x
-    B, Sk, _ = src.shape
     cd = rt.compute_dtype
     sc = src.to(cd)
-    k = (sc @ p["wk"].to(cd)).view(B, Sk, cfg.n_kv_heads, cfg.hd)
-    v = (sc @ p["wv"].to(cd)).view(B, Sk, cfg.n_kv_heads, cfg.hd)
+    k = _heads(sc @ p["wk"].to(cd), cfg.n_kv_heads, cfg, rt)
+    v = _heads(sc @ p["wv"].to(cd), cfg.n_kv_heads, cfg, rt)
     return _project_q(p, x, cfg, rt), k, v
 
 
@@ -69,6 +94,54 @@ def _out_proj(p: dict, out: torch.Tensor, cfg: ArchConfig,
     B, S = out.shape[:2]
     cd = rt.compute_dtype
     return out.reshape(B, S, cfg.n_heads * cfg.hd) @ p["wo"].to(cd)
+
+
+def _expand_kv(k: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
+    """(B, S, KV, hd) -> (B, S, H, hd), each key/value head repeated for
+    its group of query heads."""
+    B, S, KV, hd = k.shape
+    G = cfg.n_heads // KV
+    return k[:, :, :, None].expand(B, S, KV, G, hd).reshape(B, S, KV * G,
+                                                            hd)
+
+
+class _ContiguousGrad(torch.autograd.Function):
+    """Identity whose gradient is made contiguous: a local shard's gradient
+    goes back into DTensor views, which need its rows dense (the plain
+    version's gradients come out permuted)."""
+
+    @staticmethod
+    def forward(ctx, x):
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.contiguous()
+
+
+def _local_sdpa(q, k, v, *, causal: bool):
+    q, k, v = (_ContiguousGrad.apply(t.contiguous()) for t in (q, k, v))
+    return flash_ops.sdpa(q, k, v, causal=causal)
+
+
+def _sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+          cfg: ArchConfig, rt: Runtime, causal: bool) -> torch.Tensor:
+    """``flash_ops.sdpa``; on a mesh, on each rank's shard of the batch
+    and the heads (see the module's docstring)."""
+    if not is_dtensor(q):
+        return flash_ops.sdpa(q, k, v, causal=causal)
+    from torch.distributed.tensor.experimental import local_map
+    sc = rt.sc
+    h_axis = sc.div(cfg.n_heads, sc.tp_axis)
+    if h_axis is not None and sc.div(cfg.n_kv_heads, h_axis) is None:
+        k, v = _expand_kv(k, cfg), _expand_kv(v, cfg)
+    spec = (sc.div(q.shape[0], sc.dp_axes), None, h_axis, None)
+    q, k, v = (sc.constrain(t, *spec) for t in (q, k, v))
+    pl = sc.placements(spec)
+    run = local_map(functools.partial(_local_sdpa, causal=causal),
+                    out_placements=pl, in_placements=(pl, pl, pl),
+                    device_mesh=sc.device_mesh)
+    return run(q, k, v)
 
 
 def attention_with_kv(p: dict, x: torch.Tensor, cfg: ArchConfig,
@@ -86,7 +159,7 @@ def attention_with_kv(p: dict, x: torch.Tensor, cfg: ArchConfig,
         cos, sin = rope_tables(positions, cfg.hd, cfg.rope_theta)
         q = apply_rope(q, cos, sin)
         k = apply_rope(k, cos, sin)
-    out = flash_ops.sdpa(q, k, v, causal=causal)
+    out = _sdpa(q, k, v, cfg, rt, causal)
     return _out_proj(p, out, cfg, rt), (k, v)
 
 
@@ -123,10 +196,65 @@ def attn_decode(p: dict, x: torch.Tensor, cache: dict, cache_len: int,
         cos, sin = rope_tables(pos, cfg.hd, cfg.rope_theta)
         q = apply_rope(q, cos, sin)
         k_new = apply_rope(k_new, cos, sin)
-    cache["k"][:, cache_len] = k_new[:, 0]
-    cache["v"][:, cache_len] = v_new[:, 0]
+    write_positions(cache["k"], k_new, cache_len)
+    write_positions(cache["v"], v_new, cache_len)
     n = cache_len + 1
-    return _attend_one(p, q, cache["k"][:, :n], cache["v"][:, :n], cfg, rt)
+    k, v = cache["k"], cache["v"]
+    if not is_dtensor(k):
+        return _out_proj(p, _attend_core(q, k[:, :n], v[:, :n], rt), cfg, rt)
+    from torch.distributed.tensor.experimental import local_map
+    sc = rt.sc
+    kv_axis = sc.div(cfg.n_kv_heads, sc.tp_axis)
+    if kv_axis is None:
+        # the cache splits its positions: score it whole, masked
+        q = sc.constrain(q, sc.batch_spec(q.shape[0]), None, None, None)
+        return _out_proj(p, _attend_core(q, k, v, rt, n_live=n), cfg, rt)
+    # key heads split over the model axis: every rank holds whole rows
+    # of its heads, so the plain path runs on its shards
+    pl = sc.placements((sc.batch_spec(q.shape[0]), None, kv_axis, None))
+    q = sc.constrain(q, sc.batch_spec(q.shape[0]), None, kv_axis, None)
+    run = local_map(
+        lambda q, k, v: _attend_core(q, k[:, :n], v[:, :n], rt),
+        out_placements=pl, in_placements=(pl, pl, pl),
+        device_mesh=sc.device_mesh)
+    return _out_proj(p, run(q, k, v), cfg, rt)
+
+
+def write_positions(buf: torch.Tensor, new: torch.Tensor,
+                    start: int) -> None:
+    """``buf[:, start:start + n] = new`` in place, for a cache ``buf``
+    (B, S, ...) and ``new`` (B, n, ...).  On a DTensor ``buf``, whose
+    position dim may be sharded, each rank writes the positions of its own
+    shard into its local tensor (``new`` placed as ``buf`` is, its
+    positions whole)."""
+    n = new.shape[1]
+    if not is_dtensor(buf):
+        buf[:, start:start + n] = new
+        return
+    from torch.distributed.tensor import Replicate
+    mesh, pl = buf.device_mesh, buf.placements
+    whole = tuple(Replicate() if p.is_shard(1) else p for p in pl)
+    if tuple(new.placements) != whole:
+        new = new.redistribute(mesh, whole)
+    new = new.to_local()
+    lo, hi = _local_span(buf.shape[1], mesh, pl, 1)
+    a, b = max(start, lo), min(start + n, hi)
+    if a < b:
+        buf.to_local()[:, a - lo:b - lo] = new[:, a - start:b - start]
+
+
+def _local_span(n: int, mesh, placements, dim: int) -> Tuple[int, int]:
+    """[lo, hi) of dim ``dim`` (size n) held by this rank: DTensor's split,
+    ceil-sized chunks over each mesh axis that shards the dim, major
+    first."""
+    coord = mesh.get_coordinate()
+    lo, size = 0, n
+    for i, p in enumerate(placements):
+        if p.is_shard(dim):
+            chunk = -(-size // mesh.size(i))
+            lo += coord[i] * chunk
+            size = max(0, min(chunk, size - coord[i] * chunk))
+    return lo, lo + size
 
 
 def cross_attn_decode(p: dict, x: torch.Tensor, cross_k: torch.Tensor,
@@ -135,21 +263,25 @@ def cross_attn_decode(p: dict, x: torch.Tensor, cross_k: torch.Tensor,
     """x (B, 1, d) against the encoder's cached keys and values
     ``cross_k`` / ``cross_v`` (B, Se, KV, hd): every position, no mask, no
     cache write, no RoPE."""
-    return _attend_one(p, _project_q(p, x, cfg, rt), cross_k, cross_v, cfg,
-                       rt)
+    return _out_proj(p, _attend_core(_project_q(p, x, cfg, rt), cross_k,
+                                     cross_v, rt), cfg, rt)
 
 
-def _attend_one(p: dict, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                cfg: ArchConfig, rt: Runtime) -> torch.Tensor:
-    """One query row q (B, 1, H, hd) over k and v (B, n, KV, hd), then the
-    output projection."""
-    B = q.shape[0]
-    H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+def _attend_core(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                 rt: Runtime, n_live: Optional[int] = None) -> torch.Tensor:
+    """One query row q (B, 1, H, hd) over k and v (B, n, KV, hd): the
+    (B, 1, H, hd) attention output; with ``n_live``, the positions from
+    ``n_live`` on are masked to -1e30 (probability 0)."""
+    B, _, H, hd = q.shape
+    KV = k.shape[2]
     cd = rt.compute_dtype
     k = k.permute(0, 2, 3, 1)                        # (B, KV, hd, n)
     v = v.permute(0, 2, 1, 3)                        # (B, KV, n, hd)
-    qg = q.view(B, KV, H // KV, hd)                  # one query row
+    qg = q[:, 0].unflatten(1, (KV, H // KV))         # one query row
     scores = accum_product(qg, k, rt) * (hd ** -0.5)  # (B, KV, G, n)
+    if n_live is not None:
+        pos = torch.arange(scores.shape[-1], device=scores.device)
+        scores = torch.where(pos < n_live, scores, -1e30)
     w = torch.softmax(scores, dim=-1).to(cd)
     out = torch.matmul(w, v.to(cd))                  # (B, KV, G, hd)
-    return _out_proj(p, out.reshape(B, 1, H, hd), cfg, rt)
+    return out.reshape(B, 1, H, hd)

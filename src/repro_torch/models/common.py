@@ -1,10 +1,17 @@
-"""Shared model machinery: runtime policy, norms, RoPE, init, logits and the
-chunked cross-entropy loss.
+"""Shared model machinery: sharding context, runtime policy, norms, RoPE,
+init, logits and the chunked cross-entropy loss.
 
 The counterpart of ``repro.models.common``, as plain functions on tensors.
-There is no sharding context: the port runs on one card (sharding is
-ROADMAP queue 1 item 14), and no ``use_pallas`` switch: on the card the
-kernels always run.
+Sharding is expressed through a ``ShardCtx``, so the same model code runs:
+  * un-meshed (``ShardCtx.null()``, the default ``Runtime()``): plain
+    tensors, every constraint a no-op;
+  * on a ``torch.distributed`` ``DeviceMesh`` with ``DTensor`` state placed
+    by ``repro_torch.launch.sharding``: ``constrain`` redistributes an
+    activation to the reference's spec at the reference's sites.
+Its axis arithmetic (``axis_size``, ``div``, ...) reads only the mesh's
+axis names and sizes (a ``MeshSpec``), so the layout rules run with no
+process group, as the JAX package's run on abstract trees.  There is no
+``use_pallas`` switch: on the card the kernels always run.
 
 Wherever the JAX package multiplies ``compute_dtype`` operands with
 ``preferred_element_type=float32``, the port multiplies the operands,
@@ -16,11 +23,137 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Sequence, Tuple
+import sys
+from typing import Any, Dict, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
+
+
+# --------------------------------------------------------------------------- #
+# Sharding context
+# --------------------------------------------------------------------------- #
+@dataclasses.dataclass(frozen=True)
+class MeshSpec:
+    """A mesh's axis names and sizes, major to minor: what the layout rules
+    read of a mesh (the JAX ``Mesh``'s ``axis_names`` and ``shape``)."""
+
+    axis_names: Tuple[str, ...]
+    sizes: Tuple[int, ...]
+
+    @property
+    def shape(self) -> Dict[str, int]:
+        return dict(zip(self.axis_names, self.sizes))
+
+    @property
+    def size(self) -> int:
+        return math.prod(self.sizes)
+
+
+def is_dtensor(x) -> bool:
+    """Whether ``x`` is a DTensor.  ``torch.distributed.tensor`` loads the
+    compiler stack (seconds), so it is imported only by code that builds
+    DTensors: until then none exists, and the plain path never pays."""
+    mod = sys.modules.get("torch.distributed.tensor")
+    return mod is not None and isinstance(x, mod.DTensor)
+
+
+def mesh_placements(spec: Sequence[Any], axis_names: Sequence[str]) -> list:
+    """One DTensor placement per mesh axis for ``spec`` (one entry per
+    tensor dim: an axis name, a tuple of names, or None): ``Shard(i)`` on
+    each axis named at dim i, ``Replicate()`` elsewhere.  A dim split over
+    several axes names them in mesh order, major first, as DTensor orders
+    the shards of one dim (``P(("data", "model"))`` is data-major)."""
+    from torch.distributed.tensor import Replicate, Shard
+    out: list = [Replicate() for _ in axis_names]
+    for dim, entry in enumerate(spec):
+        if entry is None:
+            continue
+        names = (entry,) if isinstance(entry, str) else tuple(entry)
+        idx = [axis_names.index(a) for a in names]
+        if idx != sorted(idx):
+            raise ValueError(f"axes {names} of dim {dim} are not in mesh "
+                             f"order {tuple(axis_names)}")
+        for i in idx:
+            if not isinstance(out[i], Replicate):
+                raise ValueError(f"mesh axis {axis_names[i]!r} named twice "
+                                 f"in {tuple(spec)}")
+            out[i] = Shard(dim)
+    return out
+
+
+@dataclasses.dataclass(frozen=True)
+class ShardCtx:
+    """Mesh-aware axis resolution with divisibility fallbacks.  ``mesh`` is
+    the abstract mesh the rules read; ``device_mesh``, when set, is the
+    ``DeviceMesh`` of the same shape that ``constrain`` places on."""
+
+    mesh: Optional[MeshSpec] = None
+    dp_axes: Tuple[str, ...] = ()     # batch-parallel axes, e.g. ("pod", "data")
+    tp_axis: Optional[str] = None     # tensor-parallel axis ("model")
+    # parameter-shard axis or tuple of axes ("data" / ("data", "model"))
+    fsdp_axis: Optional[object] = None
+    seq_parallel: bool = False        # shard activations over seq between blocks
+    shard_lstm_r: bool = False        # FSDP-shard sLSTM recurrent weights
+    device_mesh: Any = dataclasses.field(default=None, compare=False,
+                                         hash=False, repr=False)
+
+    @staticmethod
+    def null() -> "ShardCtx":
+        return ShardCtx()
+
+    def axis_size(self, axis) -> int:
+        if self.mesh is None or axis is None:
+            return 1
+        if isinstance(axis, (tuple, list)):
+            n = 1
+            for a in axis:
+                n *= self.mesh.shape[a]
+            return n
+        return self.mesh.shape[axis]
+
+    @property
+    def tp(self) -> int:
+        return self.axis_size(self.tp_axis)
+
+    @property
+    def dp(self) -> int:
+        return self.axis_size(self.dp_axes) if self.dp_axes else 1
+
+    @property
+    def fsdp(self) -> int:
+        return self.axis_size(self.fsdp_axis)
+
+    def div(self, n: int, axis):
+        """Return ``axis`` if dimension ``n`` is divisible by its mesh size."""
+        if self.mesh is None or axis is None:
+            return None
+        return axis if n % self.axis_size(axis) == 0 else None
+
+    def placements(self, spec: Sequence[Any]) -> list:
+        return mesh_placements(spec, self.mesh.axis_names)
+
+    def constrain(self, x: torch.Tensor, *spec) -> torch.Tensor:
+        """Redistribute a ``DTensor`` to ``spec``'s placements (a partial
+        sum is reduced); a plain tensor is returned unchanged (the JAX
+        version is a no-op without a mesh)."""
+        if not is_dtensor(x):
+            return x
+        want = tuple(self.placements(spec))
+        if tuple(x.placements) == want:
+            return x
+        return x.redistribute(x.device_mesh, want)
+
+    # Convenience specs -----------------------------------------------------
+    def batch_spec(self, n_batch: int):
+        return self.div(n_batch, self.dp_axes)
+
+    def act(self, x: torch.Tensor, batch_dim_size: int,
+            *rest) -> torch.Tensor:
+        """Constrain an activation whose dim 0 is the (global) batch."""
+        return self.constrain(x, self.div(batch_dim_size, self.dp_axes),
+                              *rest)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -31,8 +164,11 @@ class Runtime:
     training and routing knobs of the reference's ``Runtime`` (the mLSTM
     kernel's chunk is fixed at 64 tokens, as the Pallas kernel's is; the
     Mamba scan has no chunk: its kernel and plain version walk every
-    step)."""
+    step).  ``sc`` is the sharding context (un-meshed by default);
+    ``moe_expert_parallel`` chooses the expert-parallel layout of the MoE
+    weights (``launch.sharding.expert_parallel_overrides``)."""
 
+    sc: ShardCtx = dataclasses.field(default_factory=ShardCtx.null)
     param_dtype: torch.dtype = torch.bfloat16
     compute_dtype: torch.dtype = torch.bfloat16
     accum_dtype: torch.dtype = torch.float32
@@ -40,6 +176,7 @@ class Runtime:
     ce_chunk: int = 512                # seq chunk for cross-entropy
     ssm_chunk: int = 256               # chunk of the stateful mLSTM scan
     moe_capacity_factor: float = 0.0   # 0 -> use cfg.capacity_factor
+    moe_expert_parallel: bool = False  # shard expert axis over TP (EP mode)
     remat_policy: str = "full"         # none | dots | full
     z_loss: float = 1e-4
 
@@ -169,7 +306,8 @@ def logits_for(x: torch.Tensor, w_head: torch.Tensor, rt: Runtime,
     Vp = w_head.shape[1]
     logits = accum_product(x, w_head, rt)
     if Vp != vocab_size:
-        logits[..., vocab_size:] = -1e30
+        col = torch.arange(Vp, device=logits.device)
+        logits = torch.where(col < vocab_size, logits, -1e30)
     return logits
 
 
@@ -177,12 +315,23 @@ def logits_for(x: torch.Tensor, w_head: torch.Tensor, rt: Runtime,
 # Chunked cross-entropy (never materializes (B, S, V) logits)
 # --------------------------------------------------------------------------- #
 def _ce_chunk(xc, w_head, lc, mc, rt: Runtime, vocab_size: int):
-    logits = accum_product(xc, w_head, rt)
+    sc = rt.sc
+    logits = sc.constrain(accum_product(xc, w_head, rt),
+                          sc.div(xc.shape[0], sc.dp_axes), None,
+                          sc.div(w_head.shape[1], sc.tp_axis))
     if w_head.shape[1] != vocab_size:
         col = torch.arange(w_head.shape[1], device=logits.device)
         logits = torch.where(col < vocab_size, logits, -1e30)
     lse = torch.logsumexp(logits, dim=-1)                       # (B, C)
-    ll = torch.gather(logits, -1, lc.clamp(min=0).long()[..., None])[..., 0]
+    label = lc.clamp(min=0).long()[..., None]
+    if is_dtensor(logits):
+        # DTensor's gather over a sharded vocabulary leaves a masked
+        # partial sum that it cannot reduce for a 3-d index: select the
+        # label's logit by a mask instead (the same value: one term)
+        col = torch.arange(logits.shape[-1], device=logits.device)
+        ll = torch.where(col == label, logits, 0.0).sum(-1)
+    else:
+        ll = torch.gather(logits, -1, label)[..., 0]
     return ((lse - ll) * mc).sum(), (lse.square() * mc).sum()
 
 

@@ -29,4 +29,7 @@ def mlp(p: dict, x: torch.Tensor, cfg: ArchConfig,
         h = act_fn(cfg.act)(xc @ p["w_gate"].to(cd)) * up
     else:
         h = act_fn(cfg.act)(up)
+    sc = rt.sc
+    h = sc.constrain(h, sc.div(x.shape[0], sc.dp_axes), None,
+                     sc.div(up.shape[-1], sc.tp_axis))
     return h @ p["w_down"].to(cd)

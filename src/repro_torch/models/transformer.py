@@ -34,8 +34,9 @@ from repro_torch.models import attention as attn_mod
 from repro_torch.models import mamba as mamba_mod
 from repro_torch.models import xlstm as xlstm_mod
 from repro_torch.models.common import (Runtime, chunked_cross_entropy,
-                                       dense_init, logits_for, norm_apply,
-                                       norm_init, sinusoidal_position_at,
+                                       dense_init, is_dtensor, logits_for,
+                                       norm_apply, norm_init,
+                                       sinusoidal_position_at,
                                        sinusoidal_positions)
 from repro_torch.models.mlp import mlp, mlp_init
 from repro_torch.models.moe import moe, moe_init
@@ -100,7 +101,36 @@ def init_params(gen: torch.Generator, cfg: ArchConfig, rt: Runtime) -> dict:
 # --------------------------------------------------------------------------- #
 def _embed_tokens(params: dict, tokens: torch.Tensor,
                   rt: Runtime) -> torch.Tensor:
-    return params["embed"][tokens.long()].to(rt.compute_dtype)
+    table = params["embed"]
+    if is_dtensor(table):
+        x = _embed_on_mesh(table, tokens, rt)
+    else:
+        x = table[tokens.long()]
+    return rt.sc.act(x.to(rt.compute_dtype), tokens.shape[0], None, None)
+
+
+def _embed_on_mesh(table: torch.Tensor, tokens: torch.Tensor,
+                   rt: Runtime) -> torch.Tensor:
+    """The lookup on a mesh, through ``local_map``: the table gathered
+    whole (FSDP's regather), each rank's rows of its batch shard looked up
+    locally.  The table's gradient is a partial sum over the batch's data
+    axes (DTensor's own index backward cannot place it)."""
+    from torch.distributed.tensor import Partial, Replicate
+    from torch.distributed.tensor.experimental import local_map
+    sc = rt.sc
+    bs = sc.div(tokens.shape[0], sc.dp_axes)
+    names = () if bs is None else ((bs,) if isinstance(bs, str) else bs)
+    axes = sc.mesh.axis_names
+    tokens = sc.constrain(tokens, bs, None)
+    tok_pl = sc.placements((bs, None))
+    run = local_map(
+        lambda t, i: t[i.long()],
+        out_placements=sc.placements((bs, None, None)),
+        in_placements=(sc.placements((None, None)), tok_pl),
+        in_grad_placements=([Partial() if a in names else Replicate()
+                             for a in axes], tok_pl),
+        device_mesh=sc.device_mesh)
+    return run(sc.constrain(table, None, None), tokens)
 
 
 def _head_weights(params: dict, cfg: ArchConfig) -> torch.Tensor:
@@ -127,18 +157,62 @@ def _ffn(spec: LayerSpec, p: dict, x: torch.Tensor, cfg: ArchConfig,
     MoE auxiliaries (None for a dense FFN or none)."""
     if spec.ffn == "none":
         return x, None
-    h = norm_apply(cfg.norm, x, p["ffn_norm"])
+    h = _sublayer_input(norm_apply(cfg.norm, x, p["ffn_norm"]), rt)
     if spec.ffn == "dense":
-        return x + mlp(p["ffn"], h, cfg, rt), None
+        return _add_residual(x, mlp(p["ffn"], h, cfg, rt), rt), None
     y, aux = moe(p["ffn"], h, cfg, rt)
-    return x + y, aux
+    return _add_residual(x, y, rt), aux
+
+
+def _residual(x: torch.Tensor, rt: Runtime) -> torch.Tensor:
+    """The residual stream between sublayers: batch over the data axes and,
+    with ``seq_parallel`` (Megatron-SP), the sequence over the model axis;
+    replicated over the model axis otherwise (a DTensor add would else
+    reduce a sublayer's partial sum to sequence shards of its own
+    choosing)."""
+    sc = rt.sc
+    seq = (sc.div(x.shape[1], sc.tp_axis)
+           if sc.seq_parallel and sc.tp_axis is not None else None)
+    return sc.constrain(x, sc.div(x.shape[0], sc.dp_axes), seq, None)
+
+
+class _GatheredGrad(torch.autograd.Function):
+    """Identity whose gradient is gathered over the sequence: with
+    ``seq_parallel`` a sublayer's output gradient arrives in sequence
+    shards and enters the sublayer's backward whole over the model axis
+    (Megatron-SP's backward all-gather)."""
+
+    @staticmethod
+    def forward(ctx, y, sc):
+        ctx.sc = sc
+        return y.view_as(y)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.sc.act(g, g.shape[0], None, None), None
+
+
+def _add_residual(x: torch.Tensor, y: torch.Tensor,
+                  rt: Runtime) -> torch.Tensor:
+    """x plus a sublayer's output y, placed as the residual stream."""
+    if rt.sc.seq_parallel and is_dtensor(y):
+        y = _GatheredGrad.apply(y, rt.sc)
+    return _residual(x + y, rt)
+
+
+def _sublayer_input(h: torch.Tensor, rt: Runtime) -> torch.Tensor:
+    """A sublayer's normed input, whole over the model axis: with
+    ``seq_parallel`` the all-gather of the sequence shards before the
+    tensor-parallel matmuls (Megatron-SP); a no-op otherwise."""
+    return rt.sc.act(h, h.shape[0], None, None)
 
 
 def _apply_block(spec: LayerSpec, p: dict, x: torch.Tensor, cfg: ArchConfig,
                  rt: Runtime, causal: bool = True,
                  enc_out: Optional[torch.Tensor] = None
                  ) -> Tuple[torch.Tensor, Optional[Dict[str, torch.Tensor]]]:
-    h = norm_apply(cfg.norm, x, p["mixer_norm"])
+    x = _residual(x, rt)
+    h = _sublayer_input(norm_apply(cfg.norm, x, p["mixer_norm"]), rt)
     if spec.mixer == "attn":
         mixed = attn_mod.attention(p["mixer"], h, cfg, rt, causal=causal)
     elif spec.mixer == "mamba":
@@ -147,7 +221,7 @@ def _apply_block(spec: LayerSpec, p: dict, x: torch.Tensor, cfg: ArchConfig,
         mixed = xlstm_mod.mlstm(p["mixer"], h, cfg, rt)
     else:
         mixed = xlstm_mod.slstm(p["mixer"], h, cfg, rt)
-    x = x + mixed
+    x = _add_residual(x, mixed, rt)
     if spec.cross_attn and enc_out is not None:
         h = norm_apply(cfg.norm, x, p["cross_norm"])
         x = x + attn_mod.attention(p["cross"], h, cfg, rt, causal=False,
@@ -313,18 +387,22 @@ def forward_prefill(params: dict, batch: Dict[str, torch.Tensor],
     for attention ``max(cache_size, prefix + S)`` positions holding the
     prompt's keys and values (the rest zeros), for Mamba, mLSTM and sLSTM
     the state after the last token, for cross-attention the keys and values
-    of the encoder output."""
+    of the encoder output.  On a mesh (``rt.sc.device_mesh`` set) the
+    cache is a DTensor tree placed by ``launch.sharding.cache_specs``."""
     B = batch["tokens"].shape[0]
     x, enc_out = _embed_input(params, batch, cfg, rt)
     S = x.shape[1]
     cache = init_cache(cfg, rt, B, max(cache_size or 0, S), x.device)
+    if rt.sc.device_mesh is not None:
+        from repro_torch.launch.sharding import place_cache
+        cache = place_cache(cache, cfg, rt, B)
     for spec, p, c in zip(layer_specs(cfg), params["blocks"], cache):
         h = norm_apply(cfg.norm, x, p["mixer_norm"])
         if spec.mixer == "attn":
             mixed, (k, v) = attn_mod.attention_with_kv(p["mixer"], h, cfg,
                                                        rt)
-            c["k"][:, :S] = k
-            c["v"][:, :S] = v
+            attn_mod.write_positions(c["k"], k, 0)
+            attn_mod.write_positions(c["v"], v, 0)
         else:
             with_state = {"mamba": mamba_mod.mamba_with_state,
                           "mlstm": xlstm_mod.mlstm_with_state,
@@ -336,8 +414,8 @@ def forward_prefill(params: dict, batch: Dict[str, torch.Tensor],
             h = norm_apply(cfg.norm, x, p["cross_norm"])
             y, (k, v) = attn_mod.attention_with_kv(
                 p["cross"], h, cfg, rt, causal=False, kv_x=enc_out)
-            c["cross_k"].copy_(k)
-            c["cross_v"].copy_(v)
+            attn_mod.write_positions(c["cross_k"], k, 0)
+            attn_mod.write_positions(c["cross_v"], v, 0)
             x = x + y
         x, _ = _ffn(spec, p, x, cfg, rt)
     x = norm_apply(cfg.norm, x, params["final_norm"])

@@ -17,11 +17,14 @@ exactly:
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
+import operator
 from typing import Any, Dict, Tuple
 
 import torch
 
+from repro_torch.models.common import is_dtensor
 from repro_torch.tree import tree_items, tree_leaves, tree_map
 
 
@@ -68,7 +71,10 @@ def opt_init(params) -> Dict[str, Any]:
 
 
 def global_norm(tree) -> torch.Tensor:
-    return torch.sqrt(sum(l.float().square().sum() for l in tree_leaves(tree)))
+    """sqrt of the sum of squares over every leaf, on the leaves' device
+    (DTensor leaves sum their shards and reduce there)."""
+    sq = [l.float().square().sum() for l in tree_leaves(tree)]
+    return torch.sqrt(functools.reduce(operator.add, sq))
 
 
 def decays(path) -> bool:
@@ -77,6 +83,15 @@ def decays(path) -> bool:
     encoder leaf does; a top-level leaf by its own shape (decided by the
     caller)."""
     return len(path) > 0 and path[0] in ("blocks", "enc_blocks")
+
+
+def placed_as(t: torch.Tensor, ref: torch.Tensor) -> torch.Tensor:
+    """A DTensor ``t`` in ``ref``'s placements (ZeRO-1 places the moments
+    otherwise than the parameters); a plain tensor unchanged."""
+    if is_dtensor(t) and tuple(t.placements) != tuple(
+            ref.placements):
+        return t.redistribute(ref.device_mesh, ref.placements)
+    return t
 
 
 @torch.no_grad()
@@ -100,10 +115,10 @@ def opt_update(cfg: AdamWConfig, params, grads, opt_state
         m, v = ml[path], vl[path]
         m.copy_(cfg.b1 * m + (1 - cfg.b1) * g)
         v.copy_(cfg.b2 * v + (1 - cfg.b2) * g.square())
-        pf = p.float()
+        pf = placed_as(p.float(), m)
         delta = (m / b1c) / (torch.sqrt(v / b2c) + cfg.eps)
         if decays(path) or p.dim() >= 2:
             delta = delta + cfg.weight_decay * pf
-        p.copy_((pf - lr * delta).to(p.dtype))
+        p.copy_(placed_as((pf - lr * delta).to(p.dtype), p))
     opt_state["step"] = step + 1
     return params, opt_state, {"grad_norm": gnorm, "lr": lr}

@@ -13,6 +13,11 @@ bit.
 ``save`` writes to a temporary name and renames atomically, in a
 background thread unless ``async_save=False``, and keeps the last ``keep``
 checkpoints, so a crash mid-save never corrupts the latest restorable one.
+
+A sharded state (DTensor leaves) is saved whole: every rank of the mesh
+joins each leaf's ``full_tensor()`` and rank 0 writes.  ``restore`` with
+``placements`` places each leaf on any mesh (the elastic restore), whatever
+layout it was saved from.
 """
 from __future__ import annotations
 
@@ -23,6 +28,7 @@ from pathlib import Path
 from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
+import torch.distributed as dist
 
 from repro_torch import convert
 from repro_torch.configs.base import ArchConfig
@@ -45,6 +51,8 @@ class Checkpointer:
         # copy to host now; the write may run in the background
         flat = convert.flatten_paths(
             convert.train_state_to_numpy(state, self.cfg))
+        if dist.is_initialized() and dist.get_rank() != 0:
+            return  # rank 0 writes the gathered state
         if self._thread is not None:
             self._thread.join()  # never overlap two writes
 
@@ -89,12 +97,16 @@ class Checkpointer:
             return None
         return int(ckpts[-1].stem.split("_")[1])
 
-    def restore(self, step: Optional[int], template: Dict[str, Any]
+    def restore(self, step: Optional[int], template: Dict[str, Any],
+                placements: Optional[Dict[str, Any]] = None
                 ) -> Tuple[Dict[str, Any], Dict[str, Any]]:
         """The state saved at ``step`` (the latest when None), each leaf on
         the device and in the dtype of ``template``'s leaf at the same place
         (a state of the same config, e.g. a fresh ``init_train_state``),
-        and the sidecar's metadata."""
+        and the sidecar's metadata.  ``placements``, a tree like the
+        state's whose leaves have ``.mesh`` and ``.placements``
+        (``launch.sharding.to_shardings``), places every leaf on its mesh
+        as a DTensor."""
         if step is None:
             step = self.latest_step()
         if step is None:
@@ -102,10 +114,16 @@ class Checkpointer:
         with np.load(self.dir / f"step_{step:08d}.npz") as z:
             tree = convert.unflatten_paths({k: z[k] for k in z.files})
         like = dict(tree_items(template))
+        where = dict(tree_items(placements)) if placements else {}
 
         def leaf(path, a):
             t = like[path]
-            return convert.numpy_to_tensor(a, t.dtype, t.device)
+            out = convert.numpy_to_tensor(a, t.dtype, t.device)
+            lay = where.get(path)
+            if lay is None:
+                return out
+            from torch.distributed.tensor import distribute_tensor
+            return distribute_tensor(out, lay.mesh, list(lay.placements))
 
         state = {"params": convert.from_jax_layout(
                      tree["params"], self.cfg,

@@ -10,9 +10,17 @@ whisper's batch carries ``frames`` beside the tokens and labels.
 The serving steps return the greedy next token (int32, argmax of the
 logits), the cache, and the fp32 logits it was chosen from, so a caller can
 check them without computing them again.
+
+On a mesh (``rt.sc.device_mesh`` set, the state, batch and cache placed as
+``DTensor``s by ``launch.sharding``) the same steps run sharded: each runs
+under DTensor's ``implicit_replication`` (the models' position tables and
+masks are plain tensors, replicated), gradients are placed as the moments
+are before AdamW, and the serving steps replicate the vocabulary before
+the argmax.  Nothing is read back to the host.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from typing import Any, Callable, Dict, Optional, Tuple
 
@@ -22,7 +30,8 @@ from repro_torch.configs.base import ArchConfig, ShapeConfig
 from repro_torch.models.common import Runtime
 from repro_torch.models.transformer import (forward_decode, forward_prefill,
                                             forward_train, init_params)
-from repro_torch.optim.adamw import AdamWConfig, opt_init, opt_update
+from repro_torch.optim.adamw import (AdamWConfig, opt_init, opt_update,
+                                     placed_as)
 from repro_torch.tree import tree_leaves, tree_map
 
 METRIC_KEYS = ("loss", "ce", "tokens", "moe_lb_loss", "moe_router_z",
@@ -35,12 +44,22 @@ class TrainHyper:
     grad_compression: str = "none"  # none | int8_ef
 
 
+def on_mesh(rt: Runtime):
+    """The context a step runs in: DTensor's implicit replication of plain
+    tensors on a mesh, nothing otherwise."""
+    if rt.sc.device_mesh is None:
+        return contextlib.nullcontext()
+    from torch.distributed.tensor.experimental import implicit_replication
+    return implicit_replication()
+
+
 def auto_microbatches(cfg: ArchConfig, shape: ShapeConfig, rt: Runtime,
                       act_budget_bytes: float = 2.5e9) -> int:
     """Microbatches so the period-boundary activations (~ n_layers x B_micro
-    x S x d x 2 bytes with remat "full") fit the budget; the port runs on
-    one device, so the whole global batch is local."""
-    b_local = max(shape.global_batch, 1)
+    x S x d x 2 bytes with remat "full") of one data-parallel rank's batch
+    fit the budget."""
+    dp = max(rt.sc.dp, 1)
+    b_local = max(shape.global_batch // dp, 1)
     per_b = cfg.n_layers * shape.seq_len * cfg.d_model * 2
     n = 1
     while b_local % (2 * n) == 0 and (b_local // n) * per_b > act_budget_bytes:
@@ -54,7 +73,12 @@ def make_train_step(cfg: ArchConfig, rt: Runtime, hyper: TrainHyper,
 
     def train_step(state: Dict[str, Any], batch: Dict[str, torch.Tensor]
                    ) -> Tuple[Dict[str, Any], Dict[str, Any]]:
+        with on_mesh(rt):
+            return _step(state, batch)
+
+    def _step(state, batch):
         params = state["params"]
+        moments = tree_leaves(state["opt"]["m"])
         leaves = tree_leaves(params)
         g_acc = [None] * len(leaves)
         metrics = {k: 0.0 for k in METRIC_KEYS}
@@ -77,6 +101,7 @@ def make_train_step(cfg: ArchConfig, rt: Runtime, hyper: TrainHyper,
             for i in range(len(leaves)):
                 g = (torch.zeros_like(leaves[i], dtype=torch.float32)
                      if grads[i] is None else grads[i].float() / n_micro)
+                g = placed_as(g, moments[i])
                 grads[i] = None
                 g_acc[i] = g if g_acc[i] is None else g_acc[i] + g
             for k in METRIC_KEYS:
@@ -110,18 +135,26 @@ def init_train_state(gen: torch.Generator, cfg: ArchConfig, rt: Runtime,
 # --------------------------------------------------------------------------- #
 def make_decode_step(cfg: ArchConfig, rt: Runtime) -> Callable:
     def decode_step(params, tokens, cache, cache_len: int):
-        logits, cache = forward_decode(params, tokens, cache, cache_len,
-                                       cfg, rt)
-        return logits.argmax(dim=-1).int(), cache, logits
+        with on_mesh(rt):
+            logits, cache = forward_decode(params, tokens, cache, cache_len,
+                                           cfg, rt)
+            return _greedy(logits, rt), cache, logits
 
     return decode_step
+
+
+def _greedy(logits: torch.Tensor, rt: Runtime) -> torch.Tensor:
+    sc = rt.sc
+    logits = sc.constrain(logits, sc.batch_spec(logits.shape[0]), None)
+    return logits.argmax(dim=-1).int()
 
 
 def make_prefill_step(cfg: ArchConfig, rt: Runtime,
                       cache_size: Optional[int] = None) -> Callable:
     def prefill_step(params, batch):
-        logits, cache = forward_prefill(params, batch, cfg, rt,
-                                        cache_size=cache_size)
-        return logits.argmax(dim=-1).int(), cache, logits
+        with on_mesh(rt):
+            logits, cache = forward_prefill(params, batch, cfg, rt,
+                                            cache_size=cache_size)
+            return _greedy(logits, rt), cache, logits
 
     return prefill_step

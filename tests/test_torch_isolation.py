@@ -1,7 +1,7 @@
 """PyTorch port isolation: the port and ``chip_smoke.py`` import nothing of JAX
 or of the JAX package (the tuner, the single-study strategies, the
-examples, serving and training entry points, the sanitizer smoke and the
-port's lint run in a process that blocks both), and entry points never
+examples, serving and training entry points, the sanitizer smoke, the
+port's lint and the launch layer run in a process that blocks both), and entry points never
 fall back to the CPU."""
 import torch_threads  # noqa: F401  (xdist workers share the cores)
 import subprocess
@@ -58,6 +58,9 @@ _BLOCKED_RUN = textwrap.dedent("""
     import repro_torch.analysis, repro_torch.analysis.rules
     import repro_torch.analysis.sanitizers, repro_torch.analysis.smoke
     import repro_torch.analysis.__main__
+    import repro_torch.launch.mesh, repro_torch.launch.sharding
+    import repro_torch.launch.inputs, repro_torch.launch.roofline
+    import repro_torch.launch.cost, repro_torch.launch.dryrun
     import chip_smoke
     from repro_torch.core import StudyBank
     for opt in ("bayesian", "tpe", ["bayesian", "tpe"]):
