@@ -158,9 +158,24 @@ Phases:
      bitwise; (f) in CPU subprocesses started with the phase, the analytic
      dry run of all 64 cells and smollm-135m ``train_4k`` traced on a fake
      256- and 512-rank process group, every cell OK.
+ 24. the MoE, Mamba, xLSTM and whisper paths on phase 23's one-rank mesh:
+     olmoe-1b-7b (2 layers, the expert-parallel layout), jamba-v0.1-52b
+     ((Mamba, dense) + (attention, dense)), xlstm-1.3b (one mLSTM and one
+     sLSTM layer) and whisper-large-v3 (4 + 4 layers), each at full width
+     in bf16 (remat none) with DTensor state beside its plain twin from
+     the same state: (a) three AdamW steps, losses, grad norms and
+     olmoe's MoE auxiliaries within phase 11's tolerances, each kernel's
+     launches per DTensor step one forward and one backward a layer of
+     its mixer (flash, the scan and the mLSTM kernels on each rank's
+     shard through ``local_map``); (b) a prefill and 16 greedy tokens with
+     a DTensor cache, tokens equal but on near-ties and every cache leaf
+     in ``cache_specs``' placements; (c) each step's wall and own peak
+     beside the plain step's; (d) in CPU subprocesses started with the
+     phase, one traced cell per family on a fake 256-rank group.
 
 The kernels line's ``launches`` add up each kernel's launches over the
-main paths that run it (flash: phases 8, 13, 16, 17 and 23; ``score_cov``:
+main paths that run it (flash: phases 8, 13, 16, 17, 23 and 24; the scan
+and the mLSTM kernels: phases 10, 13 and 24; ``score_cov``:
 phases 3, 19, 20c, 21 and 22; ``var_downdate``: phases 3, 20c, 21 and 22;
 ``tpe_scores``: phases 4, 20c, 21 and 22).
 
@@ -171,6 +186,7 @@ that line.  Without a CUDA device it exits 2 and prints no result.
 from __future__ import annotations
 
 import concurrent.futures as cf
+import contextlib
 import ctypes
 import json
 import math
@@ -887,7 +903,9 @@ def check_tpe_kernels(dev, reps_main: int):
 # bf16 (the tensor-core kernel), causal Sq < Sk at a reduced head size and
 # MQA at hd 128 in bf16, and whisper-large-v3's encoder (1500 frames, 20
 # heads of 64, non-causal) and decoder cross-attention (a 64-token prompt
-# over the 1500 frames, phase 16's batch)
+# over the 1500 frames, phase 16's batch), and the prefills of phase 24:
+# olmoe-1b-7b (16 heads of 128, MHA), jamba-v0.1-52b (32 over 8 heads of
+# 128) and whisper-large-v3's decoder (a 64-token prompt), each causal
 FLASH_SHAPES = [
     ("smollm-135m prefill", 8, 1024, 1024, 9, 3, 64, True, torch.bfloat16),
     ("phi3-mini-3.8b prefill", 4, 2048, 2048, 32, 32, 96, True,
@@ -902,6 +920,11 @@ FLASH_SHAPES = [
     ("whisper-large-v3 encoder", 2, 1500, 1500, 20, 20, 64, False,
      torch.bfloat16),
     ("whisper-large-v3 cross", 8, 64, 1500, 20, 20, 64, False,
+     torch.bfloat16),
+    ("olmoe-1b-7b prefill", 4, 512, 512, 16, 16, 128, True, torch.bfloat16),
+    ("jamba-v0.1-52b prefill", 2, 1024, 1024, 32, 8, 128, True,
+     torch.bfloat16),
+    ("whisper-large-v3 decoder prefill", 8, 64, 64, 20, 20, 64, True,
      torch.bfloat16),
 ]
 FLASH_MAIN = "phi3-mini-3.8b prefill"   # the shape of the kernels line
@@ -1405,7 +1428,9 @@ def check_ssm_kernels(dev, reps_main: int):
 # head size of 16, a non-causal cross shape, and whisper-large-v3 in
 # training (phase 17): its encoder (1500 x 1500 frames) and its decoder's
 # cross-attention (448 tokens over 1500 frames), non-causal at hd 64,
-# 1500 ragged against every tile
+# 1500 ragged against every tile; the training shapes of smollm-135m
+# (phase 23), olmoe-1b-7b (phase 24: 16 heads of 128, MHA) and
+# whisper-large-v3's decoder self-attention (phase 24: 448 tokens), causal
 FLASH_BWD_SHAPES = [
     ("jamba attention", 1, 2048, 2048, 32, 8, 128, True, torch.bfloat16),
     ("phi3-mini-3.8b prefill", 4, 2048, 2048, 32, 32, 96, True,
@@ -1420,6 +1445,9 @@ FLASH_BWD_SHAPES = [
     ("whisper-large-v3 cross bf16", 4, 448, 1500, 20, 20, 64, False,
      torch.bfloat16),
     ("smollm-135m train", 8, 1024, 1024, 9, 3, 64, True, torch.bfloat16),
+    ("olmoe-1b-7b train", 4, 1024, 1024, 16, 16, 128, True, torch.bfloat16),
+    ("whisper-large-v3 decoder train", 4, 448, 448, 20, 20, 64, True,
+     torch.bfloat16),
 ]
 FLASH_BWD_MAIN = "jamba attention"
 # small shapes for the card test (tests/test_torch_models.py), each kind in
@@ -3596,20 +3624,21 @@ DRYRUN_CELLS = (
      "--trace"])
 
 
-def _dryrun_procs():
-    """Phase 23f's dry runs, started at once as CPU subprocesses (no card):
-    the analytic pass over every cell and both meshes, and smollm-135m
-    train_4k traced on a fake 256- and 512-rank process group."""
+def _dryrun_procs(cells=DRYRUN_CELLS, tag="baseline"):
+    """Dry runs of ``cells``, started at once as CPU subprocesses (no card);
+    phase 23f's by default: the analytic pass over every cell and both
+    meshes, and smollm-135m train_4k traced on a fake 256- and 512-rank
+    process group."""
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"),
                CUDA_VISIBLE_DEVICES="")
     out = ROOT / "build" / "dryrun"
     return [(argv, subprocess.Popen(
         [sys.executable, "-m", "repro_torch.launch.dryrun", *argv, "--out",
-         str(out)], cwd=ROOT, env=env, stdout=subprocess.PIPE,
-        stderr=subprocess.STDOUT, text=True)) for argv in DRYRUN_CELLS]
+         str(out), "--tag", tag], cwd=ROOT, env=env, stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True)) for argv in cells]
 
 
-def _dryrun_wait(procs, t0):
+def _dryrun_wait(procs, t0, phase=23):
     for argv, p in procs:
         out, _ = p.communicate(timeout=600)
         lines = out.strip().splitlines()
@@ -3619,7 +3648,7 @@ def _dryrun_wait(procs, t0):
                 log(f"[mesh-dryrun] {line}")
         log(f"[mesh-dryrun] {' '.join(argv)}: exit {p.returncode}, "
             f"{lines[-1] if lines else 'no output'} "
-            f"({time.perf_counter() - t0:.1f} s since phase 23 began)")
+            f"({time.perf_counter() - t0:.1f} s since phase {phase} began)")
         if p.returncode != 0 or not lines or " cells OK" not in lines[-1]:
             raise AssertionError(f"dry run {argv} failed:\n" + "\n".join(
                 lines[-30:]))
@@ -3630,6 +3659,80 @@ def _mesh_batches(cfg, n, B, S, dev, seed=23):
     return [{k: torch.as_tensor(rng.integers(0, cfg.vocab_size, (B, S),
                                              dtype=np.int32), device=dev)
              for k in ("tokens", "labels")} for _ in range(n)]
+
+
+@contextlib.contextmanager
+def _one_rank_mesh(dev):
+    """A one-rank process group (NCCL on the card, gloo on the CPU; a
+    ``FileStore`` under ``build/``) and its (data=1, model=1)
+    ``DeviceMesh``, destroyed on exit."""
+    import torch.distributed as dist
+    from repro_torch.launch import mesh as mesh_lib
+    store_path = ROOT / "build" / "mesh_store"
+    store_path.parent.mkdir(parents=True, exist_ok=True)
+    store_path.unlink(missing_ok=True)
+    on_card = dev.type == "cuda"
+    dist.init_process_group(
+        "nccl" if on_card else "gloo",
+        store=dist.FileStore(str(store_path), 1), rank=0, world_size=1,
+        device_id=(torch.device("cuda", torch.cuda.current_device())
+                   if on_card else None))
+    try:
+        yield mesh_lib.device_mesh(mesh_lib.make_test_mesh((1, 1)), dev.type)
+    finally:
+        dist.destroy_process_group()
+
+
+def _own_peak(peaks, key, inputs, run):
+    """``run()`` timed on the host clock (synchronized), with its own peak:
+    its inputs' bytes plus the most allocated above what was live when it
+    began (the twin's state, earlier phases' leftovers), read from a peak
+    reset just before it; ``peaks[key]`` keeps the largest (held, over)."""
+    from repro_torch.launch.sharding import local_bytes
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    s0 = time.perf_counter()
+    out = run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - s0
+    held = local_bytes(inputs)
+    over = torch.cuda.max_memory_allocated() - base
+    if held + over > sum(peaks[key]):
+        peaks[key] = (held, over)
+    return out, wall
+
+
+def _greedy_vs_plain(pre, pre0, dec, dec0, params, params0, placed, prompt,
+                     S, gen):
+    """A prefill and ``gen`` greedy tokens on the mesh beside the plain
+    path: a differing token is allowed only where the plain path's two
+    logits lie within ``MESH_TIE`` (the streams stop there).  Returns the
+    token rows equal, the near-ties, the mesh's cache and the flash
+    launches of its prefill."""
+    _reset(flash_ops.launches)
+    tok, cache, _ = pre(params, placed)
+    n_pre = dict(flash_ops.launches)
+    tok0, cache0, lg0 = pre0(params0, prompt)
+    same, ties = 0, 0
+    for i in range(gen + 1):
+        a, b = tok.full_tensor(), tok0
+        diff = (a != b).nonzero().flatten().tolist()
+        for r in diff:
+            gap = abs(float(lg0[r, a[r]]) - float(lg0[r, b[r]]))
+            if gap > MESH_TIE:
+                raise AssertionError(
+                    f"token {i} row {r}: DTensor {int(a[r])} vs plain "
+                    f"{int(b[r])}, logit gap {gap:.4g}")
+            ties += 1
+        if diff:
+            break  # the streams diverge on a near-tie
+        same += 1
+        if i == gen:
+            break
+        tok, cache, _ = dec(params, tok[:, None], cache, S + i)
+        tok0, cache0, lg0 = dec0(params0, tok0[:, None], cache0, S + i)
+    return same, ties, cache, n_pre
 
 
 def mesh_path(dev):
@@ -3660,17 +3763,7 @@ def mesh_path(dev):
 
     t0 = time.perf_counter()
     procs = _dryrun_procs()
-    store_path = ROOT / "build" / "mesh_store"
-    store_path.parent.mkdir(parents=True, exist_ok=True)
-    store_path.unlink(missing_ok=True)
-    on_card = dev.type == "cuda"
-    dist.init_process_group(
-        "nccl" if on_card else "gloo",
-        store=dist.FileStore(str(store_path), 1), rank=0, world_size=1,
-        device_id=(torch.device("cuda", torch.cuda.current_device())
-                   if on_card else None))
-    try:
-        dm = mesh_lib.device_mesh(mesh_lib.make_test_mesh((1, 1)), dev.type)
+    with _one_rank_mesh(dev) as dm:
         T = MESH_TRAIN
         cfg = get_config(T["arch"])
         rt = Runtime(sc=mesh_lib.make_shard_ctx(dm), remat_policy="none")
@@ -3685,38 +3778,20 @@ def mesh_path(dev):
         per = sum(s.mixer == "attn" for s in layer_specs(cfg))
         counts = {"flash_attention": 0, "flash_attention_bwd": 0}
         walls, walls0, worst = [], [], (0.0, 0.0)
-        # each step's own peak: its inputs' bytes plus the most allocated
-        # above what was live when it began (the twin's state, earlier
-        # phases' leftovers), read from a peak reset just before the step
         peaks = {"dtensor": (0, 0), "plain": (0, 0)}
-
-        def own_peak(key, inputs, run):
-            torch.cuda.synchronize()
-            base = torch.cuda.memory_allocated()
-            torch.cuda.reset_peak_memory_stats()
-            s0 = time.perf_counter()
-            out = run()
-            torch.cuda.synchronize()
-            wall = time.perf_counter() - s0
-            held = sharding.local_bytes(inputs)
-            over = torch.cuda.max_memory_allocated() - base
-            if held + over > sum(peaks[key]):
-                peaks[key] = (held, over)
-            return out, wall
-
         for i, batch in enumerate(_mesh_batches(cfg, T["steps"], T["batch"],
                                                 T["seq"], dev)):
             placed = sharding.distribute_tree(
                 batch, sharding.batch_specs(batch, rt.sc, T["batch"]), dm)
             _reset(flash_ops.launches)
-            (state, m), w = own_peak("dtensor", (state, placed),
-                                     lambda: step(state, placed))
+            (state, m), w = _own_peak(peaks, "dtensor", (state, placed),
+                                      lambda: step(state, placed))
             walls.append(w)
             n = dict(flash_ops.launches)
             for k in counts:
                 counts[k] += n[k]
-            (state0, m0), w = own_peak("plain", (state0, batch),
-                                       lambda: step0(state0, batch))
+            (state0, m0), w = _own_peak(peaks, "plain", (state0, batch),
+                                        lambda: step0(state0, batch))
             walls0.append(w)
             loss, gn = (float(m["loss"].full_tensor()),
                         float(m["grad_norm"].full_tensor()))
@@ -3752,30 +3827,10 @@ def mesh_path(dev):
         dec, dec0 = make_decode_step(cfg, rt), make_decode_step(cfg, rt0)
         pt = sharding.distribute_tree(
             prompt, sharding.batch_specs(prompt, rt.sc, T["batch"]), dm)
-        _reset(flash_ops.launches)
-        tok, cache, _ = pre(state["params"], pt)
-        n_pre = dict(flash_ops.launches)
-        tok0, cache0, lg0 = pre0(state0["params"], prompt)
+        same, ties, cache, n_pre = _greedy_vs_plain(
+            pre, pre0, dec, dec0, state["params"], state0["params"], pt,
+            prompt, S, MESH_SERVE["gen"])
         placements = {str(cache[0]["k"].placements)}
-        same, ties = 0, 0
-        for i in range(MESH_SERVE["gen"] + 1):
-            a, b = tok.full_tensor(), tok0
-            diff = (a != b).nonzero().flatten().tolist()
-            for r in diff:
-                gap = abs(float(lg0[r, a[r]]) - float(lg0[r, b[r]]))
-                if gap > MESH_TIE:
-                    raise AssertionError(
-                        f"token {i} row {r}: DTensor {int(a[r])} vs plain "
-                        f"{int(b[r])}, logit gap {gap:.4g}")
-                ties += 1
-            if diff:
-                break  # the streams diverge on a near-tie
-            same += 1
-            if i == MESH_SERVE["gen"]:
-                break
-            tok, cache, _ = dec(state["params"], tok[:, None], cache, S + i)
-            tok0, cache0, lg0 = dec0(state0["params"], tok0[:, None], cache0,
-                                     S + i)
         log(f"[mesh-serve] {T['arch']} bf16 B={T['batch']} prompt {S}, "
             f"{MESH_SERVE['gen']} greedy tokens on the mesh, cache "
             f"placements {placements}: {same} of {MESH_SERVE['gen'] + 1} "
@@ -3849,10 +3904,216 @@ def mesh_path(dev):
             f"restored it onto its placements: {len(bad)} leaves differ")
         if bad or got["opt"]["step"] != state["opt"]["step"]:
             raise AssertionError(f"restore differs at {bad[:4]}")
-    finally:
-        dist.destroy_process_group()
     _dryrun_wait(procs, t0)
     log(f"[mesh] phase 23 took {time.perf_counter() - t0:.1f} s")
+    return counts
+
+
+# --------------------------------------------------------------------------- #
+# phase 24: the MoE, Mamba, xLSTM and whisper paths on the mesh
+# --------------------------------------------------------------------------- #
+# full width, depth cut; each beside its plain twin from the same seed on
+# phase 23's one-rank mesh (two twins' states, 10 bytes a parameter, fit
+# the card: olmoe's cut is the largest, ~1.05 B parameters)
+MESH_FAMILIES = (
+    dict(arch="olmoe-1b-7b", rt=dict(moe_expert_parallel=True), batch=4,
+         seq=1024, serve_batch=4, prompt=512),
+    dict(arch="jamba-v0.1-52b", rt={}, batch=1, seq=2048, serve_batch=2,
+         prompt=1024),
+    dict(arch="xlstm-1.3b", rt={}, batch=2, seq=1024, serve_batch=2,
+         prompt=256),
+    dict(arch="whisper-large-v3", rt={}, batch=4, seq=448, serve_batch=8,
+         prompt=64),
+)
+MESH_FAMILY_STEPS, MESH_FAMILY_GEN = 3, 16
+# one traced cell per family on the fake 256-rank group, in CPU subprocesses
+FAMILY_DRYRUN_CELLS = tuple(
+    ["--arch", a, "--shape", sh, "--mesh", "single", "--trace", *flags]
+    for a, sh, flags in (("olmoe-1b-7b", "train_4k", ["--ep"]),
+                         ("jamba-v0.1-52b", "decode_32k", []),
+                         ("xlstm-1.3b", "decode_32k", []),
+                         ("whisper-large-v3", "decode_32k", [])))
+AUX_METRICS = ("moe_lb_loss", "moe_router_z", "moe_drop_frac")
+
+
+def family_cut(arch):
+    """``arch`` at full width, its depth cut: olmoe to 2 layers (attention
+    + MoE), jamba to (Mamba, dense) + (attention, dense) (its MoE layer
+    alone is ~2.8 B parameters), xLSTM to one mLSTM and one sLSTM layer,
+    whisper to 4 encoder + 4 decoder layers."""
+    import dataclasses
+    from repro_torch.configs.base import LayerSpec
+    if arch == WHISPER:
+        return whisper_cut(4)
+    period = {"olmoe-1b-7b": (LayerSpec("attn", "moe"),) * 2,
+              "jamba-v0.1-52b": (LayerSpec("mamba", "dense"),
+                                 LayerSpec("attn", "dense")),
+              "xlstm-1.3b": (LayerSpec("mlstm", "none"),
+                             LayerSpec("slstm", "none"))}[arch]
+    return dataclasses.replace(get_config(arch), n_layers=len(period),
+                               period=period)
+
+
+def family_launches(cfg):
+    """Each kernel's launches in one training step (remat none): one
+    forward and one backward a layer of its mixer."""
+    fl = flash_per_prefill(cfg)
+    n = {"flash_attention": fl, "flash_attention_bwd": fl,
+         "ssm_scan": _mixers(cfg, "mamba"),
+         "ssm_scan_bwd": _mixers(cfg, "mamba"),
+         "mlstm_chunk": _mixers(cfg, "mlstm"),
+         "mlstm_chunk_bwd": _mixers(cfg, "mlstm")}
+    return {k: v for k, v in n.items() if v}
+
+
+def _family_batches(cfg, B, S, dev, n, seed):
+    out = _mesh_batches(cfg, n, B, S, dev, seed=seed)
+    if cfg.encoder_layers:
+        for i, b in enumerate(out):
+            b["frames"] = torch.as_tensor(train.frames_at(seed, i, B, cfg),
+                                          device=dev)
+    return out
+
+
+def _family_on_mesh(F, dm, dev, counts):
+    """One family of phase 24: (a) DTensor AdamW steps beside the plain
+    twin, (b) prefill + greedy decode with a DTensor cache, (c) walls and
+    own peaks.  Adds the DTensor steps' launches to ``counts``."""
+    import torch.distributed as dist
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.launch import sharding
+    cfg = family_cut(F["arch"])
+    rt = Runtime(sc=mesh_lib.make_shard_ctx(dm), remat_policy="none",
+                 **F["rt"])
+    rt0 = Runtime(remat_policy="none", **F["rt"])
+    ep = rt.moe_expert_parallel
+    hyper = TrainHyper()
+    state0 = init_train_state(torch.Generator(device=dev).manual_seed(0),
+                              cfg, rt0)
+    specs = sharding.train_state_specs(state0["params"], cfg, rt.sc, ep)
+    state = sharding.distribute_tree(_copy_to(state0, dev), specs, dm)
+    n_param = sum(t.numel() for _, t in tree_items(state0["params"]))
+    step = make_train_step(cfg, rt, hyper)
+    step0 = make_train_step(cfg, rt0, hyper)
+    want = family_launches(cfg)
+    tag = f"{F['arch']} cut ({cfg.n_layers}+{cfg.encoder_layers} layers)"
+    keys = ("loss",) + (AUX_METRICS if any(
+        s.ffn == "moe" for s in layer_specs(cfg)) else ())
+    worst = {k: 0.0 for k in keys + ("grad_norm",)}
+    walls, walls0 = [], []
+    peaks = {"dtensor": (0, 0), "plain": (0, 0)}
+    kernel_counters = (flash_ops.launches, ssm_ops.launches,
+                       mlstm_ops.launches)
+    B, S = F["batch"], F["seq"]
+    for i, batch in enumerate(_family_batches(cfg, B, S, dev,
+                                              MESH_FAMILY_STEPS, seed=24)):
+        placed = sharding.distribute_tree(
+            batch, sharding.batch_specs(batch, rt.sc, B), dm)
+        _reset(*kernel_counters)
+        (state, m), w = _own_peak(peaks, "dtensor", (state, placed),
+                                  lambda: step(state, placed))
+        walls.append(w)
+        n = {k: v for c in kernel_counters for k, v in c.items() if v}
+        for k, v in n.items():
+            counts[k] = counts.get(k, 0) + v
+        (state0, m0), w = _own_peak(peaks, "plain", (state0, batch),
+                                    lambda: step0(state0, batch))
+        walls0.append(w)
+        got = {k: float(m[k].full_tensor()) for k in worst}
+        ref_ = {k: float(m0[k]) for k in worst}
+        for k in worst:
+            worst[k] = max(worst[k], _rel(got[k], ref_[k]))
+        log(f"[mesh-family] {tag} bf16 B={B} S={S} mesh (data=1, model=1) "
+            f"{dist.get_backend()} step {i}: "
+            + ", ".join(f"{k} {got[k]:.6f} vs plain {ref_[k]:.6f}"
+                        for k in worst)
+            + f"; DTensor step {walls[-1] * 1e3:.1f} ms, plain step "
+            f"{walls0[-1] * 1e3:.1f} ms (host clock, synchronized); "
+            f"launches {n}")
+        if n != want:
+            raise AssertionError(f"{tag} step {i}: launches {n}, expected "
+                                 f"{want}")
+        if not all(math.isfinite(v) for v in got.values()):
+            raise AssertionError(f"{tag}: non-finite metrics {got}")
+    tol = {k: TRAIN_LOSS_RTOL for k in keys}
+    tol["grad_norm"] = TRAIN_GNORM_RTOL
+    log(f"[mesh-family] {tag}: largest relative difference DTensor vs "
+        "plain: " + ", ".join(f"{k} {worst[k]:.3g} (tolerance {tol[k]})"
+                              for k in worst))
+    bad = [k for k in worst if worst[k] > tol[k]]
+    if bad:
+        raise AssertionError(f"{tag}: DTensor step off the plain step in "
+                             f"{bad}: {worst}")
+    steady = walls[1:] or walls
+    steady0 = walls0[1:] or walls0
+    (held, over), (held0, over0) = peaks["dtensor"], peaks["plain"]
+    log(f"[mesh-family] {tag}: {n_param} parameters; DTensor step "
+        f"{sum(steady) / len(steady) * 1e3:.1f} ms after a first of "
+        f"{walls[0] * 1e3:.1f}, plain step "
+        f"{sum(steady0) / len(steady0) * 1e3:.1f} ms (DTensor/plain "
+        f"{sum(steady) / sum(steady0):.3f}); own peak DTensor "
+        f"{(held + over) / 1e9:.3f} GB = {held / 1e9:.3f} state and batch "
+        f"+ {over / 1e9:.3f} above, plain {(held0 + over0) / 1e9:.3f} GB = "
+        f"{held0 / 1e9:.3f} + {over0 / 1e9:.3f}")
+
+    # (b) prefill + greedy decode with a DTensor cache
+    Bs, P, gen = F["serve_batch"], F["prompt"], MESH_FAMILY_GEN
+    prompt = {k: v for k, v in _family_batches(cfg, Bs, P, dev, 1,
+                                               seed=25)[0].items()
+              if k != "labels"}
+    pre = make_prefill_step(cfg, rt, cache_size=P + gen)
+    pre0 = make_prefill_step(cfg, rt0, cache_size=P + gen)
+    dec, dec0 = make_decode_step(cfg, rt), make_decode_step(cfg, rt0)
+    pt = sharding.distribute_tree(
+        prompt, sharding.batch_specs(prompt, rt.sc, Bs), dm)
+    same, ties, cache, _ = _greedy_vs_plain(
+        pre, pre0, dec, dec0, state["params"], state0["params"], pt, prompt,
+        P, gen)
+    specs_c = dict(sharding._spec_items(sharding.cache_specs(
+        cache, cfg, rt.sc, Bs)))
+    misplaced = [p for p, t in tree_items(cache) if tuple(t.placements)
+                 != tuple(sharding.to_placements(specs_c[p], dm))]
+    log(f"[mesh-family] {tag} bf16 B={Bs} prompt {P}, {gen} greedy tokens "
+        f"on the mesh: {same} of {gen + 1} token rows equal to the plain "
+        f"path's, {ties} near-ties; cache leaves {len(specs_c)}, "
+        f"{len(misplaced)} off cache_specs' placements; placements "
+        + str(sorted({f'{p[-1]}: {t.placements}'
+                      for p, t in tree_items(cache)})))
+    if misplaced:
+        raise AssertionError(f"{tag}: cache leaves off cache_specs: "
+                             f"{misplaced[:4]}")
+    del state, state0, cache
+    torch.cuda.empty_cache()
+
+
+def family_mesh_path(dev):
+    """Phase 24: olmoe-1b-7b (expert-parallel layout), jamba-v0.1-52b,
+    xlstm-1.3b and whisper-large-v3 at full width, depth cut
+    (``family_cut``), on a one-rank NCCL ``DeviceMesh`` (data=1, model=1)
+    with DTensor state beside each one's plain twin from the same state, in
+    bf16 with remat none: (a) ``MESH_FAMILY_STEPS`` AdamW steps, losses,
+    grad norms and (for olmoe) the MoE auxiliaries within phase 11's
+    tolerances, each kernel's launches per DTensor step one forward and one
+    backward a layer of its mixer (``family_launches``; counters set to 0
+    just before each DTensor step and read just after: the kernels run on
+    each rank's shard through ``local_map``); (b) a prefill and
+    ``MESH_FAMILY_GEN`` greedy tokens with a DTensor cache, tokens equal to
+    the plain path's but on near-ties and every cache leaf in
+    ``cache_specs``' placements; (c) each step's wall and own peak beside
+    the plain step's; (d) the dry runs of ``FAMILY_DRYRUN_CELLS`` in CPU
+    subprocesses, started first.  Returns the launches of the DTensor
+    steps."""
+    t0 = time.perf_counter()
+    procs = _dryrun_procs(FAMILY_DRYRUN_CELLS, tag="phase24")
+    counts: dict = {}
+    with _one_rank_mesh(dev) as dm:
+        for F in MESH_FAMILIES:
+            _family_on_mesh(F, dm, dev, counts)
+            log(f"[mesh-family] {F['arch']} done at "
+                f"{time.perf_counter() - t0:.1f} s")
+    _dryrun_wait(procs, t0, phase=24)
+    log(f"[mesh-family] phase 24 took {time.perf_counter() - t0:.1f} s; "
+        f"launches of the DTensor steps {counts}")
     return counts
 
 
@@ -3991,6 +4252,9 @@ def main(argv) -> int:
     for name in ("flash_attention", "flash_attention_bwd"):
         launches[name] += counts[name]
     wall("23")
+    for name, n in family_mesh_path(dev).items():
+        launches[name] += n
+    wall("24")
     gp_src = "src/repro_torch/kernels/gp_acquisition/csrc/gp_acquisition.cu"
     tpe_src = "src/repro_torch/kernels/tpe_kde/csrc/tpe_kde.cu"
     flash_src = ("src/repro_torch/kernels/flash_attention/csrc/"

@@ -34,7 +34,8 @@ import torch
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.device import DeviceLike, resolve_device
-from repro_torch.models.common import Runtime, is_dtensor
+from repro_torch.kernels.checks import is_dtensor
+from repro_torch.models.common import Runtime
 from repro_torch.models import mamba, moe, xlstm
 from repro_torch.models.transformer import layer_specs
 from repro_torch.tree import tree_map

@@ -11,14 +11,23 @@ XLA's memory and cost analyses.  The port does, per cell:
       and cache from the local shard shapes (the counterpart of
       ``memory_analysis``'s argument bytes), ``model_flops`` and
       ``cost.estimate_plan``'s terms and ``fits`` on an H100;
-  (b) with ``--trace``, for the dense decoders: the sharded train, prefill
-      or decode step run under ``FakeTensorMode`` on a fake process group
-      of the mesh's size (the counterpart of lower + compile): collectives
+  (b) with ``--trace``, for every arch: the sharded train, prefill or
+      decode step run under ``FakeTensorMode`` on a fake process group of
+      the mesh's size (the counterpart of lower + compile): collectives
       by kind with their bytes and ring wire bytes (``CollectiveLog``),
       the traced FLOPs (DTensor ops at their global shapes, the per-rank
       regions inside ``local_map`` at rank 0's shapes times the ranks) and
       the traced resident bytes, which must equal (a)'s.  XLA's per-chip
-      HLO FLOPs and bytes have no counterpart.
+      HLO FLOPs and bytes have no counterpart.  The plain versions that a
+      CPU trace reaches walk the Mamba scan and the sLSTM recurrence one
+      step at a time and the mLSTM one chunk at a time, which would make a
+      trace's wall grow with the sequence (the reference lowers a
+      ``lax.scan`` once): under the trace they are replaced by shape
+      stand-ins (``_recurrence_stand_ins``) with the same outputs' shapes
+      and the same counted FLOPs, forward and backward, their products
+      batched over the steps or chunks (``tests/test_torch_dryrun.py``
+      holds each against its plain version).  All three run inside
+      ``local_map`` regions, which issue no collective.
 
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.dryrun --arch yi-34b \\
@@ -34,6 +43,7 @@ meshes.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import logging
 import sys
@@ -67,11 +77,6 @@ from repro_torch.train.step import (TrainHyper, auto_microbatches,
                                     make_prefill_step, make_train_step)
 
 ARTIFACT_DIR = Path(__file__).resolve().parents[3] / "build" / "dryrun"
-
-# the decoders whose sharded step runs in this port (the others' sharded
-# execution is ROADMAP item 14b)
-DENSE_DECODERS = ("smollm-135m", "phi3-mini-3.8b", "yi-34b",
-                  "command-r-35b", "internvl2-76b")
 
 # reference flags with no counterpart here, and why
 _NO_COUNTERPART = {
@@ -269,6 +274,102 @@ class TracedFlops(TorchDispatchMode):
         return self.global_flops + self.local_flops * self.world
 
 
+def _scan_stand_in(Abar, Bx, Cc, return_state: bool = False):
+    """The plain scan's outputs (y (B, S, di), h_S (B, di, N)) and its
+    counted product (the states times C), without its per-step loop: the
+    states taken as Abar * Bx."""
+    hs = Abar * Bx
+    y = torch.einsum("bsin,bsn->bsi", hs, Cc)
+    return (y, hs[:, -1].contiguous()) if return_state else y
+
+
+def _slstm_stand_in(xp, r, bias, *, cfg, stash):
+    """The sLSTM loop's outputs (h (B, S, d) in ``stash`` and the final
+    (c, n, h, m) (B, d)) and its recurrent products (step t's h_{t-1}
+    (B, nh, dh) times r (nh, dh, 4dh), h_0 zero), steps 1..S-1 at once,
+    without the loop."""
+    B, S, _ = xp.shape
+    d, nh = cfg.d_model, cfg.lstm_heads
+    dh = d // nh
+    h = torch.tanh(xp.float() + bias)[..., :d].reshape(B, S, nh, dh)
+    rec = torch.cat([torch.einsum("bnd,ndk->bnk", h.new_zeros(B, nh, dh),
+                                  r)[:, None],
+                     torch.einsum("bsnd,ndk->bsnk", h[:, :-1], r)], dim=1)
+    rec = rec[..., :dh].reshape(B, S, d)
+    return (rec.to(stash),) + tuple(rec[:, -1].clone() for _ in range(4))
+
+
+def _mlstm_stand_in(q, k, v, logi, logf, *, chunk: int = 64, state=None,
+                    return_state: bool = False):
+    """The chunkwise mLSTM's outputs (h (B, NH, S, dh), with
+    ``return_state`` the carry (C, n, m)) and its products: each chunk's
+    scores and their product with v, q times the carry (C, n) it starts
+    from, and its update of the carry, without the per-chunk loop.  Chunks
+    whose products the gradient treats alike run at once: the first (from
+    the initial carry), the other full ones, the ragged tail, and apart
+    the last chunk's update (with a gradient only when returned)."""
+    B, NH, S, dh = q.shape
+    if state is None:
+        C0, n0 = q.new_zeros(B, NH, dh, dh), q.new_zeros(B, NH, dh)
+    else:
+        C0, n0 = state[0], state[1]
+    L = min(chunk, S)
+    nf, tail = divmod(S, L)
+    w = torch.exp(logi + logf)
+
+    def chunks(t, lo, c, l):
+        return t[:, :, lo:lo + c * l].reshape(B, NH, c, l, *t.shape[3:])
+
+    def update(lo, c, l):
+        wc, kc, vc = (chunks(t, lo, c, l) for t in (w, k, v))
+        return (torch.einsum("bncl,bncld,bnclv->bncdv", wc, kc, vc),
+                torch.einsum("bncl,bncld->bncd", wc, kc))
+
+    def attend(lo, c, l, C, n):
+        qc, kc, vc = (chunks(t, lo, c, l) for t in (q, k, v))
+        scores = torch.einsum("bncld,bncsd->bncls", qc, kc)
+        num = (torch.einsum("bncls,bncsv->bnclv", scores, vc)
+               + torch.einsum("bncld,bncdv->bnclv", qc, C))
+        den = scores.sum(-1) + torch.einsum("bncld,bncd->bncl", qc, n)
+        return (num + den[..., None]).reshape(B, NH, c * l, dh)
+
+    last_full = update((nf - 1) * L, 1, L)
+    hs = [attend(0, 1, L, C0[:, :, None], n0[:, :, None])]
+    if nf > 1:
+        hs.append(attend(L, nf - 1, L, *update(0, nf - 1, L)))
+    if tail:
+        hs.append(attend(nf * L, 1, tail, *last_full))
+    h = torch.cat(hs, dim=2)
+    if return_state:
+        C, n = update(nf * L, 1, tail) if tail else last_full
+        return h, (C[:, :, 0], n[:, :, 0], logi[..., -1].contiguous())
+    if tail:
+        update(nf * L, 1, tail)
+    return h
+
+
+@contextlib.contextmanager
+def _recurrence_stand_ins():
+    """The scan's, the mLSTM's and the sLSTM's plain recurrences replaced by
+    their stand-ins for the duration of a trace."""
+    from repro_torch.kernels.mlstm_chunk import ops as mlstm_ops
+    from repro_torch.kernels.mlstm_chunk import ref as mlstm_ref
+    from repro_torch.kernels.ssm_scan import ops as ssm_ops
+    from repro_torch.models import xlstm
+    sites = ((ssm_ops, "selective_scan", _scan_stand_in),
+             (mlstm_ops, "mlstm_mixer", _mlstm_stand_in),
+             (mlstm_ref, "mlstm_chunkwise", _mlstm_stand_in),
+             (xlstm, "_slstm_loop", _slstm_stand_in))
+    saved = [getattr(mod, name) for mod, name, _ in sites]
+    for mod, name, fn in sites:
+        setattr(mod, name, fn)
+    try:
+        yield
+    finally:
+        for (mod, name, _), fn in zip(sites, saved):
+            setattr(mod, name, fn)
+
+
 def fake_process_group(world: int) -> None:
     """A default process group of ``world`` fake ranks (this process is
     rank 0; collectives move nothing), remade if one of another size is
@@ -325,7 +426,7 @@ def trace_cell(arch: str, shape_id: str, mesh_kind: str, args,
                                         lay["cache"], dm),
                         shape.seq_len - 1)
         flops = TracedFlops(spec.size)
-        with CollectiveLog() as log, flops:
+        with CollectiveLog() as log, flops, _recurrence_stand_ins():
             out = step(*call)
         # what the rank holds: the step's inputs and a prefill's new cache
         traced_resident = local_bytes(
@@ -348,7 +449,7 @@ def trace_cell(arch: str, shape_id: str, mesh_kind: str, args,
 
 def run_cell(arch, shape_id, mesh_kind, args, states, cfg=None) -> Dict:
     meta = analyze_cell(arch, shape_id, mesh_kind, args, states, cfg)
-    if args.trace and arch in DENSE_DECODERS:
+    if args.trace:
         tr = trace_cell(arch, shape_id, mesh_kind, args, cfg)
         if tr["traced_resident_bytes"] != meta["resident_bytes_total"]:
             raise AssertionError(
@@ -370,8 +471,8 @@ def make_parser() -> argparse.ArgumentParser:
                     choices=["single", "multi", "both"])
     ap.add_argument("--all", action="store_true")
     ap.add_argument("--trace", action="store_true",
-                    help="also run the dense decoders' sharded steps on a "
-                         "fake process group")
+                    help="also run the cell's sharded step on a fake "
+                         "process group")
     ap.add_argument("--seq-parallel", action="store_true")
     ap.add_argument("--remat", default="full",
                     choices=["none", "dots", "full"])

@@ -32,8 +32,11 @@ axis and the key/value heads do not, k and v are expanded to the query
 heads first, as the reference's dense path expands them.  The reference's
 ``kvseq``/``qseq`` fallbacks have no counterpart.  A DTensor cache, whose
 position dim may be sharded (``launch.sharding.cache_specs``), is written
-whole through a position mask and scored whole with the positions past
-``cache_len`` masked to -1e30, as the reference scores its cache.
+by each rank into its own positions and read by ``_attend_cached``: over
+the key heads' shards through ``local_map`` where they divide the model
+axis, else scored whole with the positions past ``cache_len`` masked to
+-1e30, as the reference scores its cache.  Decode reads whisper's cross
+cache the same way, with no mask.
 """
 from __future__ import annotations
 
@@ -43,10 +46,11 @@ from typing import Optional, Tuple
 import torch
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.kernels.checks import is_dtensor
 from repro_torch.kernels.flash_attention import ops as flash_ops
 from repro_torch.models.common import (Runtime, accum_product, apply_rope,
-                                       is_dtensor,
-                                       dense_init, rope_tables)
+                                       contiguous_grad, dense_init,
+                                       rope_tables)
 
 
 def attn_init(gen: torch.Generator, cfg: ArchConfig, rt: Runtime) -> dict:
@@ -105,22 +109,8 @@ def _expand_kv(k: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
                                                             hd)
 
 
-class _ContiguousGrad(torch.autograd.Function):
-    """Identity whose gradient is made contiguous: a local shard's gradient
-    goes back into DTensor views, which need its rows dense (the plain
-    version's gradients come out permuted)."""
-
-    @staticmethod
-    def forward(ctx, x):
-        return x.view_as(x)
-
-    @staticmethod
-    def backward(ctx, g):
-        return g.contiguous()
-
-
 def _local_sdpa(q, k, v, *, causal: bool):
-    q, k, v = (_ContiguousGrad.apply(t.contiguous()) for t in (q, k, v))
+    q, k, v = (contiguous_grad(t.contiguous()) for t in (q, k, v))
     return flash_ops.sdpa(q, k, v, causal=causal)
 
 
@@ -198,26 +188,36 @@ def attn_decode(p: dict, x: torch.Tensor, cache: dict, cache_len: int,
         k_new = apply_rope(k_new, cos, sin)
     write_positions(cache["k"], k_new, cache_len)
     write_positions(cache["v"], v_new, cache_len)
-    n = cache_len + 1
-    k, v = cache["k"], cache["v"]
+    return _out_proj(p, _attend_cached(q, cache["k"], cache["v"], cfg, rt,
+                                       n_live=cache_len + 1), cfg, rt)
+
+
+def _attend_cached(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                   cfg: ArchConfig, rt: Runtime,
+                   n_live: Optional[int] = None) -> torch.Tensor:
+    """One query row q (B, 1, H, hd) over a cache k, v (B, n, KV, hd), its
+    first ``n_live`` positions (every position when None).  On a DTensor
+    cache: with the key heads split over the model axis each rank holds
+    whole rows of its heads, and the plain path runs on its shards through
+    ``local_map``; with the cache split over its positions it is scored
+    whole, the positions from ``n_live`` on masked."""
+    live = slice(None, n_live)
     if not is_dtensor(k):
-        return _out_proj(p, _attend_core(q, k[:, :n], v[:, :n], rt), cfg, rt)
+        return _attend_core(q, k[:, live], v[:, live], rt)
     from torch.distributed.tensor.experimental import local_map
     sc = rt.sc
+    bs = sc.batch_spec(q.shape[0])
     kv_axis = sc.div(cfg.n_kv_heads, sc.tp_axis)
     if kv_axis is None:
-        # the cache splits its positions: score it whole, masked
-        q = sc.constrain(q, sc.batch_spec(q.shape[0]), None, None, None)
-        return _out_proj(p, _attend_core(q, k, v, rt, n_live=n), cfg, rt)
-    # key heads split over the model axis: every rank holds whole rows
-    # of its heads, so the plain path runs on its shards
-    pl = sc.placements((sc.batch_spec(q.shape[0]), None, kv_axis, None))
-    q = sc.constrain(q, sc.batch_spec(q.shape[0]), None, kv_axis, None)
+        q = sc.constrain(q, bs, None, None, None)
+        return _attend_core(q, k, v, rt, n_live=n_live)
+    pl = sc.placements((bs, None, kv_axis, None))
+    q = sc.constrain(q, bs, None, kv_axis, None)
     run = local_map(
-        lambda q, k, v: _attend_core(q, k[:, :n], v[:, :n], rt),
+        lambda q, k, v: _attend_core(q, k[:, live], v[:, live], rt),
         out_placements=pl, in_placements=(pl, pl, pl),
         device_mesh=sc.device_mesh)
-    return _out_proj(p, run(q, k, v), cfg, rt)
+    return run(q, k, v)
 
 
 def write_positions(buf: torch.Tensor, new: torch.Tensor,
@@ -262,9 +262,10 @@ def cross_attn_decode(p: dict, x: torch.Tensor, cross_k: torch.Tensor,
                       rt: Runtime) -> torch.Tensor:
     """x (B, 1, d) against the encoder's cached keys and values
     ``cross_k`` / ``cross_v`` (B, Se, KV, hd): every position, no mask, no
-    cache write, no RoPE."""
-    return _out_proj(p, _attend_core(_project_q(p, x, cfg, rt), cross_k,
-                                     cross_v, rt), cfg, rt)
+    cache write, no RoPE; on a mesh as ``attn_decode`` reads its cache."""
+    q = _project_q(p, x, cfg, rt)
+    return _out_proj(p, _attend_cached(q, cross_k, cross_v, cfg, rt), cfg,
+                     rt)
 
 
 def _attend_core(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

@@ -23,12 +23,13 @@ from __future__ import annotations
 
 import dataclasses
 import math
-import sys
 from typing import Any, Dict, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
+
+from repro_torch.kernels.checks import is_dtensor
 
 
 # --------------------------------------------------------------------------- #
@@ -49,14 +50,6 @@ class MeshSpec:
     @property
     def size(self) -> int:
         return math.prod(self.sizes)
-
-
-def is_dtensor(x) -> bool:
-    """Whether ``x`` is a DTensor.  ``torch.distributed.tensor`` loads the
-    compiler stack (seconds), so it is imported only by code that builds
-    DTensors: until then none exists, and the plain path never pays."""
-    mod = sys.modules.get("torch.distributed.tensor")
-    return mod is not None and isinstance(x, mod.DTensor)
 
 
 def mesh_placements(spec: Sequence[Any], axis_names: Sequence[str]) -> list:
@@ -134,6 +127,19 @@ class ShardCtx:
     def placements(self, spec: Sequence[Any]) -> list:
         return mesh_placements(spec, self.mesh.axis_names)
 
+    def partial_over(self, entry) -> list:
+        """One placement per mesh axis: ``Partial()`` on the axes ``entry``
+        names (the data axes a batch is split over), ``Replicate()``
+        elsewhere.  It is the gradient of a weight that enters a
+        ``local_map`` region whole while the batch is split: each rank's
+        gradient sums its own rows only, so the gradients of the ranks
+        along those axes add up to the whole."""
+        from torch.distributed.tensor import Partial, Replicate
+        names = () if entry is None else (
+            (entry,) if isinstance(entry, str) else tuple(entry))
+        return [Partial() if a in names else Replicate()
+                for a in self.mesh.axis_names]
+
     def constrain(self, x: torch.Tensor, *spec) -> torch.Tensor:
         """Redistribute a ``DTensor`` to ``spec``'s placements (a partial
         sum is reduced); a plain tensor is returned unchanged (the JAX
@@ -154,6 +160,58 @@ class ShardCtx:
         """Constrain an activation whose dim 0 is the (global) batch."""
         return self.constrain(x, self.div(batch_dim_size, self.dp_axes),
                               *rest)
+
+
+class _ContiguousGrad(torch.autograd.Function):
+    """Identity whose gradient is made contiguous: a local shard's gradient
+    goes back into DTensor views, which need its rows dense (the plain
+    versions' gradients may come out permuted)."""
+
+    @staticmethod
+    def forward(ctx, x):
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.contiguous()
+
+
+def contiguous_grad(x: torch.Tensor) -> torch.Tensor:
+    """x, its gradient made contiguous (the local tensors that a
+    ``local_map`` region's inputs become)."""
+    return _ContiguousGrad.apply(x)
+
+
+def on_batch_shards(fn, sc: "ShardCtx", acts: Sequence[torch.Tensor],
+                    weights: Sequence[torch.Tensor] = (),
+                    out: Sequence[Any] = (1,)):
+    """``fn(*acts, *weights)``; on a mesh (``acts[0]`` a DTensor), on each
+    rank's shard of the batch through ``local_map``: the activations
+    ``acts`` (dim 0 the batch) split over the data axes and whole over the
+    others, the ``weights`` whole (their gradient a partial sum over the
+    data axes, ``partial_over``).  ``out`` names each output: its number of
+    dims (dim 0 the batch), or "sum" for a per-rank sum, partial over the
+    data axes.  Returns what ``fn`` returns (as DTensors on a mesh)."""
+    if not is_dtensor(acts[0]):
+        return fn(*acts, *weights)
+    from torch.distributed.tensor.experimental import local_map
+    bs = sc.div(acts[0].shape[0], sc.dp_axes)
+
+    def rows(n: int) -> list:
+        return sc.placements((bs,) + (None,) * (n - 1))
+
+    acts = [sc.constrain(a, bs, *(None,) * (a.dim() - 1)) for a in acts]
+    weights = [sc.constrain(w, *(None,) * w.dim()) for w in weights]
+    w_pl = [sc.placements((None,) * w.dim()) for w in weights]
+    a_pl = [rows(a.dim()) for a in acts]
+    out_pl = [sc.partial_over(bs) if o == "sum" else rows(o) for o in out]
+    run = local_map(
+        lambda *ts: fn(*(contiguous_grad(t) for t in ts)),
+        out_placements=out_pl[0] if len(out_pl) == 1 else tuple(out_pl),
+        in_placements=tuple(a_pl + w_pl),
+        in_grad_placements=tuple(a_pl + [sc.partial_over(bs)] * len(w_pl)),
+        device_mesh=sc.device_mesh)
+    return run(*acts, *weights)
 
 
 @dataclasses.dataclass(frozen=True)

@@ -30,11 +30,12 @@ import torch
 from torch.utils import checkpoint as ckpt
 
 from repro_torch.configs.base import ArchConfig, LayerSpec
+from repro_torch.kernels.checks import is_dtensor
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import mamba as mamba_mod
 from repro_torch.models import xlstm as xlstm_mod
 from repro_torch.models.common import (Runtime, chunked_cross_entropy,
-                                       dense_init, is_dtensor, logits_for,
+                                       dense_init, logits_for,
                                        norm_apply, norm_init,
                                        sinusoidal_position_at,
                                        sinusoidal_positions)
@@ -115,20 +116,16 @@ def _embed_on_mesh(table: torch.Tensor, tokens: torch.Tensor,
     whole (FSDP's regather), each rank's rows of its batch shard looked up
     locally.  The table's gradient is a partial sum over the batch's data
     axes (DTensor's own index backward cannot place it)."""
-    from torch.distributed.tensor import Partial, Replicate
     from torch.distributed.tensor.experimental import local_map
     sc = rt.sc
     bs = sc.div(tokens.shape[0], sc.dp_axes)
-    names = () if bs is None else ((bs,) if isinstance(bs, str) else bs)
-    axes = sc.mesh.axis_names
     tokens = sc.constrain(tokens, bs, None)
     tok_pl = sc.placements((bs, None))
     run = local_map(
         lambda t, i: t[i.long()],
         out_placements=sc.placements((bs, None, None)),
         in_placements=(sc.placements((None, None)), tok_pl),
-        in_grad_placements=([Partial() if a in names else Replicate()
-                             for a in axes], tok_pl),
+        in_grad_placements=(sc.partial_over(bs), tok_pl),
         device_mesh=sc.device_mesh)
     return run(sc.constrain(table, None, None), tokens)
 
@@ -223,9 +220,9 @@ def _apply_block(spec: LayerSpec, p: dict, x: torch.Tensor, cfg: ArchConfig,
         mixed = xlstm_mod.slstm(p["mixer"], h, cfg, rt)
     x = _add_residual(x, mixed, rt)
     if spec.cross_attn and enc_out is not None:
-        h = norm_apply(cfg.norm, x, p["cross_norm"])
-        x = x + attn_mod.attention(p["cross"], h, cfg, rt, causal=False,
-                                   kv_x=enc_out)
+        h = _sublayer_input(norm_apply(cfg.norm, x, p["cross_norm"]), rt)
+        x = _add_residual(x, attn_mod.attention(
+            p["cross"], h, cfg, rt, causal=False, kv_x=enc_out), rt)
     return _ffn(spec, p, x, cfg, rt)
 
 
@@ -304,7 +301,9 @@ def encode_audio(params: dict, frames: torch.Tensor, cfg: ArchConfig,
     body = _remat(functools.partial(_encoder_layer, cfg=cfg, rt=rt), rt)
     for p in params["enc_blocks"]:
         x = body(x, p)
-    return norm_apply(cfg.norm, x, params["enc_norm"])
+    # whole over the model axis (gathered once under seq_parallel): every
+    # cross-attention projects its keys and values from it
+    return _sublayer_input(norm_apply(cfg.norm, x, params["enc_norm"]), rt)
 
 
 def _embed_input(params: dict, batch: Dict[str, torch.Tensor],

@@ -14,9 +14,22 @@ sLSTM has no kernel in the JAX package and stays plain PyTorch: a Python
 loop over time, one cell update (about 20 small launches on the card) per
 token.  The JAX package scans over chunks of up to 64 unrolled steps (an XLA
 concern); the arithmetic per step is the same.
+
+On a mesh (DTensor activations, ``rt.sc`` set) the blocks keep the
+reference's layout: FSDP-sharded weights, activations split over the data
+axes and whole over the model axis.  Each recurrence runs on each rank's
+batch shard with its heads whole, through ``common.on_batch_shards``: the
+mLSTM kernels (and the prefill's stateful chunkwise form), and the sLSTM
+time loop as one region a layer call (a decode step's cell likewise), so
+the loop issues no DTensor op per token.  The sLSTM recurrent weights ``r`` (FSDP-sharded with
+``shard_lstm_r``) are gathered once before the loop (the reference gathers
+once per 64-step chunk), and their gradient is a partial sum over the data
+axes.  Every state comes out in ``launch.sharding.cache_specs``'
+placements (the batch over the data axes).
 """
 from __future__ import annotations
 
+import functools
 from typing import Tuple
 
 import torch
@@ -25,7 +38,8 @@ import torch.nn.functional as F
 from repro_torch.configs.base import ArchConfig
 from repro_torch.kernels.mlstm_chunk import ops as mlstm_ops
 from repro_torch.kernels.mlstm_chunk import ref as mlstm_ref
-from repro_torch.models.common import Runtime, dense_init, rmsnorm
+from repro_torch.models.common import (Runtime, dense_init,
+                                       on_batch_shards, rmsnorm)
 from repro_torch.models.mamba import _causal_conv
 
 _CONV_K = 4
@@ -36,6 +50,13 @@ FP32_PARAMS = {"mlstm": ("w_gate", "gate_bias"), "slstm": ("r", "bias")}
 
 def _stash_dtype(rt: Runtime) -> torch.dtype:
     return torch.bfloat16 if rt.lstm_bf16_states else torch.float32
+
+
+def _rows(x: torch.Tensor, rt: Runtime) -> torch.Tensor:
+    """An activation with its batch over the data axes and the rest whole:
+    the blocks' layout (a plain tensor is returned unchanged)."""
+    sc = rt.sc
+    return sc.act(x, x.shape[0], *(None,) * (x.dim() - 1))
 
 
 def _log_sigmoid(x: torch.Tensor) -> torch.Tensor:
@@ -69,7 +90,7 @@ def _mlstm_qkv_gates(p: dict, x: torch.Tensor, cfg: ArchConfig, rt: Runtime,
     B, S, _ = x.shape
     di, nh = cfg.lstm_d_inner, cfg.lstm_heads
     dh = di // nh
-    up = x.to(cd) @ p["w_up"].to(cd)
+    up = _rows(x.to(cd) @ p["w_up"].to(cd), rt)
     x_m, z = up.chunk(2, dim=-1)
     x_c = F.silu(_causal_conv(x_m, p["conv_w"], conv_state))
     xh = x_c.reshape(B, S, nh, dh)
@@ -77,8 +98,9 @@ def _mlstm_qkv_gates(p: dict, x: torch.Tensor, cfg: ArchConfig, rt: Runtime,
     k = torch.einsum("bsnd,nde->bsne", xh, p["wk"].to(cd)) * (dh ** -0.5)
     v = torch.einsum("bsnd,nde->bsne", x_m.reshape(B, S, nh, dh),
                      p["wv"].to(cd))
-    gates = x_m.float() @ p["w_gate"] + p["gate_bias"]
+    gates = _rows(x_m.float() @ p["w_gate"] + p["gate_bias"], rt)
     logi, logf_pre = gates.chunk(2, dim=-1)              # (B, S, nh)
+    q, k, v = (_rows(t, rt) for t in (q, k, v))
     return q, k, v, logi, _log_sigmoid(logf_pre), z, x_m
 
 
@@ -97,22 +119,42 @@ def _mlstm_out(p: dict, h: torch.Tensor, z: torch.Tensor, rt: Runtime
     return h @ p["w_down"].to(cd)
 
 
+def _placed(state: dict, rt: Runtime) -> dict:
+    """A recurrent state in ``cache_specs``' placements: the batch over
+    the data axes, the rest whole (a no-op for plain tensors)."""
+    return {k: _rows(t, rt) for k, t in state.items()}
+
+
+def _mixer(q, k, v, logi, logf):
+    return mlstm_ops.mlstm_mixer(*(_heads_first(t)
+                                   for t in (q, k, v, logi, logf)))
+
+
+def _chunkwise_with_state(q, k, v, logi, logf, *, chunk: int):
+    """h and the carry (C, n, m) after the last token, as four tensors."""
+    h, (C, n, m) = mlstm_ref.mlstm_chunkwise(
+        *(_heads_first(t) for t in (q, k, v, logi, logf)), chunk=chunk,
+        return_state=True)
+    return h, C, n, m
+
+
 def mlstm(p: dict, x: torch.Tensor, cfg: ArchConfig, rt: Runtime, *,
           return_state: bool = False):
     """x (B, S, d) -> (B, S, d); with ``return_state`` also the decode
     state {"conv", "C", "n", "m"} after the last token."""
     S = x.shape[1]
     q, k, v, logi, logf, z, x_m = _mlstm_qkv_gates(p, x, cfg, rt)
-    qkv = [_heads_first(t) for t in (q, k, v, logi, logf)]
+    qkv = (q, k, v, logi, logf)
     if not return_state:
-        return _mlstm_out(p, mlstm_ops.mlstm_mixer(*qkv), z, rt)
+        return _mlstm_out(p, on_batch_shards(_mixer, rt.sc, qkv, out=(4,)), z, rt)
     L = min(rt.ssm_chunk, S)
     if S % L != 0:
         L = S
-    h, (C, n, m) = mlstm_ref.mlstm_chunkwise(*qkv, chunk=L,
-                                             return_state=True)
+    h, C, n, m = on_batch_shards(
+        functools.partial(_chunkwise_with_state, chunk=L), rt.sc, qkv,
+        out=(4, 4, 3, 2))
     state = {"conv": x_m[:, S - (_CONV_K - 1):, :], "C": C, "n": n, "m": m}
-    return _mlstm_out(p, h, z, rt), state
+    return _mlstm_out(p, h, z, rt), _placed(state, rt)
 
 
 def mlstm_with_state(p, x, cfg: ArchConfig, rt: Runtime):
@@ -156,7 +198,7 @@ def mlstm_decode(p: dict, x: torch.Tensor, cache: dict, cfg: ArchConfig,
     h = rmsnorm(h, p["out_scale"]) * F.silu(z)
     out = h @ p["w_down"].to(cd)
     new_conv = torch.cat([cache["conv"][:, 1:], x_m], dim=1)
-    return out, {"conv": new_conv, "C": C, "n": n, "m": m_new}
+    return out, _placed({"conv": new_conv, "C": C, "n": n, "m": m_new}, rt)
 
 
 # --------------------------------------------------------------------------- #
@@ -205,21 +247,30 @@ def _slstm_state0(B: int, d: int, device):
                                device=device)
 
 
-def slstm(p: dict, x: torch.Tensor, cfg: ArchConfig, rt: Runtime, *,
-          return_state: bool = False):
-    cd = rt.compute_dtype
-    B, S, d = x.shape
-    xp = x.to(cd) @ p["w_in"].to(cd)
-    stash = _stash_dtype(rt)
-    state = _slstm_state0(B, d, x.device)
+def _slstm_loop(xp: torch.Tensor, r: torch.Tensor, bias: torch.Tensor, *,
+                cfg: ArchConfig, stash: torch.dtype):
+    """Every step of the recurrence over xp (B, S, 4d): the outputs
+    (B, S, d) in ``stash`` and the final state (c, n, h, m)."""
+    B, S, _ = xp.shape
+    p = {"r": r, "bias": bias}
+    state = _slstm_state0(B, cfg.d_model, xp.device)
     hs = []
     for t in range(S):
         state = _slstm_cell(p, xp[:, t], state, cfg)
         hs.append(state[2].to(stash))
-    h = torch.stack(hs, dim=1).to(cd)                    # (B, S, d)
-    out = rmsnorm(h, p["norm_scale"]) @ p["w_down"].to(cd)
+    return (torch.stack(hs, dim=1),) + tuple(state)
+
+
+def slstm(p: dict, x: torch.Tensor, cfg: ArchConfig, rt: Runtime, *,
+          return_state: bool = False):
+    cd = rt.compute_dtype
+    xp = _rows(x.to(cd) @ p["w_in"].to(cd), rt)
+    loop = functools.partial(_slstm_loop, cfg=cfg, stash=_stash_dtype(rt))
+    h, c, n, hf, m = on_batch_shards(loop, rt.sc, (xp,),
+                                     (p["r"], p["bias"]),
+                                     out=(3, 2, 2, 2, 2))
+    out = rmsnorm(h.to(cd), p["norm_scale"]) @ p["w_down"].to(cd)
     if return_state:
-        c, n, hf, m = state
         return out, {"c": c, "n": n, "h": hf, "m": m}
     return out
 
@@ -237,8 +288,14 @@ def slstm_decode(p: dict, x: torch.Tensor, cache: dict, cfg: ArchConfig,
                  rt: Runtime) -> Tuple[torch.Tensor, dict]:
     cd = rt.compute_dtype
     xp = x.to(cd) @ p["w_in"].to(cd)
-    state = (cache["c"], cache["n"], cache["h"], cache["m"])
-    c, n, h, m = _slstm_cell(p, xp[:, 0], state, cfg)
+    state = tuple(cache[k] for k in ("c", "n", "h", "m"))
+    c, n, h, m = on_batch_shards(functools.partial(_slstm_step, cfg=cfg),
+                                 rt.sc, (xp[:, 0],) + state,
+                                 (p["r"], p["bias"]), out=(2, 2, 2, 2))
     y = rmsnorm(h[:, None].to(cd), p["norm_scale"])
     out = y @ p["w_down"].to(cd)
     return out, {"c": c, "n": n, "h": h, "m": m}
+
+
+def _slstm_step(xt, c, n, h, m, r, bias, *, cfg: ArchConfig):
+    return _slstm_cell({"r": r, "bias": bias}, xt, (c, n, h, m), cfg)

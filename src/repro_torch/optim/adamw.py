@@ -24,7 +24,7 @@ from typing import Any, Dict, Tuple
 
 import torch
 
-from repro_torch.models.common import is_dtensor
+from repro_torch.kernels.checks import is_dtensor
 from repro_torch.tree import tree_items, tree_leaves, tree_map
 
 

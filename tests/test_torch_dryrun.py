@@ -1,8 +1,9 @@
 """The port's dry run (``repro_torch.launch.dryrun``): the analytic pass over
 every applicable (arch x shape) cell on both production meshes, and the
-traced sharded steps (train, prefill, decode) of reduced dense decoders on
-fake 256- and 512-rank process groups: collectives issued, traced resident
-bytes equal to the analytic ones.  The reference lowers and compiles the
+traced sharded steps (train, prefill, decode) of reduced dense decoders and
+of the MoE, Mamba, xLSTM and whisper families on fake 256- and 512-rank
+process groups: collectives issued, traced resident bytes equal to the
+analytic ones.  The reference lowers and compiles the
 same cells (``repro.launch.dryrun``); its rules and the port's are held
 leaf by leaf in ``test_torch_sharding.py``."""
 import torch_threads  # noqa: F401  (xdist workers share the cores)
@@ -123,3 +124,148 @@ def test_traced_steps_on_fake_process_groups():
         assert r["traced"] == r["analytic"] > 0, cell
         assert r["flops"] > 0, cell
         assert r["world"] == (512 if cell.endswith("multi") else 256)
+
+
+_TRACE_FAMILIES = textwrap.dedent('''
+    import dataclasses, json
+    import torch.distributed as dist
+    from repro_torch.configs.registry import get_config
+    from repro_torch.launch import dryrun
+
+    def r(arch, **kw):
+        return dataclasses.replace(get_config(arch, reduced=True), **kw)
+
+    # widths the rules split on the 16-wide axes: 16 heads, 16 experts,
+    # d_inner 512, FSDP over d 256
+    wide = dict(n_heads=16, n_kv_heads=16, d_model=256, vocab_size=1024)
+    configs = {
+        "olmoe-1b-7b": r("olmoe-1b-7b", d_ff=256, moe_d_ff=256,
+                         n_experts=16, **wide),
+        "qwen2-moe-a2.7b": r("qwen2-moe-a2.7b", moe_d_ff=256, n_experts=16,
+                             **wide),
+        "jamba-v0.1-52b": r("jamba-v0.1-52b", d_ff=512, moe_d_ff=256,
+                            n_experts=16, **wide),
+        "xlstm-1.3b": r("xlstm-1.3b", d_model=256, n_heads=4,
+                        vocab_size=1024),
+        "whisper-large-v3": r("whisper-large-v3", d_ff=512, **wide),
+    }
+    out = {}
+    for cell in CELLS:
+        kind, arch, shape, flags = cell.split("/")
+        args = dryrun.make_parser().parse_args(
+            ["--trace", "--tag", "t"] + flags.split())
+        meta = dryrun.run_cell(arch, shape, kind, args, {}, configs[arch])
+        tr = meta["trace"]
+        out[cell] = {"counts": tr["collective_counts"],
+                     "traced": tr["traced_resident_bytes"],
+                     "analytic": meta["resident_bytes_total"],
+                     "flops": tr["traced_flops_global"],
+                     "fallbacks": meta["n_fallbacks"],
+                     "world": dist.get_world_size()}
+    dist.destroy_process_group()
+    print("RESULT " + json.dumps(out))
+''')
+# (mesh, arch, shape, flags): expert parallelism with 16 experts over the
+# model axis, qwen2-moe's shared experts, jamba's Mamba scan over d_inner
+# shards and its MoE, the xLSTM blocks with the sLSTM weights FSDP-sharded,
+# whisper's encoder and cross-attention, and a 3-axis serving cell
+FAMILY_CELLS = ["single/olmoe-1b-7b/train_4k/--ep",
+                "single/qwen2-moe-a2.7b/decode_32k/",
+                "single/jamba-v0.1-52b/train_4k/",
+                "single/xlstm-1.3b/prefill_32k/--shard-r",
+                "single/whisper-large-v3/prefill_32k/",
+                "multi/jamba-v0.1-52b/decode_32k/"]
+
+
+@pytest.fixture(scope="module")
+def family_traces():
+    script = f"CELLS = {FAMILY_CELLS!r}\n" + _TRACE_FAMILIES
+    out = subprocess.run(
+        [sys.executable, "-c", script], capture_output=True, text=True,
+        timeout=600, env={"PYTHONPATH": str(ROOT / "src"),
+                          "PATH": "/usr/bin:/bin", "OMP_NUM_THREADS": "1"})
+    assert out.returncode == 0, out.stdout[-3000:] + out.stderr[-5000:]
+    line = [ln for ln in out.stdout.splitlines() if ln.startswith("RESULT")]
+    return json.loads(line[-1][len("RESULT "):])
+
+
+@pytest.mark.parametrize("cell", FAMILY_CELLS)
+def test_traced_family_steps(family_traces, cell):
+    """Reduced MoE, Mamba, xLSTM and whisper cells with widths the rules
+    split, traced on the fake 256- and 512-rank groups (``--ep`` and
+    ``--shard-r`` reach the traced step): collectives issued, no fallback
+    to replication, traced FLOPs counted and traced resident bytes equal to
+    the analytic pass's."""
+    r = family_traces[cell]
+    assert sum(r["counts"].values()) > 0
+    assert r["traced"] == r["analytic"] > 0
+    assert r["flops"] > 0
+    assert r["world"] == (512 if cell.startswith("multi") else 256)
+    assert r["fallbacks"] == 0
+
+
+def _traced(fn, args, kwargs, grad):
+    """(FLOPs counted by the trace's counter, output shapes) of one call,
+    with its backward from every output when ``grad``."""
+    import torch
+    args = [a.clone().requires_grad_(grad) for a in args]
+    with dryrun.TracedFlops(world=1) as fc:
+        out = fn(*args, **kwargs)
+        flat = []
+        for o in (out if isinstance(out, tuple) else (out,)):
+            flat += list(o) if isinstance(o, tuple) else [o]
+        if grad:
+            sum(o.float().sum() for o in flat if o.requires_grad).backward()
+    return fc.total, [tuple(o.shape) for o in flat]
+
+
+def _randn(*shapes, seed=0):
+    import torch
+    g = torch.Generator().manual_seed(seed)
+    return [torch.randn(s, generator=g) for s in shapes]
+
+
+@pytest.mark.parametrize("grad", [False, True])
+@pytest.mark.parametrize("return_state", [False, True])
+def test_scan_stand_in_counts_like_the_plain_scan(grad, return_state):
+    """The trace's scan stand-in: the plain scan's FLOPs (forward, and with
+    ``grad`` backward) and output shapes."""
+    from repro_torch.kernels.ssm_scan import ref
+    B, S, di, N = 2, 128, 16, 4
+    args = _randn((B, S, di, N), (B, S, di, N), (B, S, N))
+    kw = {"return_state": return_state}
+    assert (_traced(dryrun._scan_stand_in, args, kw, grad)
+            == _traced(ref.ssm_scan_ref, args, kw, grad))
+
+
+@pytest.mark.parametrize("S", [128, 160, 40])
+@pytest.mark.parametrize("grad", [False, True])
+@pytest.mark.parametrize("return_state", [False, True])
+def test_mlstm_stand_in_counts_like_the_plain_chunkwise(S, grad,
+                                                        return_state):
+    """The trace's mLSTM stand-in: the plain chunkwise mLSTM's FLOPs and
+    output shapes at 64-token chunks, for whole chunks, a ragged tail and
+    one short chunk."""
+    from repro_torch.kernels.mlstm_chunk import ref
+    B, NH, dh = 2, 2, 16
+    args = _randn((B, NH, S, dh), (B, NH, S, dh), (B, NH, S, dh),
+                  (B, NH, S), (B, NH, S))
+    args[4] = -args[4].abs()
+    kw = {"chunk": ref.CHUNK, "return_state": return_state}
+    assert (_traced(dryrun._mlstm_stand_in, args, kw, grad)
+            == _traced(ref.mlstm_chunkwise, args, kw, grad))
+
+
+@pytest.mark.parametrize("grad", [False, True])
+def test_slstm_stand_in_counts_like_the_plain_loop(grad):
+    """The trace's sLSTM stand-in: the plain loop's FLOPs and output
+    shapes."""
+    import torch
+    from repro_torch.models import xlstm
+    cfg = get_config("xlstm-1.3b", reduced=True)
+    d, nh = cfg.d_model, cfg.lstm_heads
+    B, S = 2, 32
+    args = _randn((B, S, 4 * d), (nh, d // nh, 4 * d // nh), (4 * d,))
+    kw = {"cfg": cfg, "stash": torch.float32}
+    assert (_traced(dryrun._slstm_stand_in, args, kw, grad)
+            == _traced(xlstm._slstm_loop, args, kw, grad))
