@@ -26,7 +26,10 @@ Phases:
      fp32 (the FMA kernel) and bf16 (the tensor-core kernel), causal
      Sq < Sk at hd 24, MQA at hd 128 and whisper-large-v3's encoder,
      beside ``scaled_dot_product_attention`` as a yardstick, each bf16
-     shape run twice and required bitwise equal; the mLSTM
+     shape run twice and required bitwise equal; both flash kernels with a
+     given causal diagonal (``FLASH_OFFSET_SHAPES``: a key shard whose
+     first rows see no key, a row shard, Sq > Sk; fp32 and bf16) against
+     the plain version, no NaN, bf16 bitwise repeatable; the mLSTM
      forward and backward kernels at xlstm-1.3b's training shape, a reduced
      head size, a ragged length and a case where the clamp decides, beside
      the bound of their split-TF32 products and state workspace, with each
@@ -172,9 +175,20 @@ Phases:
      in ``cache_specs``' placements; (c) each step's wall and own peak
      beside the plain step's; (d) in CPU subprocesses started with the
      phase, one traced cell per family on a fake 256-rank group.
+ 25. attention whose heads do not divide a 16-wide model axis, split over
+     its keys (kvseq) and over its query rows (qseq): smollm-135m's
+     training shape, yi-34b's width, whisper-large-v3's encoder (uneven
+     shards) and its cross-attention, and a 100-token smollm prompt that
+     leaves the last rank no rows or keys, full width in bf16, each rank's
+     work run in turn on the card through the functions the mesh path
+     calls (``fallback_pieces``): output, log-sum-exp and gradients
+     against the one-call kernels and the plain version, one forward and
+     one backward launch per rank that holds rows and keys (16 + 16 per
+     split call, 15 + 15 for the prompt), the pieces' summed time beside
+     the one call's.
 
 The kernels line's ``launches`` add up each kernel's launches over the
-main paths that run it (flash: phases 8, 13, 16, 17, 23 and 24; the scan
+main paths that run it (flash: phases 8, 13, 16, 17, 23, 24 and 25; the scan
 and the mLSTM kernels: phases 10, 13 and 24; ``score_cov``:
 phases 3, 19, 20c, 21 and 22; ``var_downdate``: phases 3, 20c, 21 and 22;
 ``tpe_scores``: phases 4, 20c, 21 and 22).
@@ -188,6 +202,7 @@ from __future__ import annotations
 import concurrent.futures as cf
 import contextlib
 import ctypes
+import functools
 import json
 import math
 import multiprocessing
@@ -225,6 +240,7 @@ from repro_torch.launch import serve, train  # noqa: E402
 from repro_torch.launch.roofline import H100  # noqa: E402
 from repro_torch.models import (Runtime, forward_decode,  # noqa: E402
                                 forward_prefill, init_params)
+from repro_torch.models import attention  # noqa: E402
 from repro_torch.models.transformer import layer_specs  # noqa: E402
 from repro_torch.optim.adamw import AdamWConfig  # noqa: E402
 from repro_torch.scheduler import (FaultInjection,  # noqa: E402
@@ -1580,6 +1596,105 @@ def check_flash_bwd_kernel(dev, reps_main: int):
         del q, k, v, out, lse, dout, xs, graph
         torch.cuda.empty_cache()
     return rec
+
+
+# --------------------------------------------------------------------------- #
+# flash attention with a given causal diagonal (phase 2)
+# --------------------------------------------------------------------------- #
+# (tag, B, Sq, Sk, H, KV, hd, dtype, causal_offset), each causal: the last of
+# 16 key shards of smollm-135m's training shape (phase 25's kvseq: 1024
+# query rows over 64 keys, offset -960, so the first 960 rows see no key),
+# the last row shard of its qseq split (64 rows over all 1024 keys, offset
+# 960), and Sq > Sk at a reduced head size; each in bf16 (the tensor-core
+# kernels) and fp32 (the FMA kernels)
+FLASH_OFFSET_SHAPES = [
+    ("kvseq shard bf16", 2, 1024, 64, 9, 3, 64, torch.bfloat16, -960),
+    ("qseq shard bf16", 2, 64, 1024, 9, 3, 64, torch.bfloat16, 960),
+    ("Sq > Sk hd 24 bf16", 2, 300, 77, 4, 2, 24, torch.bfloat16, 10),
+    ("kvseq shard fp32", 2, 1024, 64, 9, 3, 64, torch.float32, -960),
+    ("qseq shard fp32", 2, 64, 1024, 9, 3, 64, torch.float32, 960),
+    ("Sq > Sk hd 24 fp32", 2, 300, 77, 4, 2, 24, torch.float32, 10),
+]
+
+
+def flash_offset_errors(shape, dev, seed=0):
+    """The forward and backward kernels with ``causal_offset`` against the
+    plain versions on the same inputs: out and lse against
+    ``ref.attention_lse_ref`` (+inf, never NaN, on the same rows: those
+    that see no key), (dq, dk, dv) against autograd of
+    ``ref.attention_ref``, at phase 2's tolerances.  Returns ({output:
+    (max_abs_err, tolerance)}, (q, k, v, out, lse, dout))."""
+    tag, B, Sq, Sk, H, KV, hd, dtype, off = shape
+    q, k, v = flash_inputs((tag, B, Sq, Sk, H, KV, hd, True, dtype), dev,
+                           seed)
+    g = torch.Generator(device=dev).manual_seed(seed + 1)
+    dout = torch.randn(q.shape, generator=g, device=dev).to(dtype)
+    out, lse = flash_ops.forward(q, k, v, True, with_lse=True,
+                                 causal_offset=off)
+    grads = flash_ops.backward(q, k, v, out, lse, dout, True,
+                               causal_offset=off)
+    want, want_lse = flash_ref.attention_lse_ref(q, k, v, causal=True,
+                                                 offset=off)
+    xs = [t.clone().requires_grad_() for t in (q, k, v)]
+    want_g = torch.autograd.grad(
+        flash_ref.attention_ref(*xs, causal=True, offset=off), xs, dout)
+    for name, t in [("out", out), ("lse", lse)] + list(zip(
+            ("dq", "dk", "dv"), grads)):
+        if bool(torch.isnan(t).any()):
+            raise AssertionError(f"flash offset {tag}: NaN in {name}")
+    if not torch.equal(torch.isinf(lse), torch.isinf(want_lse)):
+        raise AssertionError(f"flash offset {tag}: rows without a key "
+                             "differ")
+    fin = torch.isfinite(want_lse)
+    bf16 = dtype == torch.bfloat16
+    tol = 2e-5 + (2.0 ** -7 * float(want.float().abs().max()) if bf16
+                  else 0.0)
+    errs = {"out": (_max_err(out.float(), want.float()), tol),
+            "lse": (_max_err(lse[fin], want_lse[fin]),
+                    FLASH_BWD_RTOL * float(want_lse[fin].abs().max()))}
+    rtol = FLASH_BWD_RTOL + (FLASH_BWD_RTOL_BF16 if bf16 else 0.0)
+    for name, got, w in zip(("dq", "dk", "dv"), grads, want_g):
+        errs[name] = (_max_err(got.float(), w.float()),
+                      rtol * float(w.float().abs().max()))
+    return errs, (q, k, v, out, lse, dout)
+
+
+def check_flash_offsets(dev, recs):
+    """Phase 2, the flash kernels with a given causal diagonal at the
+    ``FLASH_OFFSET_SHAPES``: each output within tolerance, the bf16
+    kernels run twice and held bitwise equal; the worst errors go into the
+    kernels line's records ``recs``."""
+    n_empty = 0
+    for shape in FLASH_OFFSET_SHAPES:
+        tag, B, Sq, Sk, H, KV, hd, dtype, off = shape
+        errs, (q, k, v, out, lse, dout) = flash_offset_errors(shape, dev)
+        n_empty = int(torch.isinf(lse).sum())
+        for name, (err, tol) in errs.items():
+            ok = err <= tol
+            log(f"[flash-offset] {tag} B={B} Sq={Sq} Sk={Sk} H={H} KV={KV} "
+                f"hd={hd} causal_offset={off} {name}: max_abs_err={err:.3e} "
+                f"tol={tol:.3e} {'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise AssertionError(f"flash offset {tag} {name} outside "
+                                     "tolerance")
+            if name == "out":
+                recs["flash_attention"]["max_abs_err"] = max(
+                    recs["flash_attention"]["max_abs_err"], err)
+            elif name != "lse":
+                recs["flash_attention_bwd"]["max_abs_err"] = max(
+                    recs["flash_attention_bwd"]["max_abs_err"], err)
+        log(f"[flash-offset] {tag}: {n_empty} (row, head) pairs see no key "
+            "(lse +inf, out 0)")
+        if dtype == torch.bfloat16:
+            check_deterministic(
+                f"flash offset {tag}",
+                lambda: flash_ops.forward(q, k, v, True, with_lse=True,
+                                          causal_offset=off))
+            check_deterministic(
+                f"flash-bwd offset {tag}",
+                lambda: flash_ops.backward(q, k, v, out, lse, dout, True,
+                                           causal_offset=off))
+        del q, k, v, out, lse, dout
 
 
 # --------------------------------------------------------------------------- #
@@ -4117,6 +4232,178 @@ def family_mesh_path(dev):
     return counts
 
 
+# --------------------------------------------------------------------------- #
+# phase 25: attention split over its keys or its query rows
+# --------------------------------------------------------------------------- #
+# heads that do not divide a 16-wide model axis, at full width in bf16
+# (tag, B, Sq, Sk, H, KV, hd, causal, dtype): smollm-135m's training shape
+# (9 / 3 heads of 64), yi-34b's width (56 / 8 of 128), whisper-large-v3's
+# encoder (20 heads of 64 over 1500 frames: shards of 94 and one of 90), its
+# decoder's cross-attention (64 queries against the 1500 frames), and a
+# 100-token prompt of smollm-135m, which DTensor's split leaves the last rank
+# no rows and no keys (14 x 7 + 2 + 0): that rank launches nothing and its
+# dk, dv (qseq) and dq (kvseq) shares are zero
+FALLBACK_RANKS = 16
+FALLBACK_SHAPES = [
+    ("smollm-135m train", 8, 1024, 1024, 9, 3, 64, True, torch.bfloat16),
+    ("smollm-135m 100-token prompt", 8, 100, 100, 9, 3, 64, True,
+     torch.bfloat16),
+    ("yi-34b width", 1, 4096, 4096, 56, 8, 128, True, torch.bfloat16),
+    ("whisper-large-v3 encoder", 2, 1500, 1500, 20, 20, 64, False,
+     torch.bfloat16),
+    ("whisper-large-v3 cross", 8, 64, 1500, 20, 20, 64, False,
+     torch.bfloat16),
+]
+
+
+def fallback_pieces(fallback, q, k, v, dout, causal, ranks=FALLBACK_RANKS):
+    """Each rank's work of one split attention call, rank after rank on
+    this card, through the functions that the mesh path's autograd
+    Function (``attention._SplitAttention``) calls: (forward pieces,
+    merge, backward pieces), each a list of thunks or one thunk.  kvseq:
+    ``kvseq_piece`` on each rank's keys, ``kvseq_combine``, ``piece_bwd``
+    given the merged output and log-sum-exp; qseq: ``qseq_piece`` on each
+    rank's rows, its rows concatenated, ``piece_bwd`` on them.  Every call
+    takes ``shard_offset``'s diagonal; a rank that ``attention.spans``
+    leaves no rows or keys launches nothing."""
+    Sq, Sk = q.shape[1], k.shape[1]
+    if fallback == "kvseq":
+        shards = [(k[:, a:b].contiguous(), v[:, a:b].contiguous(),
+                   attention.shard_offset("kvseq", a, Sq, Sk))
+                  for a, b in attention.spans(Sk, ranks)]
+        fwd = [functools.partial(attention.kvseq_piece, q, kr, vr, causal,
+                                 off) for kr, vr, off in shards]
+
+        def merge(parts):
+            out, lse = attention.kvseq_combine(
+                torch.stack([p[0] for p in parts]),
+                torch.stack([p[1] for p in parts]), attention.stacked_reduce)
+            return out[0], lse[0]
+
+        def bwd(out, lse):
+            return [functools.partial(attention.piece_bwd, q, kr, vr, out,
+                                      lse, dout, causal, off)
+                    for kr, vr, off in shards]
+        return fwd, merge, bwd
+    bounds = attention.spans(Sq, ranks)
+    rows = [(q[:, a:b].contiguous(), dout[:, a:b].contiguous(),
+             attention.shard_offset("qseq", a, Sq, Sk)) for a, b in bounds]
+    fwd = [functools.partial(attention.qseq_piece, qr, k, v, causal, off)
+           for qr, _, off in rows]
+
+    def merge(parts):
+        return (torch.cat([p[0] for p in parts], 1),
+                torch.cat([p[1] for p in parts], 2))
+
+    def bwd(out, lse):
+        return [functools.partial(
+            attention.piece_bwd, qr, k, v, out[:, a:b].contiguous(),
+            lse[:, :, a:b].contiguous(), dr, causal, off)
+            for (qr, dr, off), (a, b) in zip(rows, bounds)]
+    return fwd, merge, bwd
+
+
+def fallback_call(fallback, q, k, v, dout, causal):
+    """One split call: (out, lse, dq, dk, dv), the gradients summed over
+    the ranks where a rank holds a share (kvseq's dq, qseq's dk and dv;
+    in fp32) and concatenated where it holds whole rows."""
+    fwd, merge, bwd = fallback_pieces(fallback, q, k, v, dout, causal)
+    out, lse = merge([f() for f in fwd])
+    grads = [b() for b in bwd(out, lse)]
+    if fallback == "kvseq":
+        return (out, lse, sum(g[0].float() for g in grads),
+                torch.cat([g[1] for g in grads], 1),
+                torch.cat([g[2] for g in grads], 1))
+    return (out, lse, torch.cat([g[0] for g in grads], 1),
+            sum(g[1].float() for g in grads),
+            sum(g[2].float() for g in grads))
+
+
+def fallback_path(dev):
+    """Phase 25: each ``FALLBACK_SHAPES`` attention split 16 ways over its
+    keys (kvseq) and over its query rows (qseq), each rank's work run in
+    turn on this card through the functions the mesh path calls
+    (``fallback_pieces``; the card's one-rank mesh never meets heads that
+    do not divide it).  The merged output, log-sum-exp and gradients are
+    held against the plain version at phase 2's bf16 tolerances and
+    against the one-call kernels at twice the bf16 term (both sides round
+    to bf16, the split once per piece and again in the merge); each split
+    call launches the forward and backward kernels once for each rank with
+    rows and keys, 16 times each where no rank is empty (counters set to 0
+    just before, read just after); the pieces'
+    summed kernel time is printed beside the one call's.  Returns the
+    launches of the split calls."""
+    t0 = time.perf_counter()
+    total = {"flash_attention": 0, "flash_attention_bwd": 0}
+    for shape in FALLBACK_SHAPES:
+        tag, B, Sq, Sk, H, KV, hd, causal, dtype = shape
+        q, k, v = flash_inputs(shape, dev)
+        g = torch.Generator(device=dev).manual_seed(1)
+        dout = torch.randn(q.shape, generator=g, device=dev).to(dtype)
+        out1, lse1 = flash_ops.forward(q, k, v, causal, with_lse=True)
+        one = (out1, lse1) + flash_ops.backward(q, k, v, out1, lse1, dout,
+                                                causal)
+        xs = [t.clone().requires_grad_() for t in (q, k, v)]
+        plain_out = flash_ref.attention_ref(*xs, causal=causal)
+        plain = ((plain_out.detach(),
+                  flash_ref.attention_lse_ref(q, k, v, causal=causal)[1])
+                 + torch.autograd.grad(plain_out, xs, dout))
+        del xs, plain_out
+        scale = [float(t.float().abs().max()) for t in plain]
+        tol = [2e-5 + 2.0 ** -7 * scale[0], FLASH_BWD_RTOL * scale[1]] + [
+            (FLASH_BWD_RTOL + FLASH_BWD_RTOL_BF16) * s for s in scale[2:]]
+        tol_one = [tol[0] + 2.0 ** -7 * scale[0], tol[1]] + [
+            t + FLASH_BWD_RTOL_BF16 * s for t, s in zip(tol[2:], scale[2:])]
+        t_one = (cuda_ms(lambda: flash_ops.forward(q, k, v, causal,
+                                                   with_lse=True), 5),
+                 cuda_ms(lambda: flash_ops.backward(q, k, v, out1, lse1,
+                                                    dout, causal), 5))
+        for fallback in ("kvseq", "qseq"):
+            for name in flash_ops.launches:
+                flash_ops.launches[name] = 0
+            got = fallback_call(fallback, q, k, v, dout, causal)
+            torch.cuda.synchronize()
+            n = dict(flash_ops.launches)
+            bad = []
+            for i, name in enumerate(("out", "lse", "dq", "dk", "dv")):
+                if bool(torch.isnan(got[i]).any()):
+                    bad.append(f"{name} NaN")
+                e_plain = _max_err(got[i].float(), plain[i].float())
+                e_one = _max_err(got[i].float(), one[i].float())
+                ok = e_plain <= tol[i] and e_one <= tol_one[i]
+                log(f"[fallback] {tag} {fallback} {name}: vs plain "
+                    f"{e_plain:.3e} (tol {tol[i]:.3e}), vs one call "
+                    f"{e_one:.3e} (tol {tol_one[i]:.3e}) "
+                    f"{'ok' if ok else 'FAIL'}")
+                if not ok:
+                    bad.append(name)
+            held = sum(b > a for a, b in attention.spans(
+                Sq if fallback == "qseq" else Sk, FALLBACK_RANKS))
+            want_n = {"flash_attention": held, "flash_attention_bwd": held}
+            if n != want_n:
+                bad.append(f"launches {n}")
+            if bad:
+                raise AssertionError(f"fallback {tag} {fallback}: {bad}")
+            for name in total:
+                total[name] += n[name]
+            fwd, merge, bwd = fallback_pieces(fallback, q, k, v, dout,
+                                              causal)
+            parts = [f() for f in fwd]
+            t_fwd = sum(cuda_ms(f, 5) for f in fwd)
+            t_merge = cuda_ms(lambda: merge(parts), 5)
+            t_bwd = sum(cuda_ms(b, 5) for b in bwd(got[0], got[1]))
+            log(f"[fallback] {tag} {fallback}: launches {n}; {held} pieces "
+                f"forward {t_fwd:.4f} ms + merge {t_merge:.4f} ms, backward "
+                f"{t_bwd:.4f} ms; one call forward {t_one[0]:.4f} ms, "
+                f"backward {t_one[1]:.4f} ms")
+            del got, parts
+        del q, k, v, dout, one, plain, out1, lse1
+        torch.cuda.empty_cache()
+    log(f"[fallback] phase 25 took {time.perf_counter() - t0:.1f} s; "
+        f"launches of the split calls {total}")
+    return total
+
+
 def main(argv) -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -4187,6 +4474,7 @@ def main(argv) -> int:
     recs.update(check_mlstm_kernels(dev, reps_main=10))
     recs.update(check_ssm_kernels(dev, reps_main=10))
     recs["flash_attention_bwd"] = check_flash_bwd_kernel(dev, reps_main=10)
+    check_flash_offsets(dev, recs)
     wall("1-2")
     bank, launches = fleet_path(dev)
     tpe_bank, launches["tpe_scores"] = tpe_fleet_path(dev)
@@ -4255,6 +4543,9 @@ def main(argv) -> int:
     for name, n in family_mesh_path(dev).items():
         launches[name] += n
     wall("24")
+    for name, n in fallback_path(dev).items():
+        launches[name] += n
+    wall("25")
     gp_src = "src/repro_torch/kernels/gp_acquisition/csrc/gp_acquisition.cu"
     tpe_src = "src/repro_torch/kernels/tpe_kde/csrc/tpe_kde.cu"
     flash_src = ("src/repro_torch/kernels/flash_attention/csrc/"

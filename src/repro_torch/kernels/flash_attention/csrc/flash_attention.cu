@@ -8,10 +8,14 @@
 // over the keys j of KV head h / G (G = H / KV) that the mask lets through,
 // with the running max m, the running sum l and the accumulator in fp32, and
 // the output written in the input dtype.  The KV head is read in place,
-// never copied out to H heads.  The causal mask is aligned bottom-right,
-// j <= i + (Sk - Sq), as the plain version (ref.py) and the JAX package's
-// oracle have it; the Pallas kernel masks j <= i, which is the same thing
-// on every call the model makes (Sq == Sk).  q, k, v and out stay in the
+// never copied out to H heads.  The causal mask lets key j through to
+// query i where j <= i + off, for the diagonal offset off the caller gives:
+// Sk - Sq (bottom-right, as the plain version (ref.py) and the JAX
+// package's oracle align it; the Pallas kernel masks j <= i, which is the
+// same thing on every unsharded call the model makes, Sq == Sk) or, for
+// one rank's shard of the rows or the keys, that offset moved by the
+// shard's start (models/attention.py).  An offset may leave a row no key:
+// its output is 0 and its log-sum-exp +inf.  q, k, v and out stay in the
 // model's (B, S, heads, hd) layout, so the wrapper transposes nothing.
 // Given a pointer for it, a kernel also writes each row's log-sum-exp of
 // the scaled scores, lse = m + log l (B, H, Sq) fp32, which the backward
@@ -99,7 +103,8 @@ __global__ void __launch_bounds__(NTHREADS) flash_kernel(
     const float* __restrict__ q, const float* __restrict__ k,
     const float* __restrict__ v, float* __restrict__ out,
     float* __restrict__ lse,
-    int Sq, int Sk, int H, int KV, int hd, float scale, int causal) {
+    int Sq, int Sk, int H, int KV, int hd, float scale, int causal,
+    int off) {
   extern __shared__ float smem[];
   constexpr int QS = HD + 1, PS = BK + 1, NC = HD / 16;
   float* sq = smem;
@@ -114,7 +119,6 @@ __global__ void __launch_bounds__(NTHREADS) flash_kernel(
   const int q0 = (gridDim.x - 1 - blockIdx.x) * BQ;
   const int h = blockIdx.y, b = blockIdx.z;
   const int kvh = h / (H / KV);
-  const int off = Sk - Sq;
 
   const size_t qstride = (size_t)H * hd, kstride = (size_t)KV * hd;
   const float* qb = q + ((size_t)b * Sq * H + h) * hd;
@@ -235,7 +239,7 @@ __global__ void __launch_bounds__(NTHREADS) flash_kernel(
 template <int HD>
 int launch(const void* q, const void* k, const void* v, void* out,
            float* lse, int B, int Sq, int Sk, int H, int KV, int hd,
-           float scale, int causal, cudaStream_t stream) {
+           float scale, int causal, int off, cudaStream_t stream) {
   constexpr int bytes = smem_bytes<HD>();
   // set on every launch: the attribute belongs to the current device's
   // context, and the call costs next to nothing
@@ -247,7 +251,7 @@ int launch(const void* q, const void* k, const void* v, void* out,
   flash_kernel<HD><<<grid, NTHREADS, bytes, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<float*>(out), lse, Sq, Sk,
-      H, KV, hd, scale, causal);
+      H, KV, hd, scale, causal, off);
   return (int)cudaGetLastError();
 }
 
@@ -495,7 +499,7 @@ __global__ void __launch_bounds__(WNT, 1) flash_wg_kernel(
     const __grid_constant__ CUtensorMap tk,
     const __grid_constant__ CUtensorMap tv, bf16* __restrict__ out,
     float* __restrict__ lse, int Sq, int Sk, int H, int KV, int hd,
-    float scale_log2, int causal) {
+    float scale_log2, int causal, int off) {
   using C = WgTile<HD>;
   constexpr int NO = HD / 8, NS = WK / 8;
   extern __shared__ __align__(1024) unsigned char smem_raw[];
@@ -513,9 +517,9 @@ __global__ void __launch_bounds__(WNT, 1) flash_wg_kernel(
   // causal mask) first: the heaviest blocks of every head start first
   const int q0 = (gridDim.z - 1 - blockIdx.z) * WQ;
   const int h = blockIdx.x, b = blockIdx.y;
-  const int kvh = h / (H / KV), off = Sk - Sq;
+  const int kvh = h / (H / KV);
   const int k_end = causal ? min(Sk, min(q0 + WQ, Sq) + off) : Sk;
-  const int nk = (k_end + WK - 1) / WK;
+  const int nk = k_end > 0 ? (k_end + WK - 1) / WK : 0;
 
   if (tid == 0) {
     mbar_init(q_full, 1);
@@ -645,8 +649,10 @@ __global__ void __launch_bounds__(WNT, 1) flash_wg_kernel(
   };
 
   // tiles from nk_w on hold only keys after every row of this group: they
-  // are waited for and released, not computed
-  const int nk_w = causal ? min(nk, (rq0 + 63 + off) / WK + 1) : nk;
+  // are waited for and released, not computed (all of them where the
+  // group's last row sees no key)
+  const int last = rq0 + 63 + off;
+  const int nk_w = !causal ? nk : last < 0 ? 0 : min(nk, last / WK + 1);
   float sc[WK / 2], corr[2];
   uint32_t pa[WK / 16][4];
   mbar_wait(q_full, 0);
@@ -741,7 +747,7 @@ int tensor_map(CUtensorMap* map, const void* p, int hd, int heads, int S,
 template <int HD>
 int launch_wg(const void* q, const void* k, const void* v, void* out,
               float* lse, int B, int Sq, int Sk, int H, int KV, int hd,
-              float scale, int causal, cudaStream_t stream) {
+              float scale, int causal, int off, cudaStream_t stream) {
   CUtensorMap tq, tk, tv;
   int err = tensor_map(&tq, q, hd, H, Sq, B, WQ);
   if (!err) err = tensor_map(&tk, k, hd, KV, Sk, B, WK);
@@ -755,23 +761,23 @@ int launch_wg(const void* q, const void* k, const void* v, void* out,
   const dim3 grid(H, B, (Sq + WQ - 1) / WQ);
   flash_wg_kernel<HD><<<grid, WNT, bytes, stream>>>(
       tq, tk, tv, static_cast<bf16*>(out), lse, Sq, Sk, H, KV, hd,
-      scale * LOG2E, causal);
+      scale * LOG2E, causal, off);
   return (int)cudaGetLastError();
 }
 
 int dispatch_wg(const void* q, const void* k, const void* v, void* out,
                 float* lse, int B, int Sq, int Sk, int H, int KV, int hd,
-                float scale, int causal, cudaStream_t stream) {
+                float scale, int causal, int off, cudaStream_t stream) {
   FLASH_DISPATCH_HD(hd, return launch_wg<HDT>(q, k, v, out, lse, B, Sq, Sk,
-                                              H, KV, hd, scale, causal,
+                                              H, KV, hd, scale, causal, off,
                                               stream))
 }
 
 int dispatch(const void* q, const void* k, const void* v, void* out,
              float* lse, int B, int Sq, int Sk, int H, int KV, int hd,
-             float scale, int causal, cudaStream_t stream) {
+             float scale, int causal, int off, cudaStream_t stream) {
   FLASH_DISPATCH_HD(hd, return launch<HDT>(q, k, v, out, lse, B, Sq, Sk,
-                                              H, KV, hd, scale, causal,
+                                              H, KV, hd, scale, causal, off,
                                               stream))
 }
 
@@ -781,24 +787,25 @@ extern "C" {
 
 // q (B, Sq, H, hd), k and v (B, Sk, KV, hd), out (B, Sq, H, hd), contiguous,
 // all fp32 (is_bf16 = 0) or all bf16 (is_bf16 = 1); hd a multiple of 8 in
-// [8, 128]; H % KV == 0; 1 <= Sk, and Sq <= Sk when causal; scale =
-// hd^-1/2.  lse (B, H, Sq) fp32 may be null.  Returns a cudaError_t.
+// [8, 128]; H % KV == 0; 1 <= Sk; scale = hd^-1/2; when causal, key j is
+// seen by query i where j <= i + off (any sign; Sk - Sq aligns the mask
+// bottom-right).  lse (B, H, Sq) fp32 may be null.  Returns a cudaError_t.
 int flash_attention_fwd(const void* q, const void* k, const void* v,
                         void* out, void* lse, int B, int Sq, int Sk, int H,
                         int KV, int hd, float scale, int is_bf16, int causal,
-                        void* stream) {
+                        int off, void* stream) {
   if (B == 0 || Sq == 0) return 0;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   float* ls = static_cast<float*>(lse);
   if (!is_bf16)
-    return dispatch(q, k, v, out, ls, B, Sq, Sk, H, KV, hd, scale,
-                           causal, st);
+    return dispatch(q, k, v, out, ls, B, Sq, Sk, H, KV, hd, scale, causal,
+                    off, st);
   // the bf16 kernels copy 16-byte chunks
   for (const void* p : {q, k, v, static_cast<const void*>(out)})
     if (reinterpret_cast<uintptr_t>(p) % 16)
       return (int)cudaErrorMisalignedAddress;
   return dispatch_wg(q, k, v, out, ls, B, Sq, Sk, H, KV, hd, scale, causal,
-                     st);
+                     off, st);
 }
 
 // dynamic shared memory of one block at head size hd, fp32 (is_bf16 = 0) or

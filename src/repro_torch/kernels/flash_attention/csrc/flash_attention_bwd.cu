@@ -10,7 +10,8 @@
 //     P = exp(s - lse),  D = rowsum(dO o O),  dP = dO V^T,
 //     dS = P o (dP - D),  dV = P^T dO,  dK = dS^T (Q * scale),
 //     dQ = dS K * scale,
-// where the causal mask (k <= q + Sk - Sq) and the ragged tiles give P = 0.
+// where the causal mask (k <= q + off, the diagonal offset the forward
+// took) and the ragged tiles give P = 0.
 //
 // Three kernels, each deterministic (no atomics: every gradient element is
 // summed by one thread in a fixed order):
@@ -174,7 +175,7 @@ __global__ void __launch_bounds__(NTHREADS) flash_bwd_dkv_kernel(
     const float* __restrict__ v, const float* __restrict__ dout,
     const float* __restrict__ lse, const float* __restrict__ D,
     float* __restrict__ dk, float* __restrict__ dv, int Sq, int Sk, int H,
-    int KV, int hd, float scale, int causal) {
+    int KV, int hd, float scale, int causal, int off) {
   extern __shared__ float smem[];
   constexpr int QS = HD + 1, PS = BK + 1, NC = HD / 16;
   float* sk = smem;
@@ -186,7 +187,7 @@ __global__ void __launch_bounds__(NTHREADS) flash_bwd_dkv_kernel(
   float* sD = slse + BQ;
   const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
   const int k0 = blockIdx.x * BK, kvh = blockIdx.y, b = blockIdx.z;
-  const int G = H / KV, off = Sk - Sq;
+  const int G = H / KV;
 
   load_rows<HD>(sk, k + (size_t)b * Sk * KV * hd, k0, Sk, KV, kvh, hd,
                    1.0f);
@@ -279,7 +280,7 @@ __global__ void __launch_bounds__(NTHREADS) flash_bwd_dq_kernel(
     const float* __restrict__ v, const float* __restrict__ dout,
     const float* __restrict__ lse, const float* __restrict__ D,
     float* __restrict__ dq, int Sq, int Sk, int H, int KV, int hd, float scale,
-    int causal) {
+    int causal, int off) {
   extern __shared__ float smem[];
   constexpr int QS = HD + 1, PS = BK + 1, NC = HD / 16;
   float* sq = smem;
@@ -294,7 +295,7 @@ __global__ void __launch_bounds__(NTHREADS) flash_bwd_dq_kernel(
   // first
   const int q0 = (gridDim.x - 1 - blockIdx.x) * BQ;
   const int h = blockIdx.y, b = blockIdx.z;
-  const int kvh = h / (H / KV), off = Sk - Sq;
+  const int kvh = h / (H / KV);
   const size_t qoff = (size_t)b * Sq * H * hd;
   const size_t koff = (size_t)b * Sk * KV * hd;
 
@@ -391,7 +392,8 @@ __global__ void __launch_bounds__(256, 1) flash_bwd_dkv_tc_kernel(
     const bf16* __restrict__ v, const bf16* __restrict__ dout,
     const float* __restrict__ lse, const float* __restrict__ D,
     bf16* __restrict__ dk, bf16* __restrict__ dv, int B, int Sq, int Sk,
-    int H, int KV, int hd, float scale, float scale_log2, int causal) {
+    int H, int KV, int hd, float scale, float scale_log2, int causal,
+    int off) {
   constexpr int SR = HD + 8, NKD = HD / 16, NO = HD / 8;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   bf16* sk = reinterpret_cast<bf16*>(smem_raw);
@@ -402,10 +404,10 @@ __global__ void __launch_bounds__(256, 1) flash_bwd_dkv_tc_kernel(
   const int wg = warp >> 2, w = warp & 3, tg = tid & 127;
   const int kt = blockIdx.x / (KV * B), rest = blockIdx.x % (KV * B);
   const int kvh = rest % KV, b = rest / KV;
-  const int k0 = kt * UK, G = H / KV, off = Sk - Sq;
+  const int k0 = kt * UK, G = H / KV;
   // query rows i see this tile's keys where i + off >= k0
   const int qt0 = causal ? max(0, k0 - off) / UQ : 0;
-  const int per_head = (Sq + UQ - 1) / UQ - qt0;
+  const int per_head = max(0, (Sq + UQ - 1) / UQ - qt0);
   const int n_items = G * per_head;
   const size_t qrow = (size_t)H * hd;
 
@@ -565,7 +567,7 @@ __global__ void __launch_bounds__(128) flash_bwd_dq_tc_kernel(
     const bf16* __restrict__ v, const bf16* __restrict__ dout,
     const float* __restrict__ lse, const float* __restrict__ D,
     bf16* __restrict__ dq, int Sq, int Sk, int H, int KV, int hd,
-    float scale, float scale_log2, int causal) {
+    float scale, float scale_log2, int causal, int off) {
   constexpr int SR = HD + 8, NKD = HD / 16, NO = HD / 8;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   bf16* sq = reinterpret_cast<bf16*>(smem_raw);
@@ -580,12 +582,12 @@ __global__ void __launch_bounds__(128) flash_bwd_dq_tc_kernel(
   // causal mask) first: the heaviest blocks of every head start first
   const int q0 = (gridDim.z - 1 - blockIdx.z) * UQ;
   const int h = blockIdx.x, b = blockIdx.y;
-  const int kvh = h / (H / KV), off = Sk - Sq;
+  const int kvh = h / (H / KV);
   const size_t qbase = ((size_t)b * Sq * H + h) * hd;
   const size_t kbase = ((size_t)b * Sk * KV + kvh) * hd;
   const size_t kstride = (size_t)KV * hd;
   const int k_end = causal ? min(Sk, min(q0 + UQ, Sq) + off) : Sk;
-  const int nk = (k_end + UK - 1) / UK;
+  const int nk = k_end > 0 ? (k_end + UK - 1) / UK : 0;
 
   load_tile_async<UQ, HD, 128>(sq, q + qbase, q0, Sq, (size_t)H * hd, hd, tid);
   load_tile_async<UQ, HD, 128>(sdo, dout + qbase, q0, Sq, (size_t)H * hd, hd,
@@ -695,7 +697,7 @@ int launch_bwd_tc(const bf16* q, const bf16* k, const bf16* v,
                   const bf16* out, const bf16* dout, const float* lse,
                   float* D, bf16* dq, bf16* dk, bf16* dv, int B, int Sq,
                   int Sk, int H, int KV, int hd, float scale, int causal,
-                  cudaStream_t st) {
+                  int off, cudaStream_t st) {
   constexpr int dkv_bytes = dkv_tc_smem_bytes<HD>();
   constexpr int dq_bytes = dq_tc_smem_bytes<HD>();
   cudaError_t err = cudaFuncSetAttribute(
@@ -715,13 +717,13 @@ int launch_bwd_tc(const bf16* q, const bf16* k, const bf16* v,
   flash_bwd_dkv_tc_kernel<HD><<<((Sk + UK - 1) / UK) * KV * B, 256,
                                 dkv_bytes, st>>>(
       q, k, v, dout, lse, D, dk, dv, B, Sq, Sk, H, KV, hd, scale, scale_log2,
-      causal);
+      causal, off);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   const dim3 qgrid(H, B, (Sq + UQ - 1) / UQ);
   flash_bwd_dq_tc_kernel<HD><<<qgrid, 128, dq_bytes,
                                st>>>(q, k, v, dout, lse, D, dq, Sq, Sk, H, KV,
-                                     hd, scale, scale_log2, causal);
+                                     hd, scale, scale_log2, causal, off);
   return (int)cudaGetLastError();
 }
 
@@ -730,7 +732,7 @@ int launch_bwd(const float* q, const float* k, const float* v,
                const float* out, const float* dout, const float* lse,
                float* D, float* dq, float* dk, float* dv, int B, int Sq,
                int Sk, int H, int KV, int hd, float scale, int causal,
-               cudaStream_t st) {
+               int off, cudaStream_t st) {
   constexpr int bytes = bwd_smem_bytes<HD>();
   // set on every launch: the attribute belongs to the current device's
   // context, and the call costs next to nothing
@@ -749,25 +751,26 @@ int launch_bwd(const float* q, const float* k, const float* v,
   if (err != cudaSuccess) return (int)err;
   flash_bwd_dkv_kernel<HD><<<dim3((Sk + BK - 1) / BK, KV, B), NTHREADS, bytes,
                              st>>>(q, k, v, dout, lse, D, dk, dv, Sq, Sk, H,
-                                   KV, hd, scale, causal);
+                                   KV, hd, scale, causal, off);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   flash_bwd_dq_kernel<HD><<<dim3((Sq + BQ - 1) / BQ, H, B), NTHREADS, bytes,
                             st>>>(q, k, v, dout, lse, D, dq, Sq, Sk, H, KV,
-                                  hd, scale, causal);
+                                  hd, scale, causal, off);
   return (int)cudaGetLastError();
 }
 
 int dispatch_bwd(const void* q, const void* k, const void* v, const void* out,
                  const void* dout, const void* lse, void* D, void* dq,
                  void* dk, void* dv, int B, int Sq, int Sk, int H, int KV,
-                 int hd, float scale, int causal, cudaStream_t st) {
+                 int hd, float scale, int causal, int off, cudaStream_t st) {
   FLASH_DISPATCH_HD(hd, return launch_bwd<HDT>(
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<const float*>(out),
       static_cast<const float*>(dout), static_cast<const float*>(lse),
       static_cast<float*>(D), static_cast<float*>(dq), static_cast<float*>(dk),
-      static_cast<float*>(dv), B, Sq, Sk, H, KV, hd, scale, causal, st))
+      static_cast<float*>(dv), B, Sq, Sk, H, KV, hd, scale, causal, off,
+      st))
 }
 
 }  // namespace
@@ -776,18 +779,18 @@ extern "C" {
 
 // q, out, dout and dq (B, Sq, H, hd), k, v, dk and dv (B, Sk, KV, hd), all
 // fp32 (is_bf16 = 0) or all bf16 (is_bf16 = 1), contiguous; lse (B, H, Sq)
-// fp32 from the forward; D scratch of B * H * Sq floats.  The shapes and
-// scale the forward took.  Returns a cudaError_t.
+// fp32 from the forward; D scratch of B * H * Sq floats.  The shapes,
+// scale and diagonal offset the forward took.  Returns a cudaError_t.
 int flash_attention_bwd(const void* q, const void* k, const void* v,
                         const void* out, const void* dout, const void* lse,
                         void* D, void* dq, void* dk, void* dv, int B, int Sq,
                         int Sk, int H, int KV, int hd, float scale,
-                        int is_bf16, int causal, void* stream) {
+                        int is_bf16, int causal, int off, void* stream) {
   if (B == 0 || Sq == 0) return 0;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (!is_bf16)
-    return dispatch_bwd(q, k, v, out, dout, lse, D, dq, dk, dv, B, Sq,
-                               Sk, H, KV, hd, scale, causal, st);
+    return dispatch_bwd(q, k, v, out, dout, lse, D, dq, dk, dv, B, Sq, Sk, H,
+                        KV, hd, scale, causal, off, st);
   // the bf16 kernels copy 16-byte chunks
   for (const void* p : {q, k, v, dout, static_cast<const void*>(dq),
                         static_cast<const void*>(dk),
@@ -799,7 +802,7 @@ int flash_attention_bwd(const void* q, const void* k, const void* v,
       static_cast<const bf16*>(v), static_cast<const bf16*>(out),
       static_cast<const bf16*>(dout), static_cast<const float*>(lse),
       static_cast<float*>(D), static_cast<bf16*>(dq), static_cast<bf16*>(dk),
-      static_cast<bf16*>(dv), B, Sq, Sk, H, KV, hd, scale, causal, st))
+      static_cast<bf16*>(dv), B, Sq, Sk, H, KV, hd, scale, causal, off, st))
 }
 
 // dynamic shared memory of one block of the backward's dkv (which = 0) or

@@ -14,7 +14,20 @@ the model layout, q (B, Sq, H, hd) and k/v (B, Sk, KV, hd):
 Nothing falls back: a CUDA call that cannot build or launch raises.
 ``launches`` counts the calls of each kernel entry point (CPU calls leave
 it alone), so a run can show that its prefill and its training steps went
-through the kernels.
+through the kernels.  ``sdpa_lse`` and ``sdpa_bwd`` are the two kernels
+without autograd, on either device (the plain versions on the CPU): the
+pieces that the sharded attention of ``models.attention`` combines.
+
+Every entry point takes ``causal_offset``, the causal mask's diagonal: key
+j is seen by query i where j <= i + causal_offset.  None means Sk - Sq (the
+mask aligned bottom-right), which every unsharded call uses; a rank's shard
+of the query rows or of the keys moves it by the shard's start, and may
+make it negative (rows that see no key: output 0, log-sum-exp +inf) or let
+Sq exceed Sk.
+
+A call with no query row (B or Sq 0, as an uneven split of the rows can
+leave a rank) launches nothing: the forward returns its empty output, the
+backward zero dk and dv.
 
 Unlike the Pallas kernel, which needs Sq and Sk to be multiples of its
 tiles, the kernel takes any lengths: it masks its ragged last tiles.  Head
@@ -47,10 +60,12 @@ def library() -> ctypes.CDLL:
     lib = build.load("flash_attention", SOURCES)
     if not getattr(lib, "_typed", False):
         lib.flash_attention_fwd.argtypes = ([_P] * 5 + [_I] * 6
-                                            + [ctypes.c_float, _I, _I, _P])
+                                            + [ctypes.c_float, _I, _I, _I,
+                                               _P])
         lib.flash_attention_fwd.restype = _I
         lib.flash_attention_bwd.argtypes = ([_P] * 10 + [_I] * 6
-                                            + [ctypes.c_float, _I, _I, _P])
+                                            + [ctypes.c_float, _I, _I, _I,
+                                               _P])
         lib.flash_attention_bwd.restype = _I
         lib.flash_attention_smem_bytes.argtypes = [_I, _I]
         lib.flash_attention_bwd_smem_bytes.argtypes = [_I] * 3
@@ -67,7 +82,7 @@ def library() -> ctypes.CDLL:
     return lib
 
 
-def _check(q, k, v, causal: bool):
+def _check(q, k, v, causal: bool, causal_offset=None):
     if q.dim() != 4 or k.dim() != 4:
         raise ValueError("q must be (B, Sq, H, hd) and k, v (B, Sk, KV, hd)")
     B, Sq, H, hd = q.shape
@@ -88,9 +103,9 @@ def _check(q, k, v, causal: bool):
         raise ValueError(f"{H} query heads do not group over {KV} KV heads")
     if Sk == 0:
         raise ValueError("no keys to attend to")
-    if causal and Sq > Sk:
+    if causal and causal_offset is None and Sq > Sk:
         raise ValueError(f"causal attention needs Sq <= Sk, got Sq={Sq} "
-                         f"Sk={Sk}")
+                         f"Sk={Sk}, unless a causal_offset is given")
     return B, Sq, Sk, H, KV, hd
 
 
@@ -131,36 +146,46 @@ def _raise(lib, err: int, what: str) -> None:
                            f"{lib.flash_error_string(err).decode()}")
 
 
-def forward(q, k, v, causal: bool = True, with_lse: bool = False):
+def forward(q, k, v, causal: bool = True, with_lse: bool = False,
+            causal_offset=None):
     """The forward kernel on CUDA tensors: (out, lse), the row
     log-sum-exp (B, H, Sq) fp32 that the backward reads (None unless
     ``with_lse``)."""
-    B, Sq, Sk, H, KV, hd = _check(q, k, v, causal)
+    B, Sq, Sk, H, KV, hd = _check(q, k, v, causal, causal_offset)
     if not _on_card(q):
         raise ValueError("the flash kernels take CUDA tensors")
-    lib = library()
     out = torch.empty_like(q)
     lse = (torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
            if with_lse else None)
+    if q.numel() == 0:   # no row to write: nothing is launched
+        return out, lse
+    lib = library()
     err = lib.flash_attention_fwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
         None if lse is None else lse.data_ptr(), B, Sq, Sk, H, KV, hd,
-        hd ** -0.5, int(q.dtype == torch.bfloat16), int(causal), _stream(q))
+        hd ** -0.5, int(q.dtype == torch.bfloat16), int(causal),
+        ref.diagonal(Sq, Sk, causal_offset), _stream(q))
     _raise(lib, err, "flash_attention")
     launches["flash_attention"] += 1
     return out, lse
 
 
-def backward(q, k, v, out, lse, dout, causal: bool = True):
+def backward(q, k, v, out, lse, dout, causal: bool = True,
+             causal_offset=None):
     """The backward kernel on CUDA tensors: (dq, dk, dv) in the inputs'
     dtype for the upstream gradient dout, from the forward's inputs, output
-    and log-sum-exp."""
-    B, Sq, Sk, H, KV, hd = _check(q, k, v, causal)
+    and log-sum-exp (see ``ref.attention_bwd_ref`` for an output and
+    log-sum-exp over more keys than k holds)."""
+    B, Sq, Sk, H, KV, hd = _check(q, k, v, causal, causal_offset)
     if not _on_card(q):
         raise ValueError("the flash kernels take CUDA tensors")
     check_tensor("out", out, q.shape, q.device, q.dtype)
     check_tensor("dout", dout, q.shape, q.device, q.dtype)
     check_tensor("lse", lse, (B, H, Sq), q.device)
+    if q.numel() == 0:
+        # no query row (a rank's empty row shard): no key is seen, and the
+        # kernel, which would launch nothing, writes no dk or dv
+        return tuple(torch.zeros_like(t) for t in (q, k, v))
     lib = library()
     dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
     D = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
@@ -168,7 +193,8 @@ def backward(q, k, v, out, lse, dout, causal: bool = True):
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
         dout.data_ptr(), lse.data_ptr(), D.data_ptr(), dq.data_ptr(),
         dk.data_ptr(), dv.data_ptr(), B, Sq, Sk, H, KV, hd, hd ** -0.5,
-        int(q.dtype == torch.bfloat16), int(causal), _stream(q))
+        int(q.dtype == torch.bfloat16), int(causal),
+        ref.diagonal(Sq, Sk, causal_offset), _stream(q))
     _raise(lib, err, "flash_attention_bwd")
     launches["flash_attention_bwd"] += 1
     return dq, dk, dv
@@ -179,29 +205,57 @@ class FlashAttention(torch.autograd.Function):
     (CUDA tensors only)."""
 
     @staticmethod
-    def forward(ctx, q, k, v, causal):
-        out, lse = forward(q, k, v, causal, with_lse=True)
+    def forward(ctx, q, k, v, causal, causal_offset=None):
+        out, lse = forward(q, k, v, causal, with_lse=True,
+                           causal_offset=causal_offset)
         ctx.save_for_backward(q, k, v, out, lse)
-        ctx.causal = causal
+        ctx.causal, ctx.causal_offset = causal, causal_offset
         return out
 
     @staticmethod
     def backward(ctx, g):
         q, k, v, out, lse = ctx.saved_tensors
         dq, dk, dv = backward(q, k, v, out, lse,
-                              g.to(q.dtype).contiguous(), ctx.causal)
-        return dq, dk, dv, None
+                              g.to(q.dtype).contiguous(), ctx.causal,
+                              ctx.causal_offset)
+        return dq, dk, dv, None, None
 
 
 def sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-         causal: bool = True) -> torch.Tensor:
+         causal: bool = True, causal_offset=None) -> torch.Tensor:
     """(B, Sq, H, hd) attention output in q's dtype; q (B, Sq, H, hd),
     k and v (B, Sk, KV, hd), one dtype (float32 or bfloat16), contiguous,
-    on one device.  The causal mask is k <= q + (Sk - Sq).  Differentiable
-    on both devices."""
-    _check(q, k, v, causal)
+    on one device.  The causal mask is k <= q + causal_offset (Sk - Sq when
+    None).  Differentiable on both devices."""
+    _check(q, k, v, causal, causal_offset)
     if not _on_card(q):
-        return ref.attention_ref(q, k, v, causal=causal)
+        return ref.attention_ref(q, k, v, causal=causal,
+                                 offset=causal_offset)
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
-        return FlashAttention.apply(q, k, v, causal)
-    return forward(q, k, v, causal)[0]
+        return FlashAttention.apply(q, k, v, causal, causal_offset)
+    return forward(q, k, v, causal, causal_offset=causal_offset)[0]
+
+
+def sdpa_lse(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+             causal: bool = True, causal_offset=None):
+    """(out, lse (B, H, Sq) fp32): the forward kernel on CUDA tensors, its
+    plain version on CPU ones; not differentiable (``sdpa_bwd`` is its
+    gradient)."""
+    _check(q, k, v, causal, causal_offset)
+    if not _on_card(q):
+        return ref.attention_lse_ref(q, k, v, causal=causal,
+                                     offset=causal_offset)
+    return forward(q, k, v, causal, with_lse=True,
+                   causal_offset=causal_offset)
+
+
+def sdpa_bwd(q, k, v, out, lse, dout, *, causal: bool = True,
+             causal_offset=None):
+    """(dq, dk, dv) for dout from the forward's inputs, output and
+    log-sum-exp: the backward kernel on CUDA tensors, its plain version
+    (``ref.attention_bwd_ref``) on CPU ones."""
+    _check(q, k, v, causal, causal_offset)
+    if not _on_card(q):
+        return ref.attention_bwd_ref(q, k, v, out, lse, dout, causal=causal,
+                                     offset=causal_offset)
+    return backward(q, k, v, out, lse, dout, causal, causal_offset)

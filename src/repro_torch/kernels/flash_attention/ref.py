@@ -5,8 +5,13 @@ backward.
 ref.attention_ref``, in the model layout: q (B, Sq, H, hd), k/v (B, Sk, KV,
 hd).  Query head h reads KV head h // G (G = H // KV) through a reshape,
 never a copy to H heads.  Scores, softmax and P.V are float32 on the
-inputs' values; the output is cast to the input dtype.  The causal mask is
-aligned bottom-right, k <= q + (Sk - Sq), as the reference's oracle has it.
+inputs' values; the output is cast to the input dtype.  The causal mask lets
+key j through to query i where j <= i + off: by default off = Sk - Sq
+(aligned bottom-right, as the reference's oracle has it), or the diagonal
+offset a caller gives for one rank's shard of the rows or the keys.  An
+offset below 0 leaves the first -off rows no key: their output is 0 and
+their log-sum-exp +inf, as the kernel writes them (``torch.softmax`` of a
+row of -inf alone would give NaN).
 
 ``attention_lse_ref`` adds the row log-sum-exp of the scaled scores that
 the forward kernel writes for training, and ``attention_bwd_ref`` writes out
@@ -23,12 +28,19 @@ that the design fits the tolerances the card checks state.
 """
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
 
-def _scores(q: torch.Tensor, k: torch.Tensor, causal: bool) -> torch.Tensor:
+def diagonal(Sq: int, Sk: int, offset: Optional[int]) -> int:
+    """The causal mask's diagonal offset: ``offset``, or Sk - Sq when
+    None."""
+    return Sk - Sq if offset is None else offset
+
+
+def _scores(q: torch.Tensor, k: torch.Tensor, causal: bool,
+            offset: Optional[int] = None) -> torch.Tensor:
     """(B, KV, G, Sq, Sk) fp32 scaled scores, -inf where masked."""
     B, Sq, H, hd = q.shape
     Sk, KV = k.shape[1], k.shape[2]
@@ -37,41 +49,70 @@ def _scores(q: torch.Tensor, k: torch.Tensor, causal: bool) -> torch.Tensor:
     if causal:
         iq = torch.arange(Sq, device=q.device)[:, None]
         ik = torch.arange(Sk, device=q.device)[None, :]
-        scores = scores.masked_fill(ik > iq + (Sk - Sq), float("-inf"))
+        off = diagonal(Sq, Sk, offset)
+        scores = scores.masked_fill(ik > iq + off, float("-inf"))
     return scores
 
 
-def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                  causal: bool = True) -> torch.Tensor:
-    """(B, Sq, H, hd) attention output in q's dtype."""
+def _attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool,
+            offset: Optional[int], with_lse: bool
+            ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """(out (B, Sq, H, hd) in q's dtype, lse (B, KV, G, Sq) fp32 or None
+    unless ``with_lse``) from one product of the scores; the rows that see
+    no key (the first -offset under a causal mask) give out 0 and lse
+    +inf."""
     B, Sq, H, hd = q.shape
-    w = torch.softmax(_scores(q, k, causal), dim=-1)
+    s = _scores(q, k, causal, offset)
+    lse = torch.logsumexp(s, dim=-1) if with_lse else None
+    n_empty = (min(Sq, max(0, -diagonal(Sq, k.shape[1], offset)))
+               if causal else 0)
+    if n_empty:
+        # such a row's scores are all -inf: softmax it over 0s instead (no
+        # NaN, forward or backward) and zero its weights
+        empty = torch.arange(Sq, device=q.device)[:, None] < n_empty
+        w = torch.softmax(torch.where(empty, 0.0, s), dim=-1)
+        w = torch.where(empty, 0.0, w)
+        if with_lse:
+            lse = torch.where(empty[:, 0], float("inf"), lse)
+    else:
+        w = torch.softmax(s, dim=-1)
     out = torch.einsum("bkgqs,bskd->bqkgd", w, v.float())
-    return out.reshape(B, Sq, H, hd).to(q.dtype)
+    return out.reshape(B, Sq, H, hd).to(q.dtype), lse
+
+
+def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                  causal: bool = True,
+                  offset: Optional[int] = None) -> torch.Tensor:
+    """(B, Sq, H, hd) attention output in q's dtype."""
+    return _attend(q, k, v, causal, offset, with_lse=False)[0]
 
 
 def attention_lse_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                      causal: bool = True
+                      causal: bool = True, offset: Optional[int] = None
                       ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The output and the row log-sum-exp (B, H, Sq) fp32 of the scaled
-    scores."""
+    scores (+inf for a row that sees no key)."""
     B, Sq, H, _ = q.shape
-    lse = torch.logsumexp(_scores(q, k, causal), dim=-1)
-    return attention_ref(q, k, v, causal=causal), lse.reshape(B, H, Sq)
+    out, lse = _attend(q, k, v, causal, offset, with_lse=True)
+    return out, lse.reshape(B, H, Sq)
 
 
 def attention_bwd_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                       out: torch.Tensor, lse: torch.Tensor,
-                      dout: torch.Tensor, *, causal: bool = True
+                      dout: torch.Tensor, *, causal: bool = True,
+                      offset: Optional[int] = None
                       ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """(dq, dk, dv) in the inputs' dtype for the upstream gradient dout
     (B, Sq, H, hd), from the forward's inputs, output and log-sum-exp:
     P = exp(S - lse), D = rowsum(dO o O), dS = P o (dO V^T - D),
-    dV = P^T dO, dK = dS^T Q scale, dQ = dS K scale, fp32 throughout."""
+    dV = P^T dO, dK = dS^T Q scale, dQ = dS K scale, fp32 throughout.
+    ``lse`` need not be this call's: given the log-sum-exp over a larger
+    set of keys (and that attention's output), it gives this set's share of
+    dq and exact dk, dv for these keys."""
     B, Sq, H, hd = q.shape
     KV = k.shape[2]
     G, scale = H // KV, hd ** -0.5
-    p = torch.exp(_scores(q, k, causal)
+    p = torch.exp(_scores(q, k, causal, offset)
                   - lse.reshape(B, KV, G, Sq)[..., None])
     do = dout.float().reshape(B, Sq, KV, G, hd)
     D = (do * out.float().reshape(B, Sq, KV, G, hd)).sum(-1)

@@ -27,12 +27,18 @@ XLA's memory and cost analyses.  The port does, per cell:
       and the same counted FLOPs, forward and backward, their products
       batched over the steps or chunks (``tests/test_torch_dryrun.py``
       holds each against its plain version).  All three run inside
-      ``local_map`` regions, which issue no collective.
+      ``local_map`` regions, which issue no collective.  Attention whose
+      heads do not divide the model axis is split over its keys
+      (``--attn-fallback kvseq``, the default) or its query rows
+      (``qseq``), as the reference splits it: kvseq adds three functional
+      all-reduces a layer (the combine in ``models.attention``), which
+      the trace counts.
 
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.dryrun --arch yi-34b \\
       --shape train_4k --mesh single [--seq-parallel] [--remat full] \\
-      [--micro 0] [--ep] [--flat-dp] [--zero1] [--serve-tp] [--trace]
+      [--micro 0] [--ep] [--flat-dp] [--zero1] [--serve-tp] \\
+      [--attn-fallback kvseq|qseq] [--trace]
   PYTHONPATH=src python -m repro_torch.launch.dryrun --all --mesh both
 
 Writes one JSON per cell to ``build/dryrun/`` and exits 1 on any failed
@@ -83,9 +89,6 @@ _NO_COUNTERPART = {
     "banded": "the flash kernel masks causally on its own; there is no "
               "banded jnp attention",
     "attn_q_chunk": "attention runs in the flash kernel, not in q chunks",
-    "attn_fallback": "heads that do not divide the model axis are "
-                     "replicated; the kvseq/qseq fallbacks have no "
-                     "counterpart",
     "save_hlo": "there is no HLO: the step runs as DTensor ops",
 }
 
@@ -95,7 +98,8 @@ def make_runtime(cfg, mesh, args) -> Runtime:
     ``DeviceMesh`` a trace places on)."""
     sc = make_shard_ctx(mesh, seq_parallel=args.seq_parallel,
                         flat_dp=args.flat_dp, shard_lstm_r=args.shard_r)
-    return Runtime(sc=sc, lstm_bf16_states=args.lstm_bf16,
+    return Runtime(sc=sc, attn_fallback=args.attn_fallback,
+                   lstm_bf16_states=args.lstm_bf16,
                    remat_policy=args.remat, moe_expert_parallel=args.ep,
                    moe_capacity_factor=args.capacity_factor,
                    ssm_chunk=args.ssm_chunk, ce_chunk=args.ce_chunk)
@@ -184,8 +188,8 @@ def analyze_cell(arch: str, shape_id: str, mesh_kind: str, args,
         "n_devices": n_dev, "hardware": roofline.H100.name,
         "config": {k: getattr(args, k) for k in (
             "seq_parallel", "remat", "micro", "ep", "capacity_factor",
-            "ssm_chunk", "ce_chunk", "tag", "flat_dp", "lstm_bf16",
-            "serve_tp", "zero1", "shard_r")},
+            "ssm_chunk", "ce_chunk", "tag", "flat_dp", "attn_fallback",
+            "lstm_bf16", "serve_tp", "zero1", "shard_r")},
         "n_microbatches": n_micro,
         "fallbacks": fallbacks, "n_fallbacks": len(misses),
         "resident_bytes": resident,
@@ -488,6 +492,10 @@ def make_parser() -> argparse.ArgumentParser:
                     help="replicate bf16 params over data; shard only moments")
     ap.add_argument("--shard-r", action="store_true",
                     help="FSDP-shard sLSTM recurrent weights")
+    ap.add_argument("--attn-fallback", default="kvseq",
+                    choices=["kvseq", "qseq"],
+                    help="heads that do not divide the model axis: split "
+                         "attention over its keys or its query rows")
     ap.add_argument("--capacity-factor", type=float, default=0.0)
     ap.add_argument("--ssm-chunk", type=int, default=256)
     ap.add_argument("--ce-chunk", type=int, default=512)
@@ -496,7 +504,6 @@ def make_parser() -> argparse.ArgumentParser:
     # the reference's flags with no counterpart: refused with the reason
     ap.add_argument("--banded", action="store_true")
     ap.add_argument("--attn-q-chunk", type=int)
-    ap.add_argument("--attn-fallback", choices=["kvseq", "qseq"])
     ap.add_argument("--save-hlo", action="store_true")
     return ap
 

@@ -22,15 +22,44 @@ card, as the JAX package computes it outside any Pallas kernel: one query
 row per sequence against the cached keys.  The self-attention cache is
 updated in place at ``cache_len``; the cross cache is only read.
 
-On a mesh (``DTensor`` activations, ``rt.sc`` set) the kernel stays:
-``_sdpa`` places q, k and v with the batch over the data axes and the heads
-over the model axis, or the heads replicated where they do not divide it
-(smollm's 9, yi's 56 on a 16-wide axis), and runs ``flash_ops.sdpa`` on
-each rank's local q, k and v through ``local_map``; its gradient goes
-through the kernel's autograd Function.  Where the query heads divide the
-axis and the key/value heads do not, k and v are expanded to the query
-heads first, as the reference's dense path expands them.  The reference's
-``kvseq``/``qseq`` fallbacks have no counterpart.  A DTensor cache, whose
+On a mesh (``DTensor`` activations, ``rt.sc`` set) the kernel stays, on
+each rank's shard, split as the reference's ``_shard_plan`` splits the
+score tensor, with the batch over the data axes:
+  * heads that divide the model axis: q, k and v split over their heads,
+    ``flash_ops.sdpa`` on each rank's local q, k and v
+    (``common.on_local_shards``, a ``local_map``), its gradient through
+    the kernel's autograd Function.
+    Where the query heads divide the axis and the key/value heads do not,
+    k and v are expanded to the query heads first, as the reference's
+    dense path expands them;
+  * heads that do not (smollm's 9, yi's 56, whisper's 20 on a 16-wide
+    axis), ``rt.attn_fallback`` "kvseq" (the default): k and v split over
+    their positions, q whole.  Each rank runs the forward kernel on its
+    keys with the causal diagonal moved by its first key
+    (``shard_offset``) and keeps the row log-sum-exp (``kvseq_piece``);
+    ``kvseq_combine`` merges the pieces in fp32 through three functional
+    all-reduces over the model axis (the row max, the sum of exp(lse_r -
+    max) and the weighted outputs), the counterpart of the reference's
+    partial max / sum all-reduces (the outputs' sum in fp32, see
+    ``kvseq_combine``).  The gradient (``piece_bwd``) is the backward
+    kernel on the rank's keys given the combined output and log-sum-exp:
+    exact dk and dv, and the rank's share of dq, summed over the model
+    axis as a partial gradient;
+  * "qseq": q split over its rows, k and v whole; each rank runs the
+    forward kernel on its rows with the diagonal moved by its first row
+    (``qseq_piece``) and the backward kernel on them (``piece_bwd``), and
+    the gradients of the whole k and v are partial sums over the model
+    axis.  K is not cut to the keys a rank can see (the dry run counts a
+    rank's work at rank 0's shapes times the ranks).  A rank that the
+    split leaves no rows launches nothing and adds zero to dk and dv.
+Both run in one autograd Function (``_SplitAttention``), and ``chip_smoke``
+runs the same pieces rank after rank on one card.
+A sequence split follows DTensor's (ceil-sized chunks, the last short:
+whisper's 1500 frames are 15 x 94 + 90 over 16), where the reference's
+``sc.div`` keeps a length that the axis does not divide whole
+(``spans``); the outputs' global shapes are given to
+``common.on_local_shards``, where ``local_map`` would infer them from even
+shards.  A DTensor cache, whose
 position dim may be sharded (``launch.sharding.cache_specs``), is written
 by each rank into its own positions and read by ``_attend_cached``: over
 the key heads' shards through ``local_map`` where they divide the model
@@ -48,9 +77,11 @@ import torch
 from repro_torch.configs.base import ArchConfig
 from repro_torch.kernels.checks import is_dtensor
 from repro_torch.kernels.flash_attention import ops as flash_ops
-from repro_torch.models.common import (Runtime, accum_product, apply_rope,
-                                       contiguous_grad, dense_init,
-                                       rope_tables)
+from repro_torch.models.common import (Runtime, ShardCtx, accum_product,
+                                       apply_rope, dense_init,
+                                       on_local_shards, rope_tables)
+
+FALLBACKS = ("kvseq", "qseq")
 
 
 def attn_init(gen: torch.Generator, cfg: ArchConfig, rt: Runtime) -> dict:
@@ -93,11 +124,9 @@ def _project_qkv(p: dict, x: torch.Tensor, cfg: ArchConfig, rt: Runtime,
     return _project_q(p, x, cfg, rt), k, v
 
 
-def _out_proj(p: dict, out: torch.Tensor, cfg: ArchConfig,
-              rt: Runtime) -> torch.Tensor:
-    B, S = out.shape[:2]
-    cd = rt.compute_dtype
-    return out.reshape(B, S, cfg.n_heads * cfg.hd) @ p["wo"].to(cd)
+def _out_proj(p: dict, out: torch.Tensor, rt: Runtime) -> torch.Tensor:
+    """The output projection of the heads' outputs (B, S, H * hd)."""
+    return out @ p["wo"].to(rt.compute_dtype)
 
 
 def _expand_kv(k: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
@@ -109,29 +138,198 @@ def _expand_kv(k: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
                                                             hd)
 
 
-def _local_sdpa(q, k, v, *, causal: bool):
-    q, k, v = (contiguous_grad(t.contiguous()) for t in (q, k, v))
-    return flash_ops.sdpa(q, k, v, causal=causal)
+def _shard_plan(cfg: ArchConfig, rt: Runtime):
+    """(head_axis, kvseq_axis, qseq_axis), at most one of them set, as the
+    reference's ``_shard_plan``: the heads over the model axis where they
+    divide it, else the keys' positions ("kvseq", the default) or the
+    query rows ("qseq") of the score tensor; all None without a model
+    axis."""
+    if rt.attn_fallback not in FALLBACKS:
+        raise ValueError(f"attn_fallback {rt.attn_fallback!r} is not one "
+                         f"of {FALLBACKS}")
+    sc = rt.sc
+    h_axis = sc.div(cfg.n_heads, sc.tp_axis)
+    if h_axis is not None:
+        return h_axis, None, None
+    if rt.attn_fallback == "qseq":
+        return None, None, sc.tp_axis
+    return None, sc.tp_axis, None
+
+
+def shard_offset(fallback: str, start: int, Sq: int, Sk: int) -> int:
+    """The causal diagonal of one rank's call: the whole call's Sk - Sq,
+    moved by the rank's first query row (``qseq``) or first key
+    (``kvseq``)."""
+    return Sk - Sq + start if fallback == "qseq" else Sk - Sq - start
+
+
+def spans(n: int, ranks: int):
+    """[lo, hi) of each rank's share of n: DTensor's split, ceil-sized
+    chunks, the last short (or empty: 100 rows over 16 ranks leave the last
+    none)."""
+    chunk = -(-n // ranks)
+    return [(min(n, r * chunk), min(n, (r + 1) * chunk))
+            for r in range(ranks)]
+
+
+def qseq_piece(q, k, v, causal: bool, offset: int):
+    """One rank's piece of qseq attention: (out, lse) of this rank's query
+    rows q over all the keys (an empty row shard launches nothing); its
+    gradient is ``piece_bwd`` given these."""
+    return flash_ops.sdpa_lse(q, k, v, causal=causal, causal_offset=offset)
+
+
+def kvseq_piece(q, k, v, causal: bool, offset: int):
+    """One rank's piece of kvseq attention: (out, lse) of q over this
+    rank's keys k, v, the row log-sum-exp -inf for a row that sees none
+    of them (the kernel writes +inf there)."""
+    B, Sq, H, _ = q.shape
+    if k.shape[1] == 0:   # an uneven split may leave a rank no key
+        return (torch.zeros_like(q),
+                q.new_full((B, H, Sq), float("-inf"), dtype=torch.float32))
+    out, lse = flash_ops.sdpa_lse(q, k, v, causal=causal,
+                                  causal_offset=offset)
+    return out, torch.where(lse == float("inf"), float("-inf"), lse)
+
+
+def kvseq_combine(out, lse, reduce):
+    """The pieces merged in fp32: ``out`` (..., B, Sq, H, hd) and ``lse``
+    (..., B, H, Sq) of one rank, and ``reduce(t, op)`` that takes "max" or
+    "sum" of t over the ranks (an all-reduce on a mesh; ``stacked_reduce``
+    where the ranks' pieces lie side by side).  Returns the whole
+    attention's (out, lse), lse +inf for a row that no key reaches.
+
+    The weighted outputs are summed in fp32, where the reference sums its
+    partial P.V in the compute dtype: one rounding to bf16 at the end, not
+    one per rank, for twice the bytes of that all-reduce (B * Sq * H * hd
+    * 4 a layer; PERF.md section 7 has the cost on smollm's training
+    cell)."""
+    m = reduce(lse, "max")
+    m = torch.where(m == float("-inf"), 0.0, m)
+    e = torch.exp(lse - m)
+    s = reduce(e, "sum")
+    seen = s > 0
+    w = e / torch.where(seen, s, 1.0)
+    o = reduce(out.float() * w.transpose(-1, -2)[..., None], "sum")
+    return (o.to(out.dtype),
+            torch.where(seen, m + torch.log(s), float("inf")))
+
+
+def stacked_reduce(t: torch.Tensor, op: str) -> torch.Tensor:
+    """``kvseq_combine``'s reduce over the ranks' pieces stacked on dim 0
+    (each rank's work run in turn in one process)."""
+    return t.amax(0, keepdim=True) if op == "max" else t.sum(0, keepdim=True)
+
+
+def piece_bwd(q, k, v, out, lse, dout, causal: bool, offset: int):
+    """One rank's piece of the gradient of either split: the backward
+    kernel on this rank's q and k, v given the attention's ``out`` and
+    ``lse`` over these rows.  kvseq: q whole, the keys this rank's, out and
+    lse the whole attention's (``kvseq_combine``), giving this rank's share
+    of dq, which the ranks sum, and the exact dk, dv of its keys.  qseq:
+    this rank's rows and their ``qseq_piece``, giving their exact dq and
+    this rank's share of dk, dv."""
+    if k.shape[1] == 0:
+        return torch.zeros_like(q), torch.zeros_like(k), torch.zeros_like(v)
+    return flash_ops.sdpa_bwd(q, k, v, out, lse, dout, causal=causal,
+                              causal_offset=offset)
+
+
+class _SplitAttention(torch.autograd.Function):
+    """One rank's piece of a split attention: ``qseq_piece`` (``reduce``
+    None), or ``kvseq_piece`` merged over the ranks by ``kvseq_combine``
+    with ``reduce``; the gradient ``piece_bwd`` (not through the combine:
+    the backward kernel has no log-sum-exp gradient, and needs none given
+    the whole attention's output)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, offset, reduce):
+        if reduce is None:
+            out, lse = qseq_piece(q, k, v, causal, offset)
+        else:
+            out, lse = kvseq_combine(*kvseq_piece(q, k, v, causal, offset),
+                                     reduce)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.causal, ctx.offset = causal, offset
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        q, k, v, out, lse = ctx.saved_tensors
+        return piece_bwd(q, k, v, out, lse, g.to(q.dtype).contiguous(),
+                         ctx.causal, ctx.offset) + (None,) * 3
+
+
+def _all_reduce(group, t: torch.Tensor, op: str) -> torch.Tensor:
+    """A functional all-reduce ("max" or "sum") over ``group``: the dry
+    run's ``CollectiveLog`` records it, as it records DTensor's own."""
+    from torch.distributed import _functional_collectives as funcol
+    out = funcol.all_reduce(t, op, group)
+    return (out.wait() if isinstance(out, funcol.AsyncCollectiveTensor)
+            else out)
+
+
+def _sdpa_seq_split(q, k, v, sc: ShardCtx, axis: str, fallback: str,
+                    causal: bool) -> torch.Tensor:
+    """Attention with the keys' positions ("kvseq") or the query rows
+    ("qseq") split over ``axis``, each rank's call on its shard (see the
+    module's docstring): the (B, Sq, H * hd) output, whole over ``axis``.
+
+    Two DTensor limits shape the output.  The heads are flattened on each
+    rank: under ``seq_parallel`` the gradient of the flatten comes back
+    split over H * hd, which DTensor cannot unflatten where the heads do
+    not divide the axis.  And qseq's rows are gathered here, where the
+    reference keeps them split into the output projection: DTensor
+    flattens (B, S) for that product, and a row split becomes a strided
+    shard that it cannot propagate under ``FakeTensorMode`` (the dry
+    run)."""
+    from torch.distributed.tensor import Partial
+    B, Sq, H, hd = q.shape
+    Sk = k.shape[1]
+    bs = sc.div(B, sc.dp_axes)
+    whole = sc.placements((bs, None, None, None))
+    split = sc.placements((bs, axis, None, None))
+    summed = list(whole)
+    summed[sc.mesh.axis_names.index(axis)] = Partial()
+    qseq = fallback == "qseq"
+    q = sc.constrain(q, bs, axis if qseq else None, None, None)
+    k, v = (sc.constrain(t, bs, None if qseq else axis, None, None)
+            for t in (k, v))
+    start = _local_span(Sq if qseq else Sk, sc.device_mesh, split, 1)[0]
+    off = shard_offset(fallback, start, Sq, Sk)
+    reduce = (None if qseq else functools.partial(
+        _all_reduce, sc.device_mesh.get_group(axis)))
+    q_pl, kv_pl, out_pl = ((split, summed, split) if qseq
+                           else (summed, split, whole))
+    out = on_local_shards(
+        lambda q, k, v: _SplitAttention.apply(q, k, v, causal, off,
+                                              reduce).flatten(2),
+        sc, ((q, q_pl), (k, kv_pl), (v, kv_pl)), out_pl,
+        shape=(B, Sq, H * hd))
+    return sc.constrain(out, bs, None, None)
 
 
 def _sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
           cfg: ArchConfig, rt: Runtime, causal: bool) -> torch.Tensor:
-    """``flash_ops.sdpa``; on a mesh, on each rank's shard of the batch
-    and the heads (see the module's docstring)."""
+    """``flash_ops.sdpa``, the heads flattened: (B, Sq, H * hd); on a mesh,
+    on each rank's shard of the batch and the heads, or of a sequence (see
+    the module's docstring)."""
     if not is_dtensor(q):
-        return flash_ops.sdpa(q, k, v, causal=causal)
-    from torch.distributed.tensor.experimental import local_map
+        return flash_ops.sdpa(q, k, v, causal=causal).flatten(2)
     sc = rt.sc
-    h_axis = sc.div(cfg.n_heads, sc.tp_axis)
+    h_axis, kv_axis, q_axis = _shard_plan(cfg, rt)
+    if kv_axis or q_axis:
+        return _sdpa_seq_split(q, k, v, sc, kv_axis or q_axis,
+                               "kvseq" if kv_axis else "qseq", causal)
     if h_axis is not None and sc.div(cfg.n_kv_heads, h_axis) is None:
         k, v = _expand_kv(k, cfg), _expand_kv(v, cfg)
     spec = (sc.div(q.shape[0], sc.dp_axes), None, h_axis, None)
     q, k, v = (sc.constrain(t, *spec) for t in (q, k, v))
     pl = sc.placements(spec)
-    run = local_map(functools.partial(_local_sdpa, causal=causal),
-                    out_placements=pl, in_placements=(pl, pl, pl),
-                    device_mesh=sc.device_mesh)
-    return run(q, k, v)
+    return on_local_shards(
+        lambda q, k, v: flash_ops.sdpa(q, k, v, causal=causal).flatten(2),
+        sc, [(t, pl) for t in (q, k, v)], pl,
+        shape=(q.shape[0], q.shape[1], q.shape[2] * q.shape[3]))
 
 
 def attention_with_kv(p: dict, x: torch.Tensor, cfg: ArchConfig,
@@ -150,7 +348,7 @@ def attention_with_kv(p: dict, x: torch.Tensor, cfg: ArchConfig,
         q = apply_rope(q, cos, sin)
         k = apply_rope(k, cos, sin)
     out = _sdpa(q, k, v, cfg, rt, causal)
-    return _out_proj(p, out, cfg, rt), (k, v)
+    return _out_proj(p, out, rt), (k, v)
 
 
 def attention(p: dict, x: torch.Tensor, cfg: ArchConfig, rt: Runtime, *,
@@ -189,7 +387,7 @@ def attn_decode(p: dict, x: torch.Tensor, cache: dict, cache_len: int,
     write_positions(cache["k"], k_new, cache_len)
     write_positions(cache["v"], v_new, cache_len)
     return _out_proj(p, _attend_cached(q, cache["k"], cache["v"], cfg, rt,
-                                       n_live=cache_len + 1), cfg, rt)
+                                       n_live=cache_len + 1).flatten(2), rt)
 
 
 def _attend_cached(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -244,16 +442,14 @@ def write_positions(buf: torch.Tensor, new: torch.Tensor,
 
 
 def _local_span(n: int, mesh, placements, dim: int) -> Tuple[int, int]:
-    """[lo, hi) of dim ``dim`` (size n) held by this rank: DTensor's split,
-    ceil-sized chunks over each mesh axis that shards the dim, major
-    first."""
+    """[lo, hi) of dim ``dim`` (size n) held by this rank: DTensor's split
+    (``spans``) over each mesh axis that shards the dim, major first."""
     coord = mesh.get_coordinate()
     lo, size = 0, n
     for i, p in enumerate(placements):
         if p.is_shard(dim):
-            chunk = -(-size // mesh.size(i))
-            lo += coord[i] * chunk
-            size = max(0, min(chunk, size - coord[i] * chunk))
+            a, b = spans(size, mesh.size(i))[coord[i]]
+            lo, size = lo + a, b - a
     return lo, lo + size
 
 
@@ -264,8 +460,8 @@ def cross_attn_decode(p: dict, x: torch.Tensor, cross_k: torch.Tensor,
     ``cross_k`` / ``cross_v`` (B, Se, KV, hd): every position, no mask, no
     cache write, no RoPE; on a mesh as ``attn_decode`` reads its cache."""
     q = _project_q(p, x, cfg, rt)
-    return _out_proj(p, _attend_cached(q, cross_k, cross_v, cfg, rt), cfg,
-                     rt)
+    return _out_proj(p, _attend_cached(q, cross_k, cross_v, cfg,
+                                       rt).flatten(2), rt)
 
 
 def _attend_core(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

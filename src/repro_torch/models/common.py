@@ -182,11 +182,37 @@ def contiguous_grad(x: torch.Tensor) -> torch.Tensor:
     return _ContiguousGrad.apply(x)
 
 
+def on_local_shards(fn, sc: "ShardCtx", ins, out_placements, shape=None):
+    """``fn`` on this rank's local tensors of ``ins``, (tensor, gradient
+    placements) pairs, each DTensor already in the placements that ``fn``
+    reads and its local tensor made contiguous (a plain tensor passes
+    through): a ``local_map`` region.  Each output becomes a DTensor in its
+    entry of ``out_placements`` (a tuple of them for a tuple output).
+    ``shape`` is a single output's global shape, which a split into
+    unequal shares needs (a sequence over the model axis: DTensor would
+    infer it from even shares); the output is then made contiguous."""
+    from torch.distributed.tensor import DTensor
+    local = [contiguous_grad(t.to_local(grad_placements=g).contiguous())
+             if is_dtensor(t) else t for t, g in ins]
+    out = fn(*local)
+    if shape is not None:
+        stride = torch.empty(shape, device="meta").stride()
+        return DTensor.from_local(out.contiguous(), sc.device_mesh,
+                                  out_placements, run_check=False,
+                                  shape=shape, stride=stride)
+    if isinstance(out, tuple):
+        return tuple(DTensor.from_local(o, sc.device_mesh, pl,
+                                        run_check=False)
+                     for o, pl in zip(out, out_placements))
+    return DTensor.from_local(out, sc.device_mesh, out_placements,
+                              run_check=False)
+
+
 def on_batch_shards(fn, sc: "ShardCtx", acts: Sequence[torch.Tensor],
                     weights: Sequence[torch.Tensor] = (),
                     out: Sequence[Any] = (1,)):
     """``fn(*acts, *weights)``; on a mesh (``acts[0]`` a DTensor), on each
-    rank's shard of the batch through ``local_map``: the activations
+    rank's shard of the batch (``on_local_shards``): the activations
     ``acts`` (dim 0 the batch) split over the data axes and whole over the
     others, the ``weights`` whole (their gradient a partial sum over the
     data axes, ``partial_over``).  ``out`` names each output: its number of
@@ -194,7 +220,6 @@ def on_batch_shards(fn, sc: "ShardCtx", acts: Sequence[torch.Tensor],
     data axes.  Returns what ``fn`` returns (as DTensors on a mesh)."""
     if not is_dtensor(acts[0]):
         return fn(*acts, *weights)
-    from torch.distributed.tensor.experimental import local_map
     bs = sc.div(acts[0].shape[0], sc.dp_axes)
 
     def rows(n: int) -> list:
@@ -202,16 +227,11 @@ def on_batch_shards(fn, sc: "ShardCtx", acts: Sequence[torch.Tensor],
 
     acts = [sc.constrain(a, bs, *(None,) * (a.dim() - 1)) for a in acts]
     weights = [sc.constrain(w, *(None,) * w.dim()) for w in weights]
-    w_pl = [sc.placements((None,) * w.dim()) for w in weights]
-    a_pl = [rows(a.dim()) for a in acts]
     out_pl = [sc.partial_over(bs) if o == "sum" else rows(o) for o in out]
-    run = local_map(
-        lambda *ts: fn(*(contiguous_grad(t) for t in ts)),
-        out_placements=out_pl[0] if len(out_pl) == 1 else tuple(out_pl),
-        in_placements=tuple(a_pl + w_pl),
-        in_grad_placements=tuple(a_pl + [sc.partial_over(bs)] * len(w_pl)),
-        device_mesh=sc.device_mesh)
-    return run(*acts, *weights)
+    return on_local_shards(
+        fn, sc, [(a, rows(a.dim())) for a in acts]
+        + [(w, sc.partial_over(bs)) for w in weights],
+        out_pl[0] if len(out_pl) == 1 else tuple(out_pl))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -223,13 +243,17 @@ class Runtime:
     kernel's chunk is fixed at 64 tokens, as the Pallas kernel's is; the
     Mamba scan has no chunk: its kernel and plain version walk every
     step).  ``sc`` is the sharding context (un-meshed by default);
-    ``moe_expert_parallel`` chooses the expert-parallel layout of the MoE
-    weights (``launch.sharding.expert_parallel_overrides``)."""
+    ``attn_fallback`` splits attention whose heads do not divide the
+    model axis over its keys ("kvseq") or its query rows ("qseq",
+    ``models.attention``); ``moe_expert_parallel`` chooses the
+    expert-parallel layout of the MoE weights
+    (``launch.sharding.expert_parallel_overrides``)."""
 
     sc: ShardCtx = dataclasses.field(default_factory=ShardCtx.null)
     param_dtype: torch.dtype = torch.bfloat16
     compute_dtype: torch.dtype = torch.bfloat16
     accum_dtype: torch.dtype = torch.float32
+    attn_fallback: str = "kvseq"       # heads%TP!=0: "kvseq" | "qseq" shard
     lstm_bf16_states: bool = False     # stash xLSTM outputs in bf16
     ce_chunk: int = 512                # seq chunk for cross-entropy
     ssm_chunk: int = 256               # chunk of the stateful mLSTM scan

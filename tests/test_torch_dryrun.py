@@ -51,12 +51,30 @@ def test_analytic_pass_covers_every_cell(tmp_path):
 
 
 @pytest.mark.parametrize("flag", [["--banded"], ["--attn-q-chunk", "256"],
-                                  ["--attn-fallback", "qseq"],
                                   ["--save-hlo"]])
 def test_flags_without_counterpart_are_refused(flag, tmp_path):
     with pytest.raises(ValueError, match="no counterpart"):
         dryrun.main(["--arch", "yi-34b", "--shape", "train_4k", "--out",
                      str(tmp_path)] + flag)
+
+
+@pytest.mark.parametrize("fallback", [None, "kvseq", "qseq"])
+def test_attn_fallback_is_accepted_and_recorded(fallback, tmp_path):
+    """``--attn-fallback kvseq|qseq`` (kvseq by default, as the
+    reference's) reaches the cell's runtime and its ``config`` record."""
+    flag = [] if fallback is None else ["--attn-fallback", fallback]
+    argv = ["--arch", "yi-34b", "--shape", "train_4k", "--out",
+            str(tmp_path)] + flag
+    assert dryrun.main(argv) == 0
+    meta = json.loads(next(tmp_path.glob("*.json")).read_text())
+    want = fallback or "kvseq"
+    assert meta["config"]["attn_fallback"] == want
+    args = dryrun.make_parser().parse_args(argv)
+    rt = dryrun.make_runtime(get_config("yi-34b"), None, args)
+    assert rt.attn_fallback == want
+    with pytest.raises(SystemExit):
+        dryrun.make_parser().parse_args(argv[:4] + ["--attn-fallback",
+                                                    "heads"])
 
 
 _TRACE = textwrap.dedent('''
@@ -124,6 +142,102 @@ def test_traced_steps_on_fake_process_groups():
         assert r["traced"] == r["analytic"] > 0, cell
         assert r["flops"] > 0, cell
         assert r["world"] == (512 if cell.endswith("multi") else 256)
+
+
+_TRACE_FALLBACK = textwrap.dedent('''
+    import json
+    import torch
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    from torch.distributed.tensor import distribute_tensor
+    from torch.distributed.tensor.experimental import implicit_replication
+    from repro_torch.configs.registry import get_config
+    from repro_torch.launch import dryrun, mesh
+    from repro_torch.models import attention
+    from repro_torch.models.common import Runtime
+
+    # reduced smollm: 3 query heads over 1 key head, which do not divide a
+    # model axis of 2; B 8 x S 64 (a causal self-attention layer)
+    cfg = get_config("smollm-135m", reduced=True)
+    B, S = 8, 64
+    f32 = dict(param_dtype=torch.float32, compute_dtype=torch.float32)
+    dryrun.fake_process_group(4)
+    dm = mesh.device_mesh(mesh.make_test_mesh((2, 2)), "cpu")
+
+    def trace(rt, world, grad):
+        """Traced FLOPs and collectives of one attention layer's forward
+        (and backward) at fake B x S, placed on the mesh when ``rt`` has
+        one."""
+        with FakeTensorMode():
+            p = attention.attn_init(torch.Generator(), cfg, rt)
+            x = torch.zeros(B, S, cfg.d_model)
+            if rt.sc.mesh is not None:
+                pl = rt.sc.placements((None, None))
+                p = {k: distribute_tensor(w, dm, pl) for k, w in p.items()}
+                x = distribute_tensor(x, dm, rt.sc.placements(
+                    ("data", None, None)))
+            for t in [x, *p.values()]:
+                t.requires_grad_(grad)
+            flops = dryrun.TracedFlops(world)
+            # the RoPE tables are plain tensors, as the steps place them
+            with implicit_replication(), dryrun.CollectiveLog() as log, \\
+                    flops:
+                out = attention.attention(p, x, cfg, rt)
+                if grad:
+                    torch.autograd.grad(out.sum(), [x] + list(p.values()))
+        return {"flops": flops.total,
+                "attention": flops.local_flops * world,
+                "counts": {k: v["count"] for k, v in log.summary().items()}}
+
+    out = {}
+    for grad in (False, True):
+        key = "train" if grad else "prefill"
+        out[key] = {"one": trace(Runtime(**f32), 1, grad)}
+        for fb in ("kvseq", "qseq"):
+            rt = Runtime(sc=mesh.make_shard_ctx(dm), attn_fallback=fb, **f32)
+            out[key][fb] = trace(rt, 4, grad)
+    print("RESULT " + json.dumps(out))
+''')
+
+
+@pytest.fixture(scope="module")
+def fallback_trace():
+    out = subprocess.run(
+        [sys.executable, "-c", _TRACE_FALLBACK], capture_output=True,
+        text=True, timeout=300, env={"PYTHONPATH": str(ROOT / "src"),
+                                     "PATH": "/usr/bin:/bin",
+                                     "OMP_NUM_THREADS": "1"})
+    assert out.returncode == 0, out.stdout[-3000:] + out.stderr[-5000:]
+    line = [ln for ln in out.stdout.splitlines() if ln.startswith("RESULT")]
+    return json.loads(line[-1][len("RESULT "):])
+
+
+@pytest.mark.parametrize("fallback", ["kvseq", "qseq"])
+@pytest.mark.parametrize("step", ["prefill", "train"])
+def test_traced_fallback_counts_attention_once(fallback_trace, fallback,
+                                               step):
+    """A reduced smollm attention layer (3 heads over 1, which do not
+    divide the model axis of a (2, 2) mesh) traced on a fake 4-rank group:
+    the per-rank kernel calls, counted at rank 0's shapes times the ranks,
+    add up to the attention's products once, and the layer's FLOPs to
+    those of the same layer in one process, where
+    the replicated layout counted them once per model rank.  Under either
+    fallback the backward kernel's decomposition recomputes the scores (one
+    product of the 2 B H S^2 hd more than autograd of the plain version
+    takes), and kvseq's forward adds the combine's 3 all-reduces."""
+    one, got = fallback_trace[step]["one"], fallback_trace[step][fallback]
+    cfg = get_config("smollm-135m", reduced=True)
+    product = 2 * 8 * cfg.n_heads * 64 * 64 * cfg.hd   # one B H S^2 hd
+    # the scores and P.V; autograd adds 4 products, the backward kernel's
+    # decomposition 5
+    n = 2 if step == "prefill" else 7
+    extra = product if step == "train" else 0
+    assert got["attention"] == n * product
+    assert got["flops"] == one["flops"] + extra
+    ar = got["counts"].get("all-reduce", 0)
+    if fallback == "kvseq":
+        assert ar >= 3
+    elif step == "prefill":
+        assert ar == 0
 
 
 _TRACE_FAMILIES = textwrap.dedent('''
@@ -269,3 +383,44 @@ def test_slstm_stand_in_counts_like_the_plain_loop(grad):
     kw = {"cfg": cfg, "stash": torch.float32}
     assert (_traced(dryrun._slstm_stand_in, args, kw, grad)
             == _traced(xlstm._slstm_loop, args, kw, grad))
+
+
+def test_whisper_decode_model_flops_counts_parameters_decode_skips():
+    """whisper's decode `useful` above 1 (1.222 traced at full size) is the
+    reference's ``model_flops`` formula (``repro/launch/hlo_analysis.py``,
+    copied in ``launch.roofline``): 2 * active * B counts parameters that
+    a decode step never multiplies, the encoder's layers, the cross
+    attention's k and v projections (their outputs are cached) and the
+    input embedding (a lookup).  At a reduced shape the traced FLOPs of a
+    plain decode step are exactly that much below."""
+    import dataclasses
+    import torch
+    from repro_torch.configs.registry import get_shape
+    from repro_torch.launch import roofline
+    from repro_torch.models.common import Runtime
+    from repro_torch.train.step import (init_train_state, make_decode_step,
+                                        make_prefill_step)
+    cfg = get_config("whisper-large-v3", reduced=True)
+    B, S = 2, 32
+    shape = dataclasses.replace(get_shape("decode_32k"), global_batch=B,
+                                seq_len=S)
+    rt = Runtime(param_dtype=torch.float32, compute_dtype=torch.float32)
+    params = init_train_state(torch.Generator().manual_seed(0), cfg,
+                              rt)["params"]
+    g = torch.Generator().manual_seed(1)
+    prompt = {"tokens": torch.randint(0, cfg.vocab_size, (B, S - 1),
+                                      generator=g, dtype=torch.int32),
+              "frames": torch.randn(B, cfg.encoder_seq, cfg.d_model,
+                                    generator=g)}
+    tok, cache, _ = make_prefill_step(cfg, rt, cache_size=S)(params, prompt)
+    flops = dryrun.TracedFlops(world=1)
+    with flops:
+        make_decode_step(cfg, rt)(params, tok[:, None], cache, S - 1)
+    d, kv = cfg.d_model, cfg.n_kv_heads * cfg.hd
+    attn = 2 * d * cfg.n_heads * cfg.hd + 2 * d * kv
+    encoder = cfg.encoder_layers * (attn + 2 * d * cfg.d_ff)
+    cross_kv = cfg.n_layers * 2 * d * kv
+    embedding = cfg.padded_vocab() * d
+    assert not cfg.tie_embeddings and cfg.act == "gelu"
+    skipped = 2 * B * (encoder + cross_kv + embedding)
+    assert roofline.model_flops(cfg, shape) == flops.total + skipped

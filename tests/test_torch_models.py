@@ -36,6 +36,7 @@ from repro_torch.kernels.flash_attention import ops as flash_ops
 from repro_torch.kernels.flash_attention import ref as flash_ref
 from repro_torch.models import (Runtime, common, forward_decode,
                                 forward_prefill, init_cache, init_params)
+from repro_torch.models import attention as attention_mod
 from repro_torch.models import mlp as mlp_mod
 
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
@@ -199,14 +200,16 @@ def test_sdpa_on_the_card_carries_the_plain_gradient(monkeypatch):
     for."""
     asked = []
 
-    def fwd(q, k, v, causal=True, with_lse=False):
+    def fwd(q, k, v, causal=True, with_lse=False, causal_offset=None):
         asked.append(with_lse)
-        out, lse = flash_ref.attention_lse_ref(q, k, v, causal=causal)
+        out, lse = flash_ref.attention_lse_ref(q, k, v, causal=causal,
+                                               offset=causal_offset)
         return out, (lse if with_lse else None)
 
-    def bwd(q, k, v, out, lse, dout, causal=True):
+    def bwd(q, k, v, out, lse, dout, causal=True, causal_offset=None):
         return flash_ref.attention_bwd_ref(q, k, v, out, lse, dout,
-                                           causal=causal)
+                                           causal=causal,
+                                           offset=causal_offset)
 
     monkeypatch.setattr(flash_ops, "_on_card", lambda t: True)
     monkeypatch.setattr(flash_ops, "forward", fwd)
@@ -581,3 +584,24 @@ def test_cuda_flash_bwd_kernel_matches_plain_version(shape):
     errs, _ = chip_smoke.flash_bwd_error(shape, torch.device("cuda"))
     for name, (err, tol) in errs.items():
         assert err <= tol, (shape, name, err, tol)
+
+
+@pytest.mark.cuda
+def test_cuda_empty_row_shard_gives_zero_key_gradients():
+    """On the card, a qseq rank that the split leaves no rows (100 rows
+    over 16 ranks leave the last none) launches neither kernel: its output
+    is empty and its dk, dv zero, where the backward kernel, given no row,
+    would write none of them."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(0)
+    q, k, v, dout = (torch.randn(s, generator=g, device=dev).to(
+        torch.bfloat16) for s in ((2, 0, 3, 24), (2, 20, 1, 24),
+                                  (2, 20, 1, 24), (2, 0, 3, 24)))
+    n0 = dict(flash_ops.launches)
+    out, lse = attention_mod.qseq_piece(q, k, v, True, 20)
+    dq, dk, dv = attention_mod.piece_bwd(q, k, v, out, lse, dout, True, 20)
+    assert flash_ops.launches == n0
+    assert out.shape == q.shape and lse.shape == (2, 3, 0)
+    assert dq.shape == q.shape and not dk.any() and not dv.any()

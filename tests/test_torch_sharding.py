@@ -374,24 +374,49 @@ _GLOO_RUN = textwrap.dedent('''
         prompt = {"tokens": batches[0]["tokens"]}
         res["serve"] = {"4/4": serve(cfg, rt, rt0, state["params"],
                                      plain["params"], prompt, dm)}
-        # heads that do not divide the model axis (replicated, the cache
-        # split over its positions) and key/value heads that do not (k and
-        # v expanded to the query heads; the cache split over positions)
-        for H, KV, d in ((3, 1, 48), (6, 3, 48)):
-            c = dataclasses.replace(cfg, n_heads=H, n_kv_heads=KV, d_model=d)
+        # heads that do not divide the model axis, attention split over
+        # its keys (kvseq) or its query rows (qseq), the cache split over
+        # its positions: smollm's 3 over 1 and yi's reduced 7 over 1; key
+        # and value heads that do not (k and v expanded to the query
+        # heads; the cache split over positions)
+        c3 = dataclasses.replace(cfg, n_heads=3, n_kv_heads=1, d_model=48)
+        c6 = dataclasses.replace(cfg, n_heads=6, n_kv_heads=3, d_model=48)
+        yi = get_config("yi-34b", reduced=True)
+        for name, c, fb in (("3/1/kvseq", c3, "kvseq"),
+                            ("3/1/qseq", c3, "qseq"), ("6/3", c6, "kvseq"),
+                            ("7/1/kvseq", yi, "kvseq"),
+                            ("7/1/qseq", yi, "qseq")):
+            rt_c = dataclasses.replace(rt, attn_fallback=fb)
             p0 = init_train_state(torch.Generator().manual_seed(2), c, rt0)
+            specs_c = SH.train_state_specs(p0["params"], c, rt.sc)
             st = SH.distribute_tree(
                 init_train_state(torch.Generator().manual_seed(2), c, rt),
-                SH.train_state_specs(p0["params"], c, rt.sc), dm)
-            st, m = make_train_step(c, rt, TrainHyper(), MICRO)(
-                st, SH.distribute_tree(batches[1], SH.batch_specs(
-                    batches[1], rt.sc, B), dm))
+                specs_c, dm)
+            placed = SH.distribute_tree(batches[1], SH.batch_specs(
+                batches[1], rt.sc, B), dm)
+            with CollectiveLog() as log:
+                st, m = make_train_step(c, rt_c, TrainHyper(), MICRO)(
+                    st, placed)
             p0, m0 = make_train_step(c, rt0, TrainHyper(), MICRO)(
                 p0, batches[1])
-            out = serve(c, rt, rt0, st["params"], p0["params"], prompt, dm)
+            out = serve(c, rt_c, rt0, st["params"], p0["params"], prompt,
+                        dm)
             out["train"] = [(m[k].full_tensor().item(), m0[k].item())
                             for k in ("loss", "grad_norm")]
-            res["serve"][f"{H}/{KV}"] = out
+            out["collectives"] = {k: v["count"]
+                                  for k, v in log.summary().items()}
+            if name.startswith("3/1"):
+                # the same first step with the residual stream split over
+                # the sequence (Megatron-SP)
+                rt_sp = Runtime(sc=M.make_shard_ctx(dm, seq_parallel=True),
+                                attn_fallback=fb, **f32)
+                st_sp = SH.distribute_tree(init_train_state(
+                    torch.Generator().manual_seed(2), c, rt_sp), specs_c, dm)
+                _, m = make_train_step(c, rt_sp, TrainHyper(), MICRO)(
+                    st_sp, placed)
+                out["seq_parallel"] = [m[k].full_tensor().item()
+                                       for k in ("loss", "grad_norm")]
+            res["serve"][name] = out
         # elastic restore: saved from the (2, 2) layout, onto (4, 1)
         ck = Checkpointer(out_dir, cfg, async_save=False)
         ck.save(7, state)
@@ -456,8 +481,11 @@ def test_sharded_step_on_four_gloo_ranks(tmp_path):
     phase 11's tolerances of the single-process port with collectives
     issued, a ``seq_parallel`` step likewise, prefill + 4 greedy tokens
     equal with logits within ``LOGITS_ATOL``; the same train step, prefill
-    and decode for 3 query heads over 1 key/value head (heads replicated)
-    and 6 over 3 (k and v expanded), their caches split over positions;
+    and decode for 3 query heads over 1 key/value head and yi's reduced 7
+    over 1 (heads that do not divide the model axis: attention split over
+    its keys, with the combine's all-reduces, and over its query rows; for
+    3 over 1 also a ``seq_parallel`` step) and 6 over 3 (k and v
+    expanded), their caches split over positions;
     the state saved on (2, 2) and restored onto (4, 1) bitwise, and compressed_psum within the
     reference's 0.02 of the fp32 sum and equal to the reference's
     compressed_psum on the same inputs (run as its own test runs it)."""
@@ -487,15 +515,27 @@ def test_sharded_step_on_four_gloo_ranks(tmp_path):
     for heads, out in res["serve"].items():
         assert out["tokens"] == out["tokens_plain"], heads
         assert out["logits_err"] <= LOGITS_ATOL, (heads, out["logits_err"])
-    for heads in ("3/1", "6/3"):
-        for (got, want), tol in zip(res["serve"][heads]["train"],
-                                    (LOSS_RTOL, GNORM_RTOL)):
+    split = ("3/1/kvseq", "3/1/qseq", "6/3", "7/1/kvseq", "7/1/qseq")
+    assert set(res["serve"]) == {"4/4", *split}
+    for heads in split:
+        out = res["serve"][heads]
+        for (got, want), tol in zip(out["train"], (LOSS_RTOL, GNORM_RTOL)):
             assert abs(got - want) <= tol * abs(want), heads
+        for got, (_, want) in zip(out.get("seq_parallel", ()),
+                                  out["train"]):
+            assert abs(got - want) <= GNORM_RTOL * abs(want), heads
+    for heads in ("3/1/kvseq", "3/1/qseq"):
+        assert len(res["serve"][heads]["seq_parallel"]) == 2
+    # kvseq's combine: 3 all-reduces an attention call, more than qseq's
+    for H in ("3/1", "7/1"):
+        kv, qs = (res["serve"][f"{H}/{fb}"]["collectives"]
+                  for fb in ("kvseq", "qseq"))
+        assert kv["all-reduce"] > qs.get("all-reduce", 0), H
     # key/value heads over the model axis where they divide it, else the
     # cache's positions
     assert res["serve"]["4/4"]["cache_placements"] == \
         "(Shard(dim=0), Shard(dim=2))"
-    for heads in ("3/1", "6/3"):
+    for heads in split:
         assert res["serve"][heads]["cache_placements"] == \
             "(Shard(dim=0), Shard(dim=1))"
     assert res["restore_exact"]

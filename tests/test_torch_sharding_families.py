@@ -1,8 +1,9 @@
 """The sharded step of the MoE, Mamba, xLSTM and whisper paths on four gloo
 ranks against the single-process port: olmoe with expert parallelism,
 qwen2-moe's shared experts, jamba, xLSTM with and without FSDP-sharded
-sLSTM weights, and whisper with its heads split, with its cross cache split
-over positions, and under ``seq_parallel``.
+sLSTM weights, and whisper with its heads split, with 3 heads (attention
+split over its keys or its query rows, the cross cache over positions),
+and under ``seq_parallel``.
 
 One spawned run on a (data=2, model=2) mesh holds every case: each
 family's reduced config in fp32, placed by ``launch.sharding``, takes two
@@ -56,17 +57,23 @@ _RUN = textwrap.dedent('''
             "jamba": (r("jamba-v0.1-52b"), {}, {}),
             "xlstm": (r("xlstm-1.3b"), {}, {}),
             "xlstm-shard-r": (r("xlstm-1.3b"), {}, dict(shard_lstm_r=True)),
-            # 4 heads over 2; 3 heads: the caches split over positions
+            # 4 heads over 2; 3 heads: attention split over its keys
+            # (kvseq) or its query rows (qseq), the caches over positions
             "whisper": (r("whisper-large-v3"), {}, {}),
             "whisper-h3": (w3, {}, {}),
+            "whisper-h3-qseq": (w3, dict(attn_fallback="qseq"), {}),
         }
 
-    def counting(mod, name, calls):
+    def counting(mod, name, calls, shapes=None):
+        """Counts the calls of mod.name; with ``shapes``, records each
+        attention call's (name, Sq, Sk) on this rank."""
         fn = getattr(mod, name)
 
         @functools.wraps(fn)
         def wrapped(*a, **k):
             calls[name] += 1
+            if shapes is not None:
+                shapes.add((name, a[0].shape[1], a[1].shape[1]))
             return fn(*a, **k)
         setattr(mod, name, wrapped)
 
@@ -100,7 +107,7 @@ _RUN = textwrap.dedent('''
                 worst = max(worst, (e, "/".join(map(str, p))))
         return worst
 
-    def run_case(cfg, rt_kw, sc_kw, dm, calls, with_serve=True):
+    def run_case(cfg, rt_kw, sc_kw, dm, calls, shapes, with_serve=True):
         from repro_torch.launch import mesh as M, sharding as SH
         from repro_torch.launch.dryrun import CollectiveLog
         from repro_torch.models.common import Runtime
@@ -127,9 +134,11 @@ _RUN = textwrap.dedent('''
             placed = SH.distribute_tree(b, SH.batch_specs(b, rt.sc, B), dm)
             for k in calls:
                 calls[k] = 0
+            shapes.clear()
             with CollectiveLog() as log:
                 state, m = step(state, placed)
             res["calls"].append(dict(calls))
+            res["sdpa_shapes"] = sorted(shapes)
             plain, m0 = step0(plain, b)
             for k in METRICS:
                 res[k].append((float(full(m[k])), float(m0[k])))
@@ -181,19 +190,25 @@ _RUN = textwrap.dedent('''
         from repro_torch.kernels.mlstm_chunk import ops as mlstm_ops
         from repro_torch.kernels.ssm_scan import ops as ssm_ops
         from repro_torch.launch import mesh as M
-        calls = {"sdpa": 0, "selective_scan": 0, "mlstm_mixer": 0}
-        counting(flash_ops, "sdpa", calls)
+        calls = {"sdpa": 0, "sdpa_lse": 0, "selective_scan": 0,
+                 "mlstm_mixer": 0}
+        shapes = set()
+        counting(flash_ops, "sdpa", calls, shapes)
+        counting(flash_ops, "sdpa_lse", calls, shapes)
         counting(ssm_ops, "selective_scan", calls)
         counting(mlstm_ops, "mlstm_mixer", calls)
         dm = M.device_mesh(M.make_test_mesh((2, 2)), "cpu")
         out = {}
         for name, (cfg, rt_kw, sc_kw) in cases().items():
-            out[name] = run_case(cfg, rt_kw, sc_kw, dm, calls)
+            out[name] = run_case(cfg, rt_kw, sc_kw, dm, calls, shapes)
         # Megatron-SP: the residual stream split over the sequence, the
-        # cross-attention sublayer among them
-        cfg = cases()["whisper"][0]
-        out["whisper-seq-parallel"] = run_case(
-            cfg, {}, dict(seq_parallel=True), dm, calls, with_serve=False)
+        # cross-attention sublayer among them; with heads split, and with
+        # attention split over its keys
+        for name, case in (("whisper-seq-parallel", "whisper"),
+                           ("whisper-h3-seq-parallel", "whisper-h3")):
+            cfg = cases()[case][0]
+            out[name] = run_case(cfg, {}, dict(seq_parallel=True), dm,
+                                 calls, shapes, with_serve=False)
         if rank == 0:
             print("RESULT " + json.dumps(out), flush=True)
         dist.destroy_process_group()
@@ -204,7 +219,9 @@ _RUN = textwrap.dedent('''
 
 # each mixer's wrapper calls per DTensor train step and rank: one a layer
 # of its kind a microbatch, twice under the default remat ("full": the
-# backward recomputes the forward)
+# backward recomputes the forward); attention split over a sequence (kvseq
+# or qseq) reaches the forward kernel through ``sdpa_lse`` (its gradient is
+# ``sdpa_bwd``'s, uncounted here), the head split through ``sdpa``
 _MICRO, _REMAT = 2, 2
 _CALLS = {
     "olmoe-ep": {"sdpa": 2},                     # 2 attention layers
@@ -214,11 +231,13 @@ _CALLS = {
     "xlstm-shard-r": {"mlstm_mixer": 7},
     # 2 encoder, 2 decoder self-attention and 2 cross-attention layers
     "whisper": {"sdpa": 6},
-    "whisper-h3": {"sdpa": 6},
+    "whisper-h3": {"sdpa_lse": 6},
+    "whisper-h3-qseq": {"sdpa_lse": 6},
     "whisper-seq-parallel": {"sdpa": 6},
+    "whisper-h3-seq-parallel": {"sdpa_lse": 6},
 }
 CASES = list(_CALLS)
-SERVED = [c for c in CASES if c != "whisper-seq-parallel"]
+SERVED = [c for c in CASES if not c.endswith("seq-parallel")]
 MOE = ("olmoe-ep", "qwen2-moe", "jamba")
 
 
@@ -280,7 +299,8 @@ def test_kernels_run_on_each_ranks_shard(gloo_run, case):
     once a layer a microbatch, twice with the backward's recomputation,
     on every DTensor step: no recurrence or attention runs as DTensor ops
     around the kernel."""
-    want = {k: 0 for k in ("sdpa", "selective_scan", "mlstm_mixer")}
+    want = {k: 0 for k in ("sdpa", "sdpa_lse", "selective_scan",
+                           "mlstm_mixer")}
     want.update({k: n * _MICRO * _REMAT for k, n in _CALLS[case].items()})
     for calls in gloo_run[case]["calls"]:
         assert calls == want
@@ -303,7 +323,7 @@ def test_greedy_tokens_and_cache_placements(gloo_run, case):
                 "h: (Shard(dim=0), Shard(dim=1))"} <= pl
     if case == "whisper":
         assert "cross_k: (Shard(dim=0), Shard(dim=2))" in pl
-    if case == "whisper-h3":
+    if case.startswith("whisper-h3"):
         assert "cross_k: (Shard(dim=0), Shard(dim=1))" in pl
     if case.startswith("xlstm"):
         assert all(p.endswith("(Shard(dim=0), Replicate())") for p in pl)
@@ -316,3 +336,28 @@ def test_expert_parallel_places_the_experts_over_model(gloo_run):
         "wg": "(Shard(dim=1), Shard(dim=0))",
         "wu": "(Shard(dim=1), Shard(dim=0))",
         "wd": "(Shard(dim=2), Shard(dim=0))"}
+
+
+# each attention call's (wrapper, Sq, Sk) on a rank of the (2, 2) mesh,
+# B 8 x S 32 over 16 encoder frames: kvseq halves the keys, qseq the rows
+# (the encoder, the decoder's self-attention, its cross-attention)
+_SPLIT_SHAPES = {
+    "whisper-h3": [("sdpa_lse", 16, 8), ("sdpa_lse", 32, 8),
+                   ("sdpa_lse", 32, 16)],
+    "whisper-h3-qseq": [("sdpa_lse", 8, 16), ("sdpa_lse", 16, 16),
+                        ("sdpa_lse", 16, 32)],
+    "whisper-h3-seq-parallel": [("sdpa_lse", 16, 8), ("sdpa_lse", 32, 8),
+                                ("sdpa_lse", 32, 16)],
+    "whisper": [("sdpa", 16, 16), ("sdpa", 32, 16), ("sdpa", 32, 32)],
+}
+
+
+@pytest.mark.parametrize("case", list(_SPLIT_SHAPES))
+def test_attention_split_shapes(gloo_run, case):
+    """whisper with 3 heads, which do not divide the model axis: each
+    rank's kernel call holds half the keys (kvseq, the default, also under
+    ``seq_parallel``) or half the query rows (qseq) of the encoder's
+    self-attention, the decoder's and its cross-attention; with 4 heads
+    (split over the axis) every call holds the whole sequences."""
+    got = [tuple(c) for c in gloo_run[case]["sdpa_shapes"]]
+    assert got == _SPLIT_SHAPES[case]
