@@ -1,0 +1,159 @@
+"""Faults planted in the program under the harness, for the benchmark's
+tests (on the CPU at a tiny fleet) and for ``calibrate.py --fault`` (on
+the card at the cell's own size): each breaks one stage of the timed ask
+where it is produced, and the check has to come out not correct.
+
+``plant(name, patch)`` installs one; ``patch(obj, attr, value)`` sets an
+attribute (``setattr``, or pytest's ``monkeypatch.setattr`` so that the
+test undoes it).  The entry points are replaced in
+``gp.BANK_ENTRY_POINTS``, the registry the bank calls them through.
+"""
+from __future__ import annotations
+
+from typing import Callable, Dict
+
+import torch
+
+# the draw's columns scaled by this, so that they cover [0, CUT) only; the
+# tests' tiny fleets draw too few candidates to see a smaller cut
+CUT = {"card": 0.9, "tiny": 0.5}
+
+
+def _entries():
+    from repro_torch.core import gp
+    return gp.BANK_ENTRY_POINTS
+
+
+def fit_unchanged(patch):
+    """The fit returns its warm start: a step that leaves its state as it
+    was."""
+    def fit(X, y, mask, log_ls, log_var, log_noise, y_mean, y_std, steps):
+        return log_ls.clone(), log_var.clone(), log_noise.clone()
+    _entries()["fit_hypers_bank"] = fit
+
+
+def fit_half_batch(patch):
+    """The fit's loss over half of each study's observations, its mean taken
+    over the rest."""
+    inner = _entries()["fit_hypers_bank"]
+
+    def fit(X, y, mask, *a, **k):
+        keep = torch.cumsum(mask, -1) <= mask.sum(-1, keepdim=True) / 2
+        return inner(X, y, mask * keep, *a, **k)
+    _entries()["fit_hypers_bank"] = fit
+
+
+def scores_half_batch(patch):
+    """The scorer serves the first half of the studies; the rest get the
+    mean of their scores."""
+    from repro_torch.kernels.gp_acquisition import ops
+    inner = ops.score_cov
+
+    def score_cov(Cs, *a):
+        mu, sig2, K = inner(Cs, *a)
+        h = max(1, Cs.shape[0] // 2)
+        mu[h:], sig2[h:] = mu[:h].mean(0), sig2[:h].mean(0)
+        return mu, sig2, K
+    patch(ops, "score_cov", score_cov)
+
+
+def pick_altered(patch):
+    """Every study's first pick replaced by candidate 0 where the pick is
+    made."""
+    entries = _entries()
+    for name in ("bank_pick", "bank_cluster_pick"):
+        inner = entries[name]
+
+        def pick(*a, _inner=inner, **k):
+            idx = _inner(*a, **k).clone()
+            idx[:, 0] = torch.where(idx[:, 0] == 0, 1, 0)
+            return idx
+        entries[name] = pick
+
+
+def _head(choose):
+    """A clustering head that keeps the top set and picks by ``choose``."""
+    from repro_torch.core import gp
+
+    def cluster_pick(acq, C, u, n_top, batch_size):
+        top_vals, top_idx = gp.top_k(acq, n_top)
+        j = choose(acq, C, u, n_top, batch_size, top_vals, top_idx)
+        return torch.gather(top_idx, 1, j)
+    return cluster_pick
+
+
+def head_top_n(patch):
+    """The clustering head skips k-means: the n best of the top set."""
+    from repro_torch.core import gp
+
+    def choose(acq, C, u, n_top, n, vals, idx):
+        return torch.arange(n, device=acq.device).expand(acq.shape[0], n)
+    patch(gp, "cluster_pick", _head(choose))
+
+
+def head_one_cluster(patch):
+    """k-means puts every point of the top set in one cluster."""
+    from repro_torch.core import kmeans
+
+    def one(X, w, u, iters=10):
+        return torch.zeros(X.shape[:2], dtype=torch.int64, device=X.device)
+    patch(kmeans, "kmeans", one)
+
+
+def head_worst(patch):
+    """The clustering head picks each cluster's worst point of the top set
+    in place of its best."""
+    from repro_torch.core import gp, kmeans
+
+    def choose(acq, C, u, n_top, n, vals, idx):
+        B = acq.shape[0]
+        rows = torch.arange(B, device=acq.device)
+        w = vals - vals[:, n_top - 1:n_top] + 1e-6
+        assign = kmeans.kmeans(C[rows[:, None], idx], w, u)
+        picked = torch.zeros((B, n_top), dtype=torch.bool, device=C.device)
+        out = torch.zeros((B, n), dtype=torch.int64, device=C.device)
+        for c in range(n):
+            in_c = (assign == c) & ~picked
+            sel = torch.where(in_c.any(-1, keepdim=True), in_c, ~picked)
+            j = torch.argmin(torch.where(sel, vals, torch.inf), dim=-1)
+            picked[rows, j] = True
+            out[:, c] = j
+        return out
+    patch(gp, "cluster_pick", _head(choose))
+
+
+def _draw(patch, change):
+    from repro_torch.core.spaces import ParamSpace
+    inner = ParamSpace.sample_columns
+
+    def sample_columns(self, n, rng):
+        return change(inner(self, n, rng))
+    patch(ParamSpace, "sample_columns", sample_columns)
+
+
+def candidates_cut(patch, size="card"):
+    """The candidate draw covers [0, CUT) of each parameter's range only."""
+    cut = CUT[size]
+    _draw(patch, lambda cols: {k: v * cut for k, v in cols.items()})
+
+
+def candidates_stale(patch):
+    """The candidate draw returns its first block at every ask."""
+    first: Dict[int, dict] = {}
+
+    def change(cols):
+        n = len(next(iter(cols.values())))
+        return {k: v.copy() for k, v in first.setdefault(n, cols).items()}
+    _draw(patch, change)
+
+
+FAULTS: Dict[str, Callable] = {
+    f.__name__: f for f in (fit_unchanged, fit_half_batch, scores_half_batch,
+                            pick_altered, head_top_n, head_one_cluster,
+                            head_worst, candidates_cut, candidates_stale)}
+# the faults that only a clustering cell can have
+CLUSTERING_ONLY = ("head_top_n", "head_one_cluster", "head_worst")
+
+
+def plant(name: str, patch=setattr, **kw) -> None:
+    FAULTS[name](patch, **kw)
