@@ -18,6 +18,10 @@ reference's names:
     synchronous upload) raises.  ``to_host`` is the sanctioned exit (the
     reference's ``jax.device_get``) and ``to_device`` the sanctioned
     upload; each lifts the guard for its own call only.
+  * ``start_tally()`` / ``stop_tally()`` — count the calling thread's
+    ``to_host`` / ``to_device`` calls and bytes and its ``EntryPoint``
+    calls and new signatures into a fresh ``Tally``, as ``core.telemetry``
+    does over each ask; with no tally running nothing is counted.
   * ``assert_holds(lock)`` — debug-mode lock-ownership assertion for
     caller-must-hold functions.  Free when disabled; enable with
     ``REPRO_DEBUG_LOCKS=1`` or ``set_debug_locks``.
@@ -97,6 +101,37 @@ def signature(args, kwargs) -> tuple:
             tuple(sorted((k, key(v)) for k, v in kwargs.items())))
 
 
+class Tally:
+    """One thread's totals, since ``start_tally``, of the designed crossings
+    and the entry points' calls: ``to_host`` calls (``exits``) and the
+    bytes of the tensors they return (``d2h_bytes``), ``to_device`` calls
+    (``uploads``) and the bytes they move (``h2d_bytes``), ``EntryPoint``
+    calls (``entry_calls``) and the new signatures among them
+    (``new_signatures``)."""
+
+    __slots__ = ("exits", "d2h_bytes", "uploads", "h2d_bytes",
+                 "entry_calls", "new_signatures")
+
+    def __init__(self):
+        self.exits = self.d2h_bytes = self.uploads = self.h2d_bytes = 0
+        self.entry_calls = self.new_signatures = 0
+
+
+_TALLY = threading.local()
+
+
+def start_tally() -> Tally:
+    """A fresh ``Tally`` that counts the calling thread's crossings and
+    entry calls from now to ``stop_tally``."""
+    t = _TALLY.t = Tally()
+    return t
+
+
+def stop_tally() -> None:
+    """Stop the calling thread's tally."""
+    _TALLY.t = None
+
+
 class EntryPoint:
     """A bank entry point that records every distinct dispatch signature
     it is called with (``signature``); ``_cache_size()`` counts them, as a
@@ -108,7 +143,13 @@ class EntryPoint:
         self._signatures: set = set()
 
     def __call__(self, *args, **kwargs):
-        self._signatures.add(signature(args, kwargs))
+        sigs = self._signatures
+        seen = len(sigs)
+        sigs.add(signature(args, kwargs))
+        t = getattr(_TALLY, "t", None)
+        if t is not None:
+            t.entry_calls += 1
+            t.new_signatures += len(sigs) - seen
         return self.__wrapped__(*args, **kwargs)
 
     def _cache_size(self) -> int:
@@ -241,24 +282,41 @@ def _sanctioned():
 def to_host(*tensors):
     """The designed device->host exit (the reference's
     ``jax.device_get``): each tensor as a numpy array, one for one
-    argument, a tuple for several.  Host arrays pass through."""
+    argument, a tuple for several.  Host arrays pass through.  The call
+    and the returned tensors' bytes go into the thread's running tally
+    (``start_tally``)."""
     with _sanctioned():
         out = tuple(t.detach().cpu().numpy() if isinstance(t, torch.Tensor)
                     else np.asarray(t) for t in tensors)
+    tl = getattr(_TALLY, "t", None)
+    if tl is not None:
+        tl.exits += 1
+        for a, src in zip(out, tensors):
+            if isinstance(src, torch.Tensor):
+                tl.d2h_bytes += a.nbytes
     return out[0] if len(out) == 1 else out
 
 
 def to_device(array, device, dtype=None) -> torch.Tensor:
     """The designed host->device upload: ``array`` (a host array, a
     scalar or a tensor) as a contiguous tensor on ``device``; a host array
-    is cast to the numpy ``dtype`` first when one is given."""
+    is cast to the numpy ``dtype`` first when one is given.  The call and
+    the bytes it moves go into the thread's running tally
+    (``start_tally``)."""
     with _sanctioned():
         if isinstance(array, torch.Tensor):
-            return array.to(device).contiguous()
-        a = np.asarray(array, dtype=dtype)
-        if not a.flags.c_contiguous:
-            a = np.ascontiguousarray(a)
-        return torch.as_tensor(a, device=device)
+            out = array.to(device).contiguous()
+        else:
+            a = np.asarray(array, dtype=dtype)
+            if not a.flags.c_contiguous:
+                a = np.ascontiguousarray(a)
+            out = torch.as_tensor(a, device=device)
+    tl = getattr(_TALLY, "t", None)
+    if tl is not None:
+        tl.uploads += 1
+        if not isinstance(array, torch.Tensor) or out.device != array.device:
+            tl.h2d_bytes += out.nbytes
+    return out
 
 
 # --------------------------------------------------------------------- locks

@@ -24,6 +24,8 @@ own view).
     kernel.  A bank may mix the families.
   * ``save``/``load`` write and read the same single ``.npz`` (format v2)
     as the JAX package, byte for byte, so a checkpoint moves across.
+  * Every ask leaves a record of its stages and counters in
+    ``core.telemetry`` (the bank's ``telemetry_id`` marks its records).
 
 Host work (candidate draws, gathers, standardization, registration) is the
 reference's numpy code unchanged, so draws and checkpoints are bit-identical
@@ -41,6 +43,7 @@ import numpy as np
 import torch
 
 from repro_torch.analysis.sanitizers import to_device, to_host
+from repro_torch.core import telemetry
 from repro_torch.device import DeviceLike, resolve_device
 
 # trial-status codes (ledger ``status`` array; 0 = empty slot)
@@ -280,6 +283,7 @@ class StudyBank:
         self.seed = seed
         self.ledger = StudyLedger(n_studies, self.space.dim)
         self._gp_cache = None   # obs_stamp-keyed device state
+        self.telemetry_id = telemetry.new_bank_id()   # its asks' records
         # the last op applied through ``apply_op`` (journaled deployments)
         self.op_seq = 0
         self.extra = None       # side-channel meta restored by ``load``
@@ -316,6 +320,7 @@ class StudyBank:
         bank.seed = None
         bank.ledger = view._led
         bank._gp_cache = None
+        bank.telemetry_id = telemetry.new_bank_id()
         bank.op_seq = 0
         bank.extra = None
         bank._rng = None
@@ -461,22 +466,45 @@ class StudyBank:
         Studies still in the random phase (< 2 observations) or with the
         random or reference strategy ask through their own view; every
         other study is served by the batched device pipeline, one pass per
-        strategy family.  Returns ``[trials_of_study_0, ...]``.
+        strategy family.  Returns ``[trials_of_study_0, ...]``.  The ask
+        and its stages are recorded as ``core.telemetry`` describes.
         """
         if n < 1:
             raise ValueError("ask_all(n) requires n >= 1")
+        with telemetry.root(self.telemetry_id, "ask"):
+            return self._ask_all(n)
+
+    def _ask_all(self, n: int) -> List[list]:
         led = self.ledger
         B = led.n_studies
         n_obs = led.n_observed()
         device = (n_obs >= 2) & self._bankable
         out: List[Optional[list]] = [None] * B
-        for b in np.nonzero(~device)[0]:
-            out[b] = self.studies[int(b)].ask(n)
+        if not device.all():
+            with telemetry.span("ask.random"):
+                for b in np.nonzero(~device)[0]:
+                    out[b] = self.studies[int(b)].ask(n)
         if not device.any():
             return out
-        picks = self._ask_device(n, n_obs, device)
-        # bulk registration: one fancy-indexed ledger write per field
+        cols, Cflat, n_mc, picked = self._ask_device(n, n_obs, device)
+        with telemetry.span("ask.register"):
+            self._register(n, cols, Cflat, n_mc, picked, out)
+        return out
+
+    def _register(self, n, cols, Cflat, n_mc, picked, out) -> None:
+        """The picked configurations and encoded rows of every device-phase
+        study into the ledger as pending trials, and their ``Trial``
+        objects into ``out``."""
         from repro_torch.core.optimizer import Trial
+        led, space = self.ledger, self.space
+        picks: Dict[int, tuple] = {}
+        for rows, idx in picked:
+            flat = (rows[:, None] * n_mc + idx).astype(np.int64)  # (R, n)
+            cfgs = space.configs_at(cols, flat.ravel())
+            enc = Cflat[flat.ravel()].reshape(len(rows), -1, Cflat.shape[1])
+            for i, b in enumerate(rows):
+                picks[int(b)] = (cfgs[i * n:(i + 1) * n], enc[i])
+        # bulk registration: one fancy-indexed ledger write per field
         dev = np.array(sorted(picks))
         tids0 = led.n_trials[dev].astype(np.int64)
         led.ensure_capacity(int((tids0 + n).max()))
@@ -497,70 +525,76 @@ class StudyBank:
                 v._trials[t.id] = t
                 trials.append(t)
             out[b] = trials
-        return out
 
     def _ask_device(self, n: int, n_obs: np.ndarray, device: np.ndarray):
         """Per-family sub-batched dispatch over one columnar candidate draw;
-        returns ``{study: (configs, encoded_rows)}`` for every device-phase
-        study.  GP rows share the cached observation stage; each family
-        pays one pick pass and one exit sync."""
+        returns ``(cols, Cflat, n_mc, [(rows, idx), ...])``: the draw, its
+        encoding, candidates per study, and each family's rows with their
+        (R, n) picked candidate indices on the host.  GP rows share the
+        cached observation stage; each family pays one pick pass and one
+        exit sync."""
         led, space = self.ledger, self.space
         B, d = led.n_studies, led.dim
         k_obs = n_obs.astype(np.int32)
         k_pend = led.n_pending().astype(np.int32)
         pend_cap = max(4, -(-int(k_pend.max()) // 4) * 4)
         na = _pow2(max(16, int(k_obs.max()) + pend_cap + n))
+        telemetry.count("na", na)
         n_mc = self.mc_samples or self.space.mc_samples(n)
-        cols = space.sample_columns(B * n_mc, self._rng)
-        Cflat = np.asarray(space.encode_columns(cols, B * n_mc), np.float32)
+        with telemetry.span("ask.draw"):
+            cols = space.sample_columns(B * n_mc, self._rng)
+            Cflat = np.asarray(space.encode_columns(cols, B * n_mc),
+                               np.float32)
         C = Cflat.reshape(B, n_mc, d)
         dev = np.nonzero(device)[0]
-        picks: Dict[int, tuple] = {}
+        picked = []
         for fam in ("gp", "cluster", "tpe"):
             rows = np.array([int(b) for b in dev if self._fams[int(b)] == fam],
                             np.int64)
-            if not len(rows):
-                continue
-            idx = self._pick_family(fam, rows, C[rows], k_obs, k_pend, n, na,
-                                    pend_cap)
-            idx = to_host(idx)                    # one exit per family
-            flat = (rows[:, None] * n_mc + idx).astype(np.int64)  # (R, n)
-            cfgs = space.configs_at(cols, flat.ravel())
-            enc = Cflat[flat.ravel()].reshape(len(rows), -1, Cflat.shape[1])
-            for i, b in enumerate(rows):
-                picks[int(b)] = (cfgs[i * n:(i + 1) * n], enc[i])
-        return picks
+            if len(rows):
+                picked.append((rows, self._pick_family(
+                    fam, rows, C[rows], k_obs, k_pend, n, na, pend_cap)))
+        return cols, Cflat, n_mc, picked
 
     def _pick_family(self, fam, rows, C, k_obs, k_pend, n, na, pend_cap):
         """One family's pick for the ``rows`` sub-batch: (R, n) candidate
-        indices on the device."""
+        indices, brought to the host by the family's one exit."""
         if fam == "tpe":
-            Xd, yraw, _ = self._gather_obs(k_obs[rows], na, rows)
-            Pd = self._gather_pend(k_pend[rows], pend_cap, rows)
-            return self._dispatch_tpe(Xd, yraw, Pd, C, k_obs[rows],
-                                      k_pend[rows], n, na)
-        cache = self._obs_stage(k_obs, na)
-        return self._pick_gp(cache, rows, C, k_obs[rows], k_pend[rows], n,
-                             pend_cap, fam)
+            with telemetry.span("ask.pick", fam):
+                Xd, yraw, _ = self._gather_obs(k_obs[rows], na, rows)
+                Pd = self._gather_pend(k_pend[rows], pend_cap, rows)
+                return to_host(self._dispatch_tpe(
+                    Xd, yraw, Pd, C, k_obs[rows], k_pend[rows], n, na))
+        with telemetry.span("ask.obs"):
+            cache = self._obs_stage(k_obs, na)
+        with telemetry.span("ask.pick", fam):
+            return to_host(self._pick_gp(cache, rows, C, k_obs[rows],
+                                         k_pend[rows], n, pend_cap, fam))
 
     def ask_view(self, view, n: int, cols, n_mc: int):
         """Bank-of-one ask: one view's proposal served by the bucketed
         pipeline, with candidates drawn by the view's own RNG stream.
-        Returns ``(configs, encoded_rows)`` for ``n`` picks."""
-        led, space = self.ledger, self.space
-        b = view._b
-        n = min(n, n_mc)
-        k_obs = led.n_observed().astype(np.int32)
-        k_pend = led.n_pending().astype(np.int32)
-        pend_cap = max(4, -(-int(k_pend.max()) // 4) * 4)
-        na = _pow2(max(16, int(k_obs.max()) + pend_cap + n))
-        Cflat = np.asarray(space.encode_columns(cols, n_mc), np.float32)
-        C = Cflat.reshape(1, n_mc, led.dim)
-        rows = np.array([b], np.int64)
-        idx = self._pick_family(self._fams[b], rows, C, k_obs, k_pend, n, na,
-                                pend_cap)
-        idx = to_host(idx)[0].astype(np.int64)
-        return space.configs_at(cols, idx), Cflat[idx]
+        Returns ``(configs, encoded_rows)`` for ``n`` picks.  Recorded under
+        a root ``ask_view`` (``core.telemetry``)."""
+        with telemetry.root(self.telemetry_id, "ask_view"):
+            led, space = self.ledger, self.space
+            b = view._b
+            n = min(n, n_mc)
+            k_obs = led.n_observed().astype(np.int32)
+            k_pend = led.n_pending().astype(np.int32)
+            pend_cap = max(4, -(-int(k_pend.max()) // 4) * 4)
+            na = _pow2(max(16, int(k_obs.max()) + pend_cap + n))
+            telemetry.count("na", na)
+            with telemetry.span("ask.draw"):
+                Cflat = np.asarray(space.encode_columns(cols, n_mc),
+                                   np.float32)
+            C = Cflat.reshape(1, n_mc, led.dim)
+            rows = np.array([b], np.int64)
+            idx = self._pick_family(self._fams[b], rows, C, k_obs, k_pend, n,
+                                    na, pend_cap)
+            with telemetry.span("ask.register"):
+                idx = idx[0].astype(np.int64)
+                return space.configs_at(cols, idx), Cflat[idx]
 
     def _gather_obs(self, k_obs: np.ndarray, na: int, rows: np.ndarray):
         """Masked-rank observation gather at the bucket shape for ``rows``:
@@ -636,6 +670,8 @@ class StudyBank:
         due &= ko64 >= 2
         if not due.any():
             return False
+        telemetry.count("fit_rows", len(rows))
+        telemetry.count("due_rows", int(due.sum()))
         from repro_torch.core import gp as gp_lib
         ym = led.y_mean[rows].copy()
         ys = led.y_std[rows].copy()
@@ -671,28 +707,34 @@ class StudyBank:
         key = (led.obs_stamp, na, signs)
         cache = self._gp_cache
         if cache is not None and cache["key"] == key:
+            telemetry.count("obs_cache_hits")
             return cache
         from repro_torch.core import gp as gp_lib
-        Xd, yraw, mask = self._gather_obs(ko, na, gpr)
-        if self._fit_if_due(Xd, yraw, mask, ko, gpr):
-            key = (led.obs_stamp, na, signs)
-        # frozen standardization, exactly the single-study GP contract
-        z = (yraw - led.y_mean[gpr][:, None]) / led.y_std[gpr][:, None]
-        z = (z * mask).astype(np.float32)
-        ls = np.exp(led.log_ls[gpr]).astype(np.float32)
-        var = np.exp(led.log_var[gpr]).astype(np.float32)
-        noise = (np.exp(led.log_noise[gpr]) + 1e-5).astype(np.float32)
-        t = self._tensor
-        Xd_t, mask_t, ls_t = t(Xd), t(mask), t(ls)
-        var_t, noise_t = t(var), t(noise)
-        entry = gp_lib.BANK_ENTRY_POINTS
-        L, Linv, cond = entry["bank_factors"](Xd_t, mask_t, ls_t, var_t,
-                                              noise_t)
-        Xs = entry["bank_prescale_X"](Xd_t, ls_t)
-        led.ensure_gp_capacity(na)
-        L_host, Linv_host, cond_host = to_host(L, Linv, cond)
-        led.L[gpr, :na, :na] = L_host
-        led.Linv[gpr, :na, :na] = Linv_host
+        with telemetry.span("ask.obs.gather"):
+            Xd, yraw, mask = self._gather_obs(ko, na, gpr)
+        with telemetry.span("ask.obs.fit"):
+            if self._fit_if_due(Xd, yraw, mask, ko, gpr):
+                key = (led.obs_stamp, na, signs)
+        with telemetry.span("ask.obs.factors"):
+            # frozen standardization, exactly the single-study GP contract
+            z = (yraw - led.y_mean[gpr][:, None]) / led.y_std[gpr][:, None]
+            z = (z * mask).astype(np.float32)
+            ls = np.exp(led.log_ls[gpr]).astype(np.float32)
+            var = np.exp(led.log_var[gpr]).astype(np.float32)
+            noise = (np.exp(led.log_noise[gpr]) + 1e-5).astype(np.float32)
+            t = self._tensor
+            Xd_t, mask_t, ls_t = t(Xd), t(mask), t(ls)
+            var_t, noise_t = t(var), t(noise)
+            entry = gp_lib.BANK_ENTRY_POINTS
+            L, Linv, cond = entry["bank_factors"](Xd_t, mask_t, ls_t, var_t,
+                                                  noise_t)
+            Xs = entry["bank_prescale_X"](Xd_t, ls_t)
+            led.ensure_gp_capacity(na)
+            mark = telemetry.device_mark(self.device)
+            L_host, Linv_host, cond_host = to_host(L, Linv, cond)
+        with telemetry.span("ask.obs.copy", since=mark):
+            led.L[gpr, :na, :na] = L_host
+            led.Linv[gpr, :na, :na] = Linv_host
         cache = self._gp_cache = {
             "key": key, "Xs": Xs, "z": t(z), "mask": mask_t, "L": L,
             "Linv": Linv, "ls": ls_t, "var": var_t, "noise": noise_t,

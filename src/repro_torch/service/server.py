@@ -31,6 +31,15 @@ reaches the log, where it would poison every future replay.
 Degradation: if the WAL volume errors, the service stays up read-only —
 ``best``/``results``/``studies`` keep serving, mutations get 503.
 
+``GET /health`` (``TuningService.health``) also reports ``asks``, the
+bank's last 64 asks as ``repro_torch.core.telemetry`` records them: each
+stage span's median and p90 ms (``ask_view``, the root of a study's ask,
+and its stages ``ask.draw``, ``ask.obs`` with ``ask.obs.gather`` /
+``.fit`` / ``.factors`` / ``.copy``, ``ask.pick``, ``ask.register``) and
+each counter's mean (``na``, the bucket; ``fit_rows`` / ``due_rows``;
+``obs_cache_hits``; ``exits`` / ``d2h_bytes``, ``uploads`` /
+``h2d_bytes``; ``entry_calls`` / ``new_signatures``; ``builds``).
+
 ``REPRO_SERVICE_CRASH`` (``tag:index`` specs, comma-separated — e.g.
 ``tell.after_journal:3``) arms deterministic SIGKILL points for the
 chaos harness; unset in production.
@@ -441,10 +450,14 @@ class TuningService:
             return {"studies": out}
 
     def health(self) -> Dict[str, Any]:
+        """Status, op sequence, studies, the WAL's error, and ``asks``:
+        the bank's last asks as ``core.telemetry.summary`` gives them."""
+        from repro_torch.core import telemetry
         return {"status": "degraded" if self.wal_error else "ok",
                 "op_seq": self.bank.op_seq,
                 "n_studies": len(self._names),
-                "wal_error": self.wal_error}
+                "wal_error": self.wal_error,
+                "asks": telemetry.summary(self.bank.telemetry_id)}
 
     # --------------------------------------------------------- compaction
     def compact(self) -> Dict[str, Any]:

@@ -142,6 +142,29 @@ def test_tell_dedup_and_ask_req_id_cache(tmp_path):
     svc.close()
 
 
+def test_health_reports_the_last_asks(tmp_path):
+    """``health`` serves the recorder's summary of the bank's asks: each
+    stage's median and p90 ms and each counter's mean, as JSON."""
+    svc = _svc(tmp_path)
+    svc.create_study("a")
+    rng = np.random.default_rng(0)
+    for _ in range(4):
+        for t in svc.ask("a", 2)["trials"]:
+            svc.tell("a", t["id"], float(rng.normal()))
+    h = json.loads(json.dumps(svc.health()))
+    asks = h["asks"]
+    assert h["status"] == "ok" and asks["asks"] >= 2
+    for name in ("ask_view", "ask.obs", "ask.obs.gather", "ask.pick",
+                 "ask.register"):
+        s = asks["spans"][name]
+        assert 0.0 <= s["median_ms"] <= s["p90_ms"] and s["n"] >= 1
+    c = asks["counters"]
+    assert c["na"] == 16.0 and c["exits"] >= 2.0
+    assert c["d2h_bytes"] > 0 and c["new_signatures"] >= 0.0
+    assert c["builds"] == 0.0
+    svc.close()
+
+
 def test_recovery_replays_interrupted_ask_bitwise(tmp_path):
     """Kill after the ask was journaled but before the reply: restart must
     re-serve the SAME trial ids and configurations (the WAL replay re-runs
