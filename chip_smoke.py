@@ -17,8 +17,10 @@ Phases:
      every branch of score_cov (``GP_KERNEL_SHAPES``), score_cov run twice
      at the fleet shape and required bitwise equal, its square root held
      equal to sqrtf on every float from 1e-12 up, its bound counted with
-     the product K L^-T at the split-TF32 rate; the TPE kernels at the
-     fleet path's shapes, one study of it, a ragged small shape, a large
+     the product K L^-T at the split-TF32 rate; the fit's kernels
+     (``masked_kernel``, ``fit_grad``) at the cells' shape, a ragged shape
+     and one tile (``FIT_KERNEL_SHAPES``), run twice at the cells' shape and
+     required bitwise equal; the TPE kernels at the fleet path's shapes, one study of it, a ragged small shape, a large
      bucket and fractional weights with a row in both splits, each shape
      run twice and required bitwise equal;
      flash attention at the served
@@ -191,6 +193,7 @@ The kernels line's ``launches`` add up each kernel's launches over the
 main paths that run it (flash: phases 8, 13, 16, 17, 23, 24 and 25; the scan
 and the mLSTM kernels: phases 10, 13 and 24; ``score_cov``:
 phases 3, 19, 20c, 21 and 22; ``var_downdate``: phases 3, 20c, 21 and 22;
+``masked_kernel`` and ``fit_grad``: phase 3;
 ``tpe_scores``: phases 4, 20c, 21 and 22).
 
 The second-to-last line is a JSON object with one entry per kernel; the last
@@ -592,10 +595,10 @@ def kernel_errors(B, S, na, n_act, d, dev, seed=7):
     """Every kernel output against its plain version on the same inputs at
     one shape.  Returns ``({output: (max_abs_err, tolerance)}, inputs)``.
 
-    Tolerances.  K and k(C, x*): the squared distance |c|^2 + |x|^2 - 2 c.x
-    rounds to a few ulps of |c|^2 + |x|^2 (summed in another order than
-    cuBLAS's), which moves K by at most (5/6) var per unit of d2:
-    8 eps32 (|c|^2 + |x|^2)_max var_max.  mu: a sum over na, 1e-5 of the
+    Tolerances.  K and k(C, x*): both sum the squared differences in
+    column order, the kernel with one FMA a column, so d2 differs by a few
+    ulps of d2 <= 2 (|c|^2 + |x|^2), which moves K by at most (5/6) var per
+    unit of d2: within 8 eps32 (|c|^2 + |x|^2)_max var_max.  mu: a sum over na, 1e-5 of the
     sum of absolute terms.  sig2: subtracts a sum of squares of K L^-T,
     whose terms grow with the factor's condition: 1e-4 of the prior
     variance, the JAX package's own kernel-test tolerance."""
@@ -651,10 +654,10 @@ def time_kernels(t, reps: int):
     plain = cuda_ms(lambda: ref.score_cov_ref(Cs, Xs, mask, Linv, alpha,
                                               var, noise), reps)
     # operations: the triangular product (2 flops per multiply-add over the
-    # lower triangle), on the tensor cores in split TF32, and the distance
-    # dots and mu in fp32
+    # lower triangle), on the tensor cores in split TF32, and the distances
+    # (a difference and an FMA per column) and mu in fp32
     tri = B * S * na * (na + 1)
-    rest = B * S * na * (2 * dp + 2)
+    rest = B * S * na * (3 * dp + 2)
     recs["score_cov"] = dict(
         ms=ms, plain_ms=plain, flops=tri + rest,
         t_ops=tri / PEAK_SPLIT_TF32 + rest / PEAK_FP32,
@@ -665,7 +668,7 @@ def time_kernels(t, reps: int):
     ms = cuda_ms(lambda: ops.var_downdate(*dd, slot=t["slot"]), reps)
     plain = cuda_ms(lambda: ref.var_downdate_ref(*dd), reps)
     recs["var_downdate"] = dict(
-        ms=ms, plain_ms=plain, flops=2 * B * S * na + 6 * B * S * dp,
+        ms=ms, plain_ms=plain, flops=2 * B * S * na + 3 * B * S * dp,
         bytes=4 * (B * S * na + B * S * dp + B * dp + B * na + 4 * B
                    + 4 * B * S))
     for r in recs.values():
@@ -749,6 +752,125 @@ def check_kernels(dev, reps_main: int):
                 f"{max(r['t_ops_fp32'], r['bytes'] / PEAK_BYTES) * 1e3:.4f}"
                 f" ms; kernel at {r['bound_ms'] / r['ms']:.1%} of the split-"
                 "TF32 bound")
+    return recs
+
+
+# --------------------------------------------------------------------------- #
+# the fit's kernels (phase 2)
+# --------------------------------------------------------------------------- #
+# (tag, B, na, n_act, d): the fleet cells' shape (16 studies at bucket 1024,
+# six dimensions), ragged tiles with dp 24, one tile with nothing masked,
+# and dp 104, whose tiles take more than 48 KB of shared memory
+FIT_KERNEL_SHAPES = [("cells", 16, 1024, 1000, 6), ("ragged", 3, 100, 77, 19),
+                     ("one-tile", 2, 64, 64, 2), ("wide", 2, 128, 100, 100)]
+FIT_GRAD_ARGS = ("X", "mask", "Kinv", "alpha", "ls", "var", "noise_exp",
+                 "n_eff")
+
+
+def fit_system(B, na, n_act, d, dev, seed=5):
+    """One closed-form fit step's inputs per study: rows with a ragged
+    tail (``n_act - 8 b`` observed in study b), warm-ish hyperparameters,
+    K^-1 from the factor's inverse and alpha = K^-1 z, as
+    ``gp._nll_grad`` forms them."""
+    rng = np.random.default_rng(seed)
+    X = rng.uniform(size=(B, na, d))
+    mask = np.zeros((B, na))
+    for b in range(B):
+        mask[b, :max(1, n_act - 8 * b)] = 1.0
+    X *= mask[..., None]
+    z = (np.sin(6 * X[..., 0]) + X[..., 1] + 0.05 * rng.normal(size=(B, na)))
+    t = lambda a: torch.as_tensor(np.asarray(a, np.float32),  # noqa: E731
+                                  device=dev)
+    X, mask, z = t(X), t(mask), t(z * mask)
+    ls = t(rng.uniform(0.2, 0.8, (B, d)))
+    var = t(rng.uniform(0.5, 2.0, B))
+    noise_exp = t(rng.uniform(1e-3, 2e-2, B))
+    L = gp_lib.cholesky_masked(X, mask, ls, var, noise_exp + 1e-5)
+    Linv = scoring.linv_from_chol(L)
+    return dict(X=X, mask=mask, ls=ls, var=var, noise_exp=noise_exp,
+                Kinv=Linv.mT @ Linv, alpha=scoring.kinv_matvec(Linv, z),
+                n_eff=torch.clamp(mask.sum(-1), min=1.0))
+
+
+def fit_kernel_errors(B, na, n_act, d, dev, seed=5):
+    """The fit's two kernels against their plain versions at one shape.
+    Returns ``({output: (error, tolerance)}, inputs)``.
+
+    ``masked_kernel``: the diagonal and the masked entries exactly; the
+    Matern within 8 eps32 (|x|^2 + |y|^2)_max var_max (both sum the
+    squared differences in column order, the kernel with one FMA a column,
+    so d2 differs by a few ulps of d2, which moves K by at most (5/6) var
+    per unit).  ``fit_grad``: against the
+    plain version in float64 on the same float32 inputs, as a share of each
+    component's sum of absolute terms (from |K^-1| + |alpha| |alpha|^T, the
+    magnitudes W is rounded against), within 1e-5: the kernel rounds each
+    pair's term in float32 (d2, sqrt, exp, W) and sums in float64."""
+    g = fit_system(B, na, n_act, d, dev, seed)
+    X, mask, ls, var = g["X"], g["mask"], g["ls"], g["var"]
+    noise, jit = g["noise_exp"] + 1e-5, scoring.jitter(var)
+    K_k = ops.masked_kernel(X, mask, ls, var, noise, jit)
+    K_r = ref.masked_kernel(X, mask, ls, var, noise, jit)
+    eye = torch.eye(na, dtype=torch.bool, device=dev)
+    off = (mask[:, :, None] * mask[:, None, :] > 0) & ~eye
+    x2 = float(((X / ls[:, None, :]) ** 2).sum(-1).max())
+    grad = ops.fit_grad(*(g[k] for k in FIT_GRAD_ARGS))
+    a64 = [g[k].double() for k in FIT_GRAD_ARGS]
+    want = ref.fit_grad_ref(*a64)
+    Kinv, alpha = a64[2], a64[3]
+    a64[2] = Kinv.abs() + alpha.abs()[:, :, None] * alpha.abs()[:, None, :]
+    a64[3] = torch.zeros_like(alpha)
+    scale = ref.fit_grad_ref(*a64).abs()
+    errs = {"K": (_max_err(K_k, K_r), 8 * EPS32 * 2 * x2 * float(var.max())),
+            "K_diag_masked": (_max_err(K_k[~off], K_r[~off]), 0.0),
+            "grad": (float(((grad.double() - want).abs() / scale).max()),
+                     1e-5)}
+    return errs, g
+
+
+def check_fit_kernels(dev, reps_main: int):
+    """Phase 2: the fit's kernels against their plain versions at
+    ``FIT_KERNEL_SHAPES``, each run twice at the cells' shape and held
+    bitwise equal, and timed there.  Returns the per-kernel records."""
+    worst = {"masked_kernel": 0.0, "fit_grad": 0.0}
+    recs = {}
+    for tag, B, na, n_act, d in FIT_KERNEL_SHAPES:
+        errs, g = fit_kernel_errors(B, na, n_act, d, dev)
+        torch.cuda.synchronize()
+        for name, (err, tol) in errs.items():
+            ok = err <= tol
+            log(f"[fit-kernels] {tag} B={B} na={na} d={d} {name}: "
+                f"err={err:.3e} tol={tol:.3e} {'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise AssertionError(f"{tag} {name} outside tolerance")
+        worst["masked_kernel"] = max(worst["masked_kernel"], errs["K"][0])
+        worst["fit_grad"] = max(worst["fit_grad"], errs["grad"][0])
+        if tag != "cells":
+            continue
+        var = g["var"]
+        kargs = (g["X"], g["mask"], g["ls"], var, g["noise_exp"] + 1e-5,
+                 scoring.jitter(var))
+        gargs = [g[k] for k in FIT_GRAD_ARGS]
+        check_deterministic("masked_kernel cells' shape",
+                            lambda: ops.masked_kernel(*kargs), "fit-kernels")
+        check_deterministic("fit_grad cells' shape",
+                            lambda: ops.fit_grad(*gargs), "fit-kernels")
+        recs["masked_kernel"] = dict(
+            ms=cuda_ms(lambda: ops.masked_kernel(*kargs), reps_main),
+            plain_ms=cuda_ms(lambda: ref.masked_kernel(*kargs), reps_main),
+            bytes=4 * (B * na * na + B * na * (d + 1) + B * (d + 3)))
+        recs["fit_grad"] = dict(
+            ms=cuda_ms(lambda: ops.fit_grad(*gargs), reps_main),
+            plain_ms=cuda_ms(lambda: ref.fit_grad_ref(*gargs), reps_main),
+            bytes=4 * (B * na * (na + 1) // 2 + B * na * (d + 2)
+                       + B * (d + 4)))
+    for name, r in recs.items():
+        r.update(max_abs_err=worst[name],
+                 bound_ms=r["bytes"] / PEAK_BYTES * 1e3, bound_by="bytes")
+        log(f"[fit-kernels] {name} cells' shape: kernel {r['ms']:.4f} ms, "
+            f"plain {r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
+            f"(bytes, {r['bytes'] / 1e6:.1f} MB), kernel at "
+            f"{r['bound_ms'] / r['ms']:.1%} of it; no single PyTorch call "
+            "computes this function (library_ms null)")
     return recs
 
 
@@ -2482,6 +2604,14 @@ def check_picks(trials, n):
             assert all(0.0 <= x <= 1.0 and math.isfinite(x) for x in r), r
 
 
+def pick_launches(launches) -> dict:
+    """The pick kernels' counts of ``ops.launches`` (the fit's kernels,
+    ``masked_kernel`` and ``fit_grad``, launch once per Adam step of
+    every refit, ``masked_kernel`` once more per factors build; phase 3
+    checks them)."""
+    return {k: launches[k] for k in ("score_cov", "var_downdate")}
+
+
 def fleet_path(dev):
     """Phase 3; returns the bank and the launch counts of its asks."""
     bank = seeded_fleet(dev)
@@ -2510,7 +2640,10 @@ def fleet_path(dev):
     log(f"[fleet] launches {launches}; max_memory_allocated "
         f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
     if launches["score_cov"] < FLEET["rounds"] or \
-            launches["var_downdate"] < FLEET["rounds"] * (n - 1):
+            launches["var_downdate"] < FLEET["rounds"] * (n - 1) or \
+            launches["fit_grad"] < bank.fit_steps or \
+            not 1 <= launches["masked_kernel"] - launches["fit_grad"] \
+            <= FLEET["rounds"]:
         raise AssertionError(f"main path skipped a kernel: {launches}")
     return bank, launches
 
@@ -2887,7 +3020,8 @@ def cluster_fleet_path(dev):
             f"synchronized), best -Hartmann6 so far {best:.5f}")
     launches = dict(ops.launches)
     log(f"[cluster] launches {launches}")
-    if launches != {"score_cov": FLEET["rounds"], "var_downdate": 0}:
+    if pick_launches(launches) != {"score_cov": FLEET["rounds"],
+                                   "var_downdate": 0}:
         raise AssertionError(f"clustering asks launched {launches}")
     third = FLEET["B"] // 3
     counts = (FLEET["B"] - 2 * third, third, third)    # 22, 21, 21
@@ -2897,7 +3031,7 @@ def cluster_fleet_path(dev):
     _reset(ops.launches, tpe_ops.launches)
     trials, ms = _timed_ask(mixed, n)
     check_picks(trials, n)
-    got = {**ops.launches, **tpe_ops.launches}
+    got = {**pick_launches(ops.launches), **tpe_ops.launches}
     log(f"[cluster-mixed] {counts[0]} bayesian + {counts[1]} tpe + "
         f"{counts[2]} clustering studies: ask_all({n}) {ms:.1f} ms (host "
         f"clock, synchronized), launches {got}")
@@ -3404,7 +3538,7 @@ def ref_tuner_path(dev):
     log(f"[ref-tuner] mixed Branin, hallucination_ref (kinv_pallas) batch "
         f"5 x 15: best {full.best_objective:.5f} at {full.best_params} "
         f"({wall:.2f} s, launches {got})")
-    if got != {"score_cov": 15 * 5, "var_downdate": 0}:
+    if pick_launches(got) != {"score_cov": 15 * 5, "var_downdate": 0}:
         raise AssertionError(f"hallucination_ref Tuner launched {got}")
     with tempfile.TemporaryDirectory() as tmp:
         ckpt = os.path.join(tmp, "ref_tuner.json")
@@ -4469,6 +4603,7 @@ def main(argv) -> int:
             "(negative: K streamed from global memory), "
             f"{blocks.value} blocks per SM (occupancy calculator)")
     recs = check_kernels(dev, reps_main=20)
+    recs.update(check_fit_kernels(dev, reps_main=20))
     recs.update(check_tpe_kernels(dev, reps_main=20))
     recs["flash_attention"] = check_flash_kernel(dev, reps_main=20)
     recs.update(check_mlstm_kernels(dev, reps_main=10))
@@ -4547,6 +4682,7 @@ def main(argv) -> int:
         launches[name] += n
     wall("25")
     gp_src = "src/repro_torch/kernels/gp_acquisition/csrc/gp_acquisition.cu"
+    fit_src = "src/repro_torch/kernels/gp_acquisition/csrc/fit_grad.cu"
     tpe_src = "src/repro_torch/kernels/tpe_kde/csrc/tpe_kde.cu"
     flash_src = ("src/repro_torch/kernels/flash_attention/csrc/"
                  "flash_attention.cu")
@@ -4560,6 +4696,8 @@ def main(argv) -> int:
                               "gp_acquisition.py:84"),
         "var_downdate": (gp_src, "src/repro/kernels/gp_acquisition/"
                                  "gp_acquisition.py:157"),
+        "masked_kernel": (fit_src, "none (XLA fuses the JAX fit's K)"),
+        "fit_grad": (fit_src, "none (jax.grad under XLA)"),
         "tpe_scores": (tpe_src, "src/repro/kernels/tpe_kde/tpe_kde.py:70"),
         "parzen_logdens": (tpe_src,
                            "src/repro/kernels/tpe_kde/tpe_kde.py:114"),

@@ -45,10 +45,11 @@ def matern52(x1: torch.Tensor, x2: torch.Tensor, ls: torch.Tensor,
 
 
 def _masked_kernel(X, mask, ls, var, noise):
-    K = matern52(X, X, ls, var) * (mask[:, :, None] * mask[:, None, :])
-    diag = torch.where(mask > 0, (var + noise + scoring.jitter(var))[:, None],
-                       1.0)
-    return torch.diagonal_scatter(K, diag, dim1=-2, dim2=-1)
+    """The masked kernel matrix (B, n, n) of the fit and the factors, built
+    in one pass (``ops.masked_kernel``; ``noise`` with its floor)."""
+    return ops.masked_kernel(X.contiguous(), mask.contiguous(),
+                             ls.contiguous(), var.contiguous(),
+                             noise.contiguous(), scoring.jitter(var))
 
 
 def _cholesky(K: torch.Tensor) -> torch.Tensor:
@@ -61,7 +62,9 @@ def cholesky_masked(X, mask, ls, var, noise) -> torch.Tensor:
 
 
 def _nll(X, z, mask, n_eff, log_ls, log_var, log_noise):
-    """Per-study -log marginal likelihood / n_eff, (B,)."""
+    """Per-study -log marginal likelihood / n_eff, (B,): the fit's loss,
+    kept as its plain reference (the fit takes its gradient in closed
+    form, ``_nll_grad``)."""
     ls = torch.exp(log_ls)
     var = torch.exp(log_var)
     noise = torch.exp(log_noise) + 1e-5
@@ -74,37 +77,58 @@ def _nll(X, z, mask, n_eff, log_ls, log_var, log_noise):
     return -ll / n_eff
 
 
+def _nll_grad(X, z, mask, n_eff, log_ls, log_var, log_noise):
+    """Gradient of ``_nll`` with respect to (log_ls, log_var, log_noise),
+    (B, d + 2), in closed form: 0.5 sum_ij W_ij dK_ij / n_eff with W =
+    K^-1 - alpha alpha^T and alpha = K^-1 z (``z`` masked).  K^-1 is the
+    product of the factor's inverse with its transpose, in full float32;
+    ``ops.fit_grad`` contracts W with dK.  A study whose K is not positive
+    definite gets a NaN factor, so a NaN gradient, in its own row only."""
+    ls = torch.exp(log_ls)
+    var = torch.exp(log_var)
+    noise_exp = torch.exp(log_noise)
+    L = cholesky_masked(X, mask, ls, var, noise_exp + 1e-5)
+    Linv = scoring.linv_from_chol(L)
+    Kinv = Linv.mT @ Linv
+    alpha = scoring.kinv_matvec(Linv, z)
+    return ops.fit_grad(X, mask, Kinv, alpha, ls, var, noise_exp, n_eff)
+
+
 def fit_hypers_bank(X, y, mask, log_ls, log_var, log_noise, y_mean, y_std,
                     steps: int = 40):
     """Adam on -log ML for every study at once, warm-started from the given
     log-hypers with fresh moments (lr 0.08, b1 0.9, b2 0.999, ``log_ls``
     clipped to [log 0.01, log 10] after each step).  ``y`` is the raw signed
-    history; ``(y_mean, y_std)`` are the frozen host standardization.  The
-    gradient of the sum of per-study losses is each study's own gradient,
-    since the studies share no parameter.  Returns (log_ls, log_var,
-    log_noise)."""
+    history; ``(y_mean, y_std)`` are the frozen host standardization.  Each
+    step takes every study's own gradient in closed form (``_nll_grad``).
+    The log-hypers are updated as one (B, d + 2) tensor, elementwise as
+    three would be.  Returns (log_ls, log_var, log_noise)."""
+    X = X.contiguous()
+    mask = mask.contiguous()
     z = ((y - y_mean[:, None]) / y_std[:, None]) * mask
     n_eff = torch.clamp(mask.sum(-1), min=1.0)
-    params = [log_ls.clone(), log_var.clone(), log_noise.clone()]
-    m = [torch.zeros_like(p) for p in params]
-    v = [torch.zeros_like(p) for p in params]
+    d = X.shape[-1]
+    p = torch.cat([log_ls, log_var[:, None], log_noise[:, None]], -1)
+    m = torch.zeros_like(p)
+    v = torch.zeros_like(p)
+    # the clip of log_ls alone: the other columns pass unchanged
+    lo = torch.full((d + 2,), -math.inf, dtype=p.dtype, device=p.device)
+    hi = torch.full((d + 2,), math.inf, dtype=p.dtype, device=p.device)
+    lo[:d] = LOG_LS_MIN
+    hi[:d] = LOG_LS_MAX
     lr, b1, b2 = 0.08, 0.9, 0.999
     one = torch.ones((), dtype=torch.float32, device=X.device)
     for i in range(steps):
-        ps = [p.detach().requires_grad_(True) for p in params]
-        loss = _nll(X, z, mask, n_eff, *ps).sum()
-        grads = torch.autograd.grad(loss, ps)
+        g = _nll_grad(X, z, mask, n_eff, p[:, :d], p[:, d], p[:, d + 1])
         t = float(i + 1)
         c1 = 1 - (b1 * one) ** t
         c2 = 1 - (b2 * one) ** t
-        with torch.no_grad():
-            for k, g in enumerate(grads):
-                m[k] = b1 * m[k] + (1 - b1) * g
-                v[k] = b2 * v[k] + (1 - b2) * g * g
-                params[k] = params[k] - lr * (m[k] / c1) / (
-                    torch.sqrt(v[k] / c2) + 1e-8)
-            params[0] = torch.clamp(params[0], LOG_LS_MIN, LOG_LS_MAX)
-    return params[0], params[1], params[2]
+        m = b1 * m + (1 - b1) * g
+        v = b2 * v + (1 - b2) * g * g
+        p = p - lr * (m / c1) / (torch.sqrt(v / c2) + 1e-8)
+        p = torch.clamp(p, lo, hi)
+    return (p[:, :d].contiguous(), p[:, d].contiguous(),
+            p[:, d + 1].contiguous())
 
 
 def bank_factors(X, mask, ls, var, noise):

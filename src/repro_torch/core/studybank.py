@@ -684,6 +684,10 @@ class StudyBank:
             t(led.log_var[rows]), t(led.log_noise[rows]), t(ym), t(ys),
             steps=self.fit_steps)
         lls, lv, ln = to_host(lls, lv, ln)   # one exit for the hypers
+        telemetry.count("fit_steps", self.fit_steps)
+        telemetry.count("fit_nonfinite", int(np.count_nonzero(
+            ~(np.isfinite(lls).all(-1) & np.isfinite(lv)
+              & np.isfinite(ln)))))
         g = np.asarray(rows)[sel]
         led.log_ls[g] = lls[sel]
         led.log_var[g] = lv[sel]

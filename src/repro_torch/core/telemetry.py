@@ -24,6 +24,9 @@ with no profiler running none is entered.
 
 Counters of an ask, by name: ``na`` (the bucket), ``fit_rows`` and
 ``due_rows`` (rows in the fit's batch and rows written back),
+``fit_steps`` (the fit's Adam steps, each a closed-form gradient) and
+``fit_nonfinite`` (rows of the fit whose returned hyperparameters are
+not finite: their kernel matrix failed its factorization),
 ``obs_cache_hits``; from the ``sanitizers.Tally`` that counts the asking
 thread's crossings while the ask runs: ``exits`` and ``d2h_bytes`` (``to_host``), ``uploads`` and
 ``h2d_bytes`` (``to_device``), ``entry_calls`` and ``new_signatures``
@@ -70,7 +73,8 @@ from repro_torch.kernels import build
 
 RING_SIZE = 4096
 # counts every record carries, 0 where the ask did none of it
-COUNTS = ("fit_rows", "due_rows", "obs_cache_hits")
+COUNTS = ("fit_rows", "due_rows", "fit_steps", "fit_nonfinite",
+          "obs_cache_hits")
 RING: "collections.deque[Record]" = collections.deque(maxlen=RING_SIZE)
 
 _ENABLED = True

@@ -1,12 +1,15 @@
 """Dispatch for the GP-BUCB scoring kernels.
 
-A CUDA tensor launches the hand-written kernel in ``csrc/gp_acquisition.cu``
-(built at first use, see ``repro_torch.kernels.build``); a CPU tensor runs the
-plain version in ``ref``.  Nothing falls back: a CUDA call that cannot build or
+A CUDA tensor launches the hand-written kernels in ``csrc/gp_acquisition.cu``
+and ``csrc/fit_grad.cu`` (one library, built at first use, see
+``repro_torch.kernels.build``); a CPU tensor runs the plain version in
+``ref``.  Nothing falls back: a CUDA call that cannot build or
 launch raises.  ``launches`` counts kernel launches per wrapper (CPU calls
 leave it alone), so a run can show that its main path went through the
 kernels; one ``score_cov`` call enqueues the split of L^-1 into TF32 parts
-and the scoring kernel, and counts once.  ``ref.score_cov_split`` is the
+and the scoring kernel, and counts once; one ``fit_grad`` call enqueues its
+two passes, and counts once; ``masked_kernel`` builds the fit's kernel
+matrix in one launch.  ``ref.score_cov_split`` is the
 scoring kernel's arithmetic for the CPU tests.  ``gp_mean_std`` is the
 single-study entry of the strategies' host loop (``HallucinationStrategy``).
 """
@@ -25,10 +28,12 @@ from repro_torch.kernels.checks import check_dp as _check_dp
 from repro_torch.kernels.checks import check_tensor as _check
 from repro_torch.kernels.gp_acquisition import ref
 
-SOURCES = (Path(__file__).resolve().parent / "csrc" / "gp_acquisition.cu",)
+_CSRC = Path(__file__).resolve().parent / "csrc"
+SOURCES = (_CSRC / "gp_acquisition.cu", _CSRC / "fit_grad.cu")
 SCORE_COV_KERNELS = ("score_cov_streamed", "score_cov_resident")
 
-launches = {"score_cov": 0, "var_downdate": 0}
+launches = {"score_cov": 0, "var_downdate": 0, "masked_kernel": 0,
+            "fit_grad": 0}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -49,6 +54,12 @@ def library() -> ctypes.CDLL:
         lib.gp_score_cov_attrs.restype = _I
         lib.gp_sqrt_check.argtypes = [ctypes.c_uint, ctypes.c_uint, _P, _P]
         lib.gp_sqrt_check.restype = _I
+        lib.gp_masked_kernel.argtypes = [_P] * 7 + [_I] * 3 + [_P]
+        lib.gp_masked_kernel.restype = _I
+        lib.gp_fit_grad.argtypes = [_P] * 10 + [_I] * 3 + [_P]
+        lib.gp_fit_grad.restype = _I
+        lib.gp_fit_grad_workspace.argtypes = [_I] * 3
+        lib.gp_fit_grad_workspace.restype = ctypes.c_long
         lib.gp_error_string.argtypes = [_I]
         lib.gp_error_string.restype = ctypes.c_char_p
         lib._typed = True
@@ -165,6 +176,76 @@ def var_downdate(Cs, x_star, Kc, u, schur, sig2, var, slot):
     _raise_on(lib, err, "var_downdate")
     launches["var_downdate"] += 1
     return sig2_new, knew
+
+
+def masked_kernel(X, mask, ls, var, noise, jitter):
+    """The fit's masked kernel matrix (B, na, na) in one launch
+    (``ref.masked_kernel`` states it).  X (B, na, d) raw rows; mask (B, na);
+    ls (B, d); var, noise (its 1e-5 floor added) and jitter (B,).  All
+    float32 and contiguous on one device; d up to ``checks.MAX_DP``."""
+    B, na, d = X.shape
+    dev = X.device
+    for name, t, shape in (("X", X, (B, na, d)), ("mask", mask, (B, na)),
+                           ("ls", ls, (B, d)), ("var", var, (B,)),
+                           ("noise", noise, (B,)), ("jitter", jitter, (B,))):
+        _check(name, t, shape, dev, X.dtype)
+    if dev.type == "cpu":
+        return ref.masked_kernel(X, mask, ls, var, noise, jitter)
+    if dev.type != "cuda":
+        raise ValueError(f"masked_kernel runs on cuda or cpu, not {dev}")
+    if X.dtype != torch.float32:
+        raise TypeError(f"masked_kernel's kernel takes float32, not "
+                        f"{X.dtype}")
+    _check_dp(-(-d // 8) * 8)
+    lib = library()
+    K = torch.empty((B, na, na), dtype=torch.float32, device=dev)
+    err = lib.gp_masked_kernel(
+        X.data_ptr(), mask.data_ptr(), ls.data_ptr(), var.data_ptr(),
+        noise.data_ptr(), jitter.data_ptr(), K.data_ptr(), B, na, d,
+        torch.cuda.current_stream(dev).cuda_stream)
+    _raise_on(lib, err, "masked_kernel")
+    launches["masked_kernel"] += 1
+    return K
+
+
+def fit_grad(X, mask, Kinv, alpha, ls, var, noise_exp, n_eff):
+    """Gradient of each study's -log ML / n_eff with respect to (log ls,
+    log var, log noise), (B, d + 2), in closed form from K^-1 and alpha =
+    K^-1 z (``ref.fit_grad_ref`` states the formula).
+
+    X (B, na, d) raw rows; mask, alpha (B, na); Kinv (B, na, na); ls (B,
+    d); var, ``noise_exp`` = exp(log noise) and n_eff (B,).  Contiguous,
+    on one device, of X's dtype; the CUDA kernel takes float32 and d up to
+    ``checks.MAX_DP``."""
+    B, na, d = X.shape
+    dev, dt = X.device, X.dtype
+    for name, t, shape in (("X", X, (B, na, d)), ("mask", mask, (B, na)),
+                           ("Kinv", Kinv, (B, na, na)),
+                           ("alpha", alpha, (B, na)), ("ls", ls, (B, d)),
+                           ("var", var, (B,)),
+                           ("noise_exp", noise_exp, (B,)),
+                           ("n_eff", n_eff, (B,))):
+        _check(name, t, shape, dev, dt)
+    if dev.type == "cpu":
+        return ref.fit_grad_ref(X, mask, Kinv, alpha, ls, var, noise_exp,
+                                n_eff)
+    if dev.type != "cuda":
+        raise ValueError(f"fit_grad runs on cuda or cpu, not {dev}")
+    if dt != torch.float32:
+        raise TypeError(f"fit_grad's kernel takes float32, not {dt}")
+    _check_dp(-(-d // 8) * 8)
+    lib = library()
+    partial = torch.empty(lib.gp_fit_grad_workspace(B, na, d),
+                          dtype=torch.float64, device=dev)
+    grad = torch.empty((B, d + 2), dtype=torch.float32, device=dev)
+    err = lib.gp_fit_grad(
+        X.data_ptr(), mask.data_ptr(), Kinv.data_ptr(), alpha.data_ptr(),
+        ls.data_ptr(), var.data_ptr(), noise_exp.data_ptr(),
+        n_eff.data_ptr(), partial.data_ptr(), grad.data_ptr(), B, na, d,
+        torch.cuda.current_stream(dev).cuda_stream)
+    _raise_on(lib, err, "fit_grad")
+    launches["fit_grad"] += 1
+    return grad
 
 
 def gp_mean_std(st, cands):

@@ -37,7 +37,8 @@ stage span's median and p90 ms (``ask_view``, the root of a study's ask,
 and its stages ``ask.draw``, ``ask.obs`` with ``ask.obs.gather`` /
 ``.fit`` / ``.factors`` / ``.copy``, ``ask.pick``, ``ask.register``) and
 each counter's mean (``na``, the bucket; ``fit_rows`` / ``due_rows``;
-``obs_cache_hits``; ``exits`` / ``d2h_bytes``, ``uploads`` /
+``fit_steps`` / ``fit_nonfinite``, the fit's Adam steps and its rows
+whose hyperparameters came back not finite; ``obs_cache_hits``; ``exits`` / ``d2h_bytes``, ``uploads`` /
 ``h2d_bytes``; ``entry_calls`` / ``new_signatures``; ``builds``).
 
 ``REPRO_SERVICE_CRASH`` (``tag:index`` specs, comma-separated — e.g.

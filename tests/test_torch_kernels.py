@@ -7,10 +7,12 @@ Tolerances: both sides compute in float32 and sum their products in XLA's
 and PyTorch's orders.  sig2 agrees to 1e-4 (absolute, on unit-scale
 signals), the JAX package's own kernel-vs-oracle tolerance; mu = K alpha
 cancels large terms when the noise is small, so it agrees to 1e-5 of the
-largest sum of absolute terms sum_j |K_ij alpha_j| (``_mu_tol``).  K and k(C, x*)
-go through the squared distance |c|^2 + |x|^2 - 2 c.x, whose rounding is a
-few ulps of |c|^2 + |x|^2 and moves K by at most (5/6) var per unit, so they
-agree to ``_k_tol``: 8 eps32 (|c|^2 + |x|^2)_max var_max.
+largest sum of absolute terms sum_j |K_ij alpha_j| (``_mu_tol``).  K and k(C, x*):
+the JAX package's squared distance |c|^2 + |x|^2 - 2 c.x rounds to a few
+ulps of |c|^2 + |x|^2 (the port sums the differences), which moves K by at
+most (5/6) var per unit, so they agree to ``_k_tol``: 8 eps32
+(|c|^2 + |x|^2)_max var_max.  Against float64, on rows a short lengthscale
+makes long, the port's K is held far tighter (``_long_rows``).
 
 JAX is imported inside the tests that compare with it, so the card test
 also runs where JAX is not installed:
@@ -233,9 +235,58 @@ def test_cuda_kernels_match_plain_versions(B, S, na, n_act, d):
     errs, _ = chip_smoke.kernel_errors(B, S, na, n_act, d,
                                        torch.device("cuda"))
     torch.cuda.synchronize()
-    assert ops.launches == {k: v + 1 for k, v in n0.items()}
+    # the pick kernels once each, and K once for the system's factors
+    once = ("score_cov", "var_downdate", "masked_kernel")
+    assert ops.launches == {k: v + (k in once) for k, v in n0.items()}
     for name, (err, tol) in errs.items():
         assert err <= tol, (name, err, tol)
+
+
+def _long_rows(dev):
+    """Prescaled candidates near prescaled observations (B 1, na 64, S 128,
+    dp 8) under lengthscales down to 0.0147, which make |x|^2 ~ 5e3: the
+    expanded squared distance loses ~1e-3 of K to cancellation there."""
+    rng = np.random.default_rng(11)
+    ls = np.array([0.0478, 10, 4.12, 10, 0.0147, 10, 1, 1], np.float32)
+    X = rng.uniform(size=(1, 64, 8)) / ls
+    C = X[:, rng.integers(0, 64, 128)] + rng.normal(scale=0.3,
+                                                     size=(1, 128, 8))
+    t = lambda a: torch.as_tensor(np.asarray(a, np.float32),  # noqa: E731
+                                  device=dev)
+    return t(C), t(X), t([0.78])
+
+
+def test_squared_distance_keeps_long_rows():
+    """The plain Matern in float32 on long prescaled rows within 2e-6 var
+    of the same function in float64: d2 is summed from the differences."""
+    Cs, Xs, var = _long_rows("cpu")
+    want = ref.matern52(Cs.double(), Xs.double(), var.double())
+    assert float((ref.matern52(Cs, Xs, var) - want).abs().max()) <= 2e-6 * 0.78
+
+
+@pytest.mark.cuda
+def test_cuda_squared_distance_keeps_long_rows():
+    """``score_cov``'s K and ``var_downdate``'s k(C, x*) on long prescaled
+    rows within 2e-6 var of the float64 Matern, as the plain version."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    dev = torch.device("cuda")
+    Cs, Xs, var = _long_rows(dev)
+    na = Xs.shape[1]
+    mask = torch.ones((1, na), device=dev)
+    Linv = torch.eye(na, device=dev)[None].contiguous()
+    zero = torch.zeros((1, na), device=dev)
+    _, _, K = ops.score_cov(Cs, Xs, mask, Linv, zero, var, var * 0 + 1e-3)
+    x_star = Xs[:, 5].contiguous()
+    sig2 = torch.ones((1, Cs.shape[1]), device=dev)
+    slot = torch.zeros(1, dtype=torch.int32, device=dev)
+    _, knew = ops.var_downdate(Cs, x_star, K.clone(), zero, var, sig2, var,
+                               slot=slot)
+    want = ref.matern52(Cs.double(), Xs.double(), var.double())
+    want_new = ref.matern52(Cs.double(), x_star[:, None].double(),
+                            var.double())[..., 0]
+    assert float((K.double() - want).abs().max()) <= 2e-6 * 0.78
+    assert float((knew.double() - want_new).abs().max()) <= 2e-6 * 0.78
 
 
 @pytest.mark.cuda

@@ -165,6 +165,22 @@ def test_health_reports_the_last_asks(tmp_path):
     svc.close()
 
 
+def test_health_reports_the_fit_counters(tmp_path):
+    """``health`` carries the fit's counters: its Adam steps (every record
+    carries both, 0 where the ask fit nothing) and its rows whose
+    hyperparameters came back not finite."""
+    svc = _svc(tmp_path)
+    svc.create_study("a")
+    rng = np.random.default_rng(1)
+    for _ in range(4):
+        for t in svc.ask("a", 2)["trials"]:
+            svc.tell("a", t["id"], float(rng.normal()))
+    c = json.loads(json.dumps(svc.health()))["asks"]["counters"]
+    steps = svc.bank.fit_steps
+    assert 0.0 < c["fit_steps"] <= steps and c["fit_nonfinite"] == 0.0
+    svc.close()
+
+
 def test_recovery_replays_interrupted_ask_bitwise(tmp_path):
     """Kill after the ask was journaled but before the reply: restart must
     re-serve the SAME trial ids and configurations (the WAL replay re-runs
