@@ -7,10 +7,11 @@ For every seed: one run of the cell as ``run.py`` makes it (set-up, a
 window of ``--seconds``, the judge), in one process, so the card's set-up
 cost is paid once per seed and not once per process.  Each reading of the
 program goes out beside the control's on the same asks: the reference in
-TF32 put in the program's place (its scores, and the gap of the candidate
-it puts first at each slot, judged in float64).  With ``--fault`` the
-program runs with that fault of ``faults.py`` planted, at the cell's own
-size.  One JSON line per seed.
+the precision its ``CONTROL`` names (TF32 where it names none) put in the
+program's place (its scores, and the gap of the candidate it puts first at
+each slot, judged in float64).  With ``--fault`` the program runs with
+that fault of ``faults.py`` planted, at the cell's own size.  One JSON line
+per seed.
 """
 from __future__ import annotations
 
@@ -47,13 +48,14 @@ def main(argv=None) -> int:
         faults.plant(args.fault)
     bench = harness.load_benchmark(ROOT)
     files = harness.cell_files(bench, args.workload)
+    control = getattr(files["reference"], "CONTROL", "tf32")
     t0 = T_START
     for seed in [int(s) for s in args.seeds.split(",")]:
         res = harness.run_cell(
             files, seed, args.seconds, False, "cuda", t0,
             lambda m: print(m, file=sys.stderr, flush=True), bench=bench,
             workload=args.workload,
-            judge_precisions=("float64", "tf32"))
+            judge_precisions=("float64", control))
         line = json.dumps({"workload": args.workload, "seed": seed,
                            "fault": args.fault, "correct": res["correct"],
                            "check": res["check"],

@@ -7,6 +7,9 @@ where it is produced, and the check has to come out not correct.
 attribute (``setattr``, or pytest's ``monkeypatch.setattr`` so that the
 test undoes it).  The entry points are replaced in
 ``gp.BANK_ENTRY_POINTS``, the registry the bank calls them through.
+``breaks(name, optimizer)`` says whether a fault touches the timed path of
+that optimizer's cells: a fault of another family's path leaves a cell as
+it was.
 """
 from __future__ import annotations
 
@@ -61,7 +64,7 @@ def pick_altered(patch):
     """Every study's first pick replaced by candidate 0 where the pick is
     made."""
     entries = _entries()
-    for name in ("bank_pick", "bank_cluster_pick"):
+    for name in ("bank_pick", "bank_cluster_pick", "fused_tpe_propose_bank"):
         inner = entries[name]
 
         def pick(*a, _inner=inner, **k):
@@ -147,12 +150,116 @@ def candidates_stale(patch):
     _draw(patch, change)
 
 
+def _tpe_args(change):
+    """The bank's TPE entry, its arguments (X, y, C, meta) changed by
+    ``change`` before it runs."""
+    entries = _entries()
+    inner = entries["fused_tpe_propose_bank"]
+
+    def propose(X, y, C, meta, **k):
+        return inner(*change(X, y, C, meta), **k)
+    entries["fused_tpe_propose_bank"] = propose
+
+
+def tpe_split_off(patch):
+    """The TPE split one row off: the good split takes one row more than
+    ``ceil(gamma n)``."""
+    def change(X, y, C, meta):
+        meta = meta.clone()
+        n = meta[:, 0]
+        n_good = torch.clamp(torch.ceil(meta[:, 3] * n), min=1.0)
+        meta[:, 3] = (n_good + 0.5) / n
+        return X, y, C, meta
+    _tpe_args(change)
+
+
+def tpe_obs_stale(patch):
+    """The TPE ask scores against the previous ask's observation block: a
+    step that keeps its state as it was."""
+    last = {}
+
+    def change(X, y, C, meta):
+        X0, y0, meta0 = last.get("block", (X, y, meta))
+        last["block"] = (X, y, meta)
+        return X0, y0, C, meta0
+    _tpe_args(change)
+
+
+def _tpe_scorer(patch, make):
+    """``ops.tpe_scores`` replaced by ``make(inner)``."""
+    from repro_torch.kernels.tpe_kde import ops
+    patch(ops, "tpe_scores", make(ops.tpe_scores))
+
+
+def tpe_bandwidths_swapped(patch):
+    """Each TPE split's rows scored at the other split's bandwidths."""
+    def make(inner):
+        def tpe_scores(cands, pts, a, wg, wb, scal, n_live, *, d_true):
+            def mean_a(w):
+                return ((a * w[..., None]).sum(1)
+                        / torch.clamp(w.sum(1), min=1.0)[:, None])
+            swapped = a.clone()
+            swapped[..., :d_true] = torch.where(
+                wg[..., None] > 0, mean_a(wb)[:, None, :d_true],
+                mean_a(wg)[:, None, :d_true])
+            return inner(cands, pts, swapped, wg, wb, scal, n_live,
+                         d_true=d_true)
+        return tpe_scores
+    _tpe_scorer(patch, make)
+
+
+def tpe_scores_half_batch(patch):
+    """The TPE scorer serves the first half of the studies; the rest get the
+    mean of their scores."""
+    def make(inner):
+        def tpe_scores(cands, *a, **k):
+            score = inner(cands, *a, **k)
+            h = max(1, cands.shape[0] // 2)
+            score[h:] = score[:h].mean(0)
+            return score
+        return tpe_scores
+    _tpe_scorer(patch, make)
+
+
+def tpe_exp_bf16(patch):
+    """The TPE scorer with each exponent's argument rounded to bfloat16, a
+    precision below the configuration's float32: the kernel's arithmetic in
+    plain PyTorch, study by study in blocks of candidates."""
+    def tpe_scores(cands, pts, a, wg, wb, scal, n_live, *, d_true):
+        B, S, _ = cands.shape
+        out = torch.empty((B, S), dtype=torch.float32, device=cands.device)
+        for b in range(B):
+            n = int(n_live[b])
+            X, A = pts[b, :n, :d_true], a[b, :n, :d_true]
+            step = max(1, (1 << 24) // max(n * d_true, 1))
+            for i in range(0, S, step):
+                arg = (cands[b, i:i + step, None, :d_true] - X) ** 2 * A
+                E = torch.exp(-arg.to(torch.bfloat16).float())
+                dg = (E * wg[b, :n, None]).sum(1) * scal[b, 0] + 1e-12
+                db = (E * wb[b, :n, None]).sum(1) * scal[b, 1] + 1e-12
+                out[b, i:i + step] = (dg.log() - db.log()).sum(-1)
+        return out
+    _tpe_scorer(patch, lambda inner: tpe_scores)
+
+
 FAULTS: Dict[str, Callable] = {
     f.__name__: f for f in (fit_unchanged, fit_half_batch, scores_half_batch,
                             pick_altered, head_top_n, head_one_cluster,
-                            head_worst, candidates_cut, candidates_stale)}
-# the faults that only a clustering cell can have
-CLUSTERING_ONLY = ("head_top_n", "head_one_cluster", "head_worst")
+                            head_worst, candidates_cut, candidates_stale,
+                            tpe_split_off, tpe_obs_stale,
+                            tpe_bandwidths_swapped, tpe_scores_half_batch,
+                            tpe_exp_bf16)}
+GP = ("bayesian", "clustering")
+# the optimizers whose timed path a fault breaks, where not every one's
+ONLY = {"fit_unchanged": GP, "fit_half_batch": GP, "scores_half_batch": GP,
+        "head_top_n": ("clustering",), "head_one_cluster": ("clustering",),
+        "head_worst": ("clustering",), "tpe_split_off": ("tpe",),
+        "tpe_obs_stale": ("tpe",), "tpe_bandwidths_swapped": ("tpe",),
+        "tpe_scores_half_batch": ("tpe",), "tpe_exp_bf16": ("tpe",)}
+
+
+def breaks(name: str, optimizer: str) -> bool:
+    return optimizer in ONLY.get(name, (optimizer,))
 
 
 def plant(name: str, patch=setattr, **kw) -> None:

@@ -10,7 +10,11 @@ check compares) and, for a ``--trace 1`` run, ``metrics/<metric>.py`` for
 each per-layer metric that ``BENCHMARK.json`` lists for the cell.  A
 configuration the harness cannot run as it states (another dimension than
 its objective's, a precision other than the port's float32, an optimizer
-its reference does not judge) is refused before anything runs.
+its reference does not judge) is refused before anything runs.  A
+reference module names the optimizers it judges (``OPTIMIZERS``), judges
+one recorded ask (``judge_ask``), and may name further numbers of the check
+(``NUMBERS``: each reading's name and whether the check takes its ``max``
+or its ``sum``) and its control precision (``CONTROL``).
 """
 from __future__ import annotations
 
@@ -28,7 +32,9 @@ import numpy as np
 PB = Path(__file__).resolve().parent
 ROOT = PB.parent
 FORBIDDEN = ("jax", "jaxlib", "flax", "repro")
-PRECISION = "float32"    # the port's GP ask runs in float32 only
+PRECISION = "float32"    # the port's ask runs in float32 only
+# the configuration keys a strategy takes, passed as its ``strategy_kwargs``
+STRATEGY_KEYS = ("top_frac", "gamma", "pending_penalty")
 
 
 # ------------------------------------------------------------------ files
@@ -124,7 +130,7 @@ def bank_config(cfg: dict) -> dict:
 
 def make_bank(cfg: dict, objective, seed: int, device):
     from repro_torch.core.studybank import StudyBank
-    kw = {"top_frac": cfg["top_frac"]} if "top_frac" in cfg else None
+    kw = {k: cfg[k] for k in STRATEGY_KEYS if k in cfg} or None
     bank = StudyBank(objective.space(), cfg["n_studies"],
                      optimizer=cfg["optimizer"], seed=seed,
                      mc_samples=cfg["mc_samples"],
@@ -138,22 +144,27 @@ def make_bank(cfg: dict, objective, seed: int, device):
 
 class Probe:
     """Wraps the bank's entry points (``gp.BANK_ENTRY_POINTS``) and the
-    scorer (``ops.score_cov``) for the window: records the bucket ``na`` of
-    every pick, captures the inputs and scores of the asks the check will
-    read (the candidate block that ``bank_prescale_C`` takes, the
-    clustering head's uniforms, what ``score_cov`` returns), and in a
-    traced run opens a host annotation and a pair of CUDA events around
+    scorers (``ops.score_cov``, the TPE ``ops.tpe_scores``) for the window:
+    records the bucket ``na`` of every pick, captures the inputs and scores
+    of the asks the check will read (the candidate block that
+    ``bank_prescale_C`` or ``fused_tpe_propose_bank`` takes, the clustering
+    head's uniforms, what ``score_cov`` and ``tpe_scores`` return), and in
+    a traced run opens a host annotation and a pair of CUDA events around
     each entry."""
 
     STAGE = {"fit_hypers_bank": "fit", "bank_factors": "fit",
              "bank_prescale_X": "fit", "bank_prescale_C": "pick",
              "bank_absorb": "pick", "bank_pick": "pick",
-             "bank_cluster_pick": "pick"}
+             "bank_cluster_pick": "pick", "fused_tpe_propose_bank": "pick"}
     # the argument that holds the observation block (B, na, dp) of a pick
-    XS_ARG = {"bank_pick": 1, "bank_cluster_pick": 2}
+    XS_ARG = {"bank_pick": 1, "bank_cluster_pick": 2,
+              "fused_tpe_propose_bank": 0}
     # the captured inputs: (entry, key, position, keyword)
     CAPTURE = (("bank_prescale_C", "C", 0, "C"),
-               ("bank_cluster_pick", "u", 10, "u"))
+               ("bank_cluster_pick", "u", 10, "u"),
+               ("fused_tpe_propose_bank", "C", 2, "C"))
+    # the keys of one ask's capture
+    KEYS = ("C", "u", "scores", "tpe_scores")
 
     def __init__(self, device, trace: bool):
         self.device = device
@@ -169,11 +180,13 @@ class Probe:
     def install(self) -> None:
         from repro_torch.core import gp
         from repro_torch.kernels.gp_acquisition import ops
+        from repro_torch.kernels.tpe_kde import ops as tpe_ops
         entries = gp.BANK_ENTRY_POINTS
         for name, stage in self.STAGE.items():
             if name in entries:
                 entries[name] = self._wrap_entry(name, stage, entries[name])
         score_cov = ops.score_cov
+        tpe_scores = tpe_ops.tpe_scores
 
         def capture_scores(*a, **k):
             mu, sig2, K = score_cov(*a, **k)
@@ -181,8 +194,17 @@ class Probe:
                 self.capture["scores"].append((mu.clone(), sig2.clone()))
             return mu, sig2, K
 
+        def capture_tpe_scores(*a, **k):
+            score = tpe_scores(*a, **k)
+            if self.capture is not None:
+                self.capture["tpe_scores"].append(score.clone())
+            return score
+
         ops.score_cov = capture_scores
+        tpe_ops.tpe_scores = capture_tpe_scores
         self._undo.append(lambda: setattr(ops, "score_cov", score_cov))
+        self._undo.append(
+            lambda: setattr(tpe_ops, "tpe_scores", tpe_scores))
 
     def _wrap_entry(self, name, stage, fn):
         import torch
@@ -342,7 +364,7 @@ def run_cell(files: dict, seed: int, seconds: float, trace: bool, device,
         if rec is not None:
             rec["obs"] = [r.view() for r in fleet.records]
             rec["before"] = [hypers(led, b) for b in range(bank.n_studies)]
-            probe.capture = {"C": [], "u": [], "scores": []}
+            probe.capture = {k: [] for k in probe.KEYS}
         na0 = len(probe.na)
         sync(device)
         t0 = time.perf_counter()
@@ -362,7 +384,7 @@ def run_cell(files: dict, seed: int, seconds: float, trace: bool, device,
             sc = cap["scores"]
             rec["scores"] = (torch.cat([c[0] for c in sc]),
                              torch.cat([c[1] for c in sc])) if sc else None
-            for key in ("C", "u"):
+            for key in ("C", "u", "tpe_scores"):
                 rec[key] = torch.cat(cap[key]) if cap[key] else None
         with torch.profiler.record_function("pb:evaluate_tell"):
             told += fleet.tell(trials)
@@ -439,7 +461,9 @@ def judge(recorded: List[dict], cfg: dict, files: dict, device,
     """Every number the check can compare (``values``) and, for each
     reading, its count and largest value (``readings``), over the judged
     asks.  ``na_changes`` counts the buckets past the first and every ask
-    in which no pick recorded its bucket."""
+    in which no pick recorded its bucket.  Beside the thirteen numbers every
+    reference gives, a reference's ``NUMBERS`` adds each reading it names,
+    its largest value (``max``) or its sum (``sum``)."""
     reference = files["reference"]
     cdf = files["objective"].candidate_cdf
     readings: Dict[str, List[float]] = {}
@@ -474,6 +498,10 @@ def judge(recorded: List[dict], cfg: dict, files: dict, device,
         "na_changes": float(max(len(nas) - 1, 0) + unseen),
         "invalid_trials": float(failed),
     }
+    for name, how in getattr(reference, "NUMBERS", {}).items():
+        if name not in values:
+            values[name] = (worst(name) if how == "max" else
+                            float(sum(readings.get(name, []))))
     summary = {k: {"n": len(v), "max": worst(k), "sum": float(sum(v))}
                for k, v in readings.items()}
     return {"values": values, "readings": summary}

@@ -1,7 +1,9 @@
-"""ask_mfu_pct: the least time of the window asks' work (the fit of the
-studies that refit, the factors, the scoring, and the GP-BUCB downdates or
-the clustering head; ``peaks``) over the asks' host-clock time.  Asks in
-the profiled rounds, which the profiler slows, are left out."""
+"""ask_mfu_pct: the least time of the window asks' work (``peaks``) over the
+asks' host-clock time: for a GP family the fit of the studies that refit,
+the factors, the scoring, and the GP-BUCB downdates or the clustering head;
+for TPE its scorer over each study's observations (no pending rows are
+weighted: the loop tells every trial before the next ask).  Asks in the
+profiled rounds, which the profiler slows, are left out."""
 from portbench import peaks
 from portbench.metrics_common import unprofiled_asks
 
@@ -9,6 +11,8 @@ from portbench.metrics_common import unprofiled_asks
 def ask_bound_s(a, cfg):
     d, S, n = cfg["dim"], cfg["mc_samples"], cfg["batch_size"]
     k = a["k_obs"]
+    if cfg["optimizer"] == "tpe":
+        return peaks.tpe_scores_s(k, S, d)
     t = peaks.factors_s(k, d) + peaks.score_cov_s(k, S, d)
     if a["due"].any():
         t += peaks.fit_s(k[a["due"]], cfg["fit_steps"], d)

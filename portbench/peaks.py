@@ -3,7 +3,9 @@ no change to the program moves its own yardstick.
 
 Peaks: NVIDIA H100 SXM data sheet, dense rates at the 700 W limit: 67
 TFLOP/s in float32 outside the tensor cores, 495 TFLOP/s in TF32, 3.35 TB/s
-of HBM3.  ``score_cov``'s product K L^-T keeps float32 accuracy by running
+of HBM3; and the special-function units' exponentials, 16 a clock on each of
+132 SMs (CUDA programming guide, arithmetic instruction throughput, compute
+capability 9.0) at the 1,980 MHz maximum boost clock.  ``score_cov``'s product K L^-T keeps float32 accuracy by running
 every float32 product as three TF32 products (split TF32), so its
 operations count at a third of the TF32 rate, as ``chip_smoke.py``'s
 bounds (PERF.md's kernel table, rows 1-2) count them; everything else
@@ -24,6 +26,10 @@ PEAK_FP32 = 67e12
 PEAK_TF32 = 495e12
 PEAK_SPLIT_TF32 = PEAK_TF32 / 3
 PEAK_BYTES = 3.35e12
+PEAK_EXP = 16 * 132 * 1.98e9
+# float32 operations around each exponential of the TPE scorer: difference,
+# square, scale, and a multiply-add into each split's density
+TPE_FLOPS_PER_EXP = 7
 F32 = 4
 
 
@@ -90,3 +96,20 @@ def cluster_head_s(n_studies: int, n_top: int, k: int, d: int,
     a distance)."""
     fp32 = n_studies * (k + iters + 1) * n_top * k * 3 * d
     return bound_s(fp32, 0.0, F32 * n_studies * n_top * (d + 1))
+
+
+def tpe_scores_s(ns: Iterable[int], S: int, d: int) -> float:
+    """The TPE scorer of one ask (``tpe_scores``, as ``chip_smoke.py``'s
+    ``tpe_bound`` counts it): one exponential for each candidate, true
+    dimension and weighted row (``ns``: each study's rows in either split)
+    at the special-function rate, ``TPE_FLOPS_PER_EXP`` float32 operations
+    around each, or the bytes: the candidates' true columns and each
+    weighted row's coordinates, scales and two weights read, four scalars
+    and the live count a study, the scores written."""
+    ns = list(ns)
+    rows = float(sum(ns))
+    n_exp = float(S) * rows * d
+    nbytes = F32 * (len(ns) * S * d + rows * (2 * d + 2) + len(ns) * 5
+                    + len(ns) * S)
+    return max(n_exp / PEAK_EXP, n_exp * TPE_FLOPS_PER_EXP / PEAK_FP32,
+               nbytes / PEAK_BYTES)

@@ -101,8 +101,11 @@ def test_metrics():
     for w in BENCH["workloads"]:
         got = harness.metric_entries(BENCH, w["name"])
         assert got, w["name"]
-        assert any(e["name"] != "setup_s"
-                   for e in harness.end_to_end_entries(BENCH, w["name"]))
+        reported = {e["name"]
+                    for e in harness.end_to_end_entries(BENCH, w["name"])}
+        assert reported - {"setup_s"}, w["name"]
+        # a per-layer metric's cells report the metric it moves
+        assert all(e["moves"] in reported for e in got), w["name"]
     assert any("mfu" in m["name"] for m in BENCH["per_layer"])
 
 
@@ -172,7 +175,7 @@ def test_a_new_cell_is_found_by_name_alone(tmp_path):
 
 @pytest.mark.parametrize("change", [
     {"objective": "no_such_objective"}, {"dim": 5},
-    {"precision": "float64"}, {"optimizer": "tpe"},
+    {"precision": "float64"}, {"optimizer": "random"},
     {"reference": "portbench/no_such_reference.py"}])
 def test_a_config_the_harness_cannot_honour_is_refused(tmp_path, change):
     pb, bench = _copy_benchmark(tmp_path)

@@ -11,10 +11,10 @@ import pytest
 import torch
 
 from portbench import faults, harness
-from portbench_tiny import tiny_files, tiny_run
+from portbench_tiny import load_bench, tiny_files, tiny_run
 
 CELLS = ("gp_bucb.long.staggered", "clustering.long.staggered",
-         "gp_bucb.long.lockstep")
+         "gp_bucb.long.lockstep", "tpe.h6.long")
 
 
 @pytest.fixture
@@ -33,12 +33,13 @@ def test_a_sound_run_is_correct(cell):
 @pytest.mark.parametrize("cell", CELLS)
 @pytest.mark.parametrize("fault", sorted(faults.FAULTS))
 def test_a_broken_timed_path_is_not_correct(cell, fault, program):
-    """A fault of the clustering head leaves a GP-BUCB cell's path, which
-    has no head, as it was: there the run stays correct."""
+    """A fault of another family's path (the clustering head in a GP-BUCB
+    cell, the GP fit in a TPE cell, the TPE scorer in a GP cell) leaves the
+    cell's path as it was: there the run stays correct."""
     kw = {"size": "tiny"} if fault == "candidates_cut" else {}
     faults.plant(fault, program.setattr, **kw)
     res = tiny_run(cell, seconds=1.5)
-    if fault in faults.CLUSTERING_ONLY and "clustering" not in cell:
+    if not faults.breaks(fault, tiny_files(cell)["config"]["optimizer"]):
         assert res["correct"], res["check"]
         return
     assert not res["correct"], res["check"]
@@ -48,17 +49,21 @@ def test_a_broken_timed_path_is_not_correct(cell, fault, program):
 
 
 def test_limits_exist_for_every_cell_and_number():
-    bench = harness.load_benchmark()
+    bench = load_bench()
     for w in bench["workloads"]:
         lim = json.loads((harness.PB / "limits" / f"{w['name']}.json")
                          .read_text())
         files = tiny_files(w["name"])
-        pick = ({"picks_outside_top_set", "head_mismatches"}
-                if "clustering" in w["name"] else {"pick_gap"})
-        assert set(lim["limits"]) == {
-            "fit_gap", "sig2_gap", "candidate_ks", "candidate_faults",
-            "missing_picks", "schedule_faults", "na_changes",
-            "invalid_trials"} | pick
+        common = {"candidate_ks", "candidate_faults", "missing_picks",
+                  "na_changes", "invalid_trials"}
+        opt = files["config"]["optimizer"]
+        if opt == "tpe":
+            want = {"tpe_score_gap", "tpe_pick_gap"}
+        else:
+            want = {"fit_gap", "sig2_gap", "schedule_faults"} | (
+                {"picks_outside_top_set", "head_mismatches"}
+                if opt == "clustering" else {"pick_gap"})
+        assert set(lim["limits"]) == common | want
         assert files["limits"] == lim["limits"]
 
 
@@ -77,7 +82,8 @@ for p in sorted((harness.PB / "metrics").glob("*.py")):
     harness.reader(p.stem)
 import portbench.calibrate, portbench.run
 from portbench_tiny import tiny_run
-res = tiny_run("gp_bucb.long.staggered", seconds=0.5, trace=True)
+for cell in ("gp_bucb.long.staggered", "tpe.h6.long"):
+    res = tiny_run(cell, seconds=0.5, trace=True)
 bad = harness.forbidden_modules()
 print("FORBIDDEN", bad)
 assert not bad and "repro_torch" in sys.modules
@@ -93,16 +99,19 @@ def test_nothing_the_harness_runs_loads_jax_or_the_jax_package():
 
 @pytest.mark.cuda
 def test_the_control_fails_on_the_card():
-    """On the card at the cell's own size: the TF32 control's readings on
-    the same asks exceed the cell's limits where the program's do not."""
+    """On the card at the cell's own size: the control's readings (the
+    reference in the precision its ``CONTROL`` names, TF32 where it names
+    none) on the same asks exceed the cell's limits where the program's do
+    not."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
-    bench = harness.load_benchmark()
+    bench = load_bench()
     for w in CELLS:
         files = harness.cell_files(bench, w)
+        control = getattr(files["reference"], "CONTROL", "tf32")
         res = harness.run_cell(files, 2 ** 31 + 123, 6.0, False, "cuda",
                                0.0, lambda m: None, bench=bench, workload=w,
-                               judge_precisions=("float64", "tf32"))
+                               judge_precisions=("float64", control))
         assert res["correct"], res["check"]
         r = res["readings"]
         assert any(r[f"control.{k}"]["max"] > v

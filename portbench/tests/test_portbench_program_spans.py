@@ -89,3 +89,25 @@ def test_a_traced_tiny_run_reads_the_programs_metrics(cell, useful):
     for name in READERS:
         assert cell in entries[name]["workloads"]
         assert entries[name]["moves"] == "ask_p90_ms"
+
+
+def test_a_traced_tiny_tpe_run_reads_its_metrics():
+    """The TPE cell has no fit: its traced run reads the draw, pick,
+    register and exit spans and the whole ask's share, and none of the fit's
+    metrics is listed for it."""
+    from portbench_tiny import load_bench, tiny_run
+    cell = "tpe.h6.long"
+    res = tiny_run(cell, seconds=1.5, trace=True)
+    assert res["correct"], res["check"]
+    got = {k: v["value"] for k, v in res["metrics"].items()}
+    for name in ("ask_draw_ms", "pick_wall_ms", "register_ms",
+                 "ask_self_ms", "ask_mfu_pct"):
+        assert got[name] > 0.0, name
+    # the picks of 4 studies, 4 int64 indices each
+    assert got["d2h_mb_per_ask"] == pytest.approx(4 * 4 * 8 / 1e6)
+    bench = load_bench()
+    listed = {m["name"] for m in harness.metric_entries(bench, cell)}
+    assert not listed & {"fit_ms", "fit_wall_ms", "factors_ms",
+                         "factors_copy_ms", "fit_useful_pct",
+                         "score_cov_roofline", "var_downdate_roofline"}
+    assert "tpe_scores_roofline" in listed
