@@ -7,14 +7,16 @@ where it is produced, and the check has to come out not correct.
 attribute (``setattr``, or pytest's ``monkeypatch.setattr`` so that the
 test undoes it).  The entry points are replaced in
 ``gp.BANK_ENTRY_POINTS``, the registry the bank calls them through.
-``breaks(name, optimizer)`` says whether a fault touches the timed path of
-that optimizer's cells: a fault of another family's path leaves a cell as
-it was.
+``breaks(name, optimizer, space)`` says whether a fault touches the timed
+path of a cell of that optimizer and parameter space: a fault of another
+family's path, or of a kind of parameter the space does not have, leaves a
+cell as it was.
 """
 from __future__ import annotations
 
 from typing import Callable, Dict
 
+import numpy as np
 import torch
 
 # the draw's columns scaled by this, so that they cover [0, CUT) only; the
@@ -126,28 +128,93 @@ def head_worst(patch):
 
 
 def _draw(patch, change):
+    """``ParamSpace.sample_columns`` with its columns changed by
+    ``change(space, cols)``."""
     from repro_torch.core.spaces import ParamSpace
     inner = ParamSpace.sample_columns
 
     def sample_columns(self, n, rng):
-        return change(inner(self, n, rng))
+        return change(self, inner(self, n, rng))
     patch(ParamSpace, "sample_columns", sample_columns)
+
+
+def _encoding(patch, change):
+    """``ParamSpace.encode_columns``, the candidates' encoding, with its
+    rows changed by ``change(space, cols, rows)``."""
+    from repro_torch.core.spaces import ParamSpace
+    inner = ParamSpace.encode_columns
+
+    def encode_columns(self, cols, n):
+        return change(self, cols, inner(self, cols, n))
+    patch(ParamSpace, "encode_columns", encode_columns)
 
 
 def candidates_cut(patch, size="card"):
     """The candidate draw covers [0, CUT) of each parameter's range only."""
     cut = CUT[size]
-    _draw(patch, lambda cols: {k: v * cut for k, v in cols.items()})
+    _draw(patch, lambda space, cols: {k: v * cut for k, v in cols.items()})
 
 
 def candidates_stale(patch):
     """The candidate draw returns its first block at every ask."""
     first: Dict[int, dict] = {}
 
-    def change(cols):
+    def change(space, cols):
         n = len(next(iter(cols.values())))
         return {k: v.copy() for k, v in first.setdefault(n, cols).items()}
     _draw(patch, change)
+
+
+def _list_param(space, strings: bool):
+    """The first list parameter of the port's ``ParamSpace`` whose choices
+    are strings (one-hot) or, with ``strings`` false, positive numbers
+    (ordinal), and its first encoded column; (None, None) where it has
+    none."""
+    col = 0
+    for p in space.params:
+        if p.kind == "cat" and (not p.numeric if strings else
+                                p.numeric and min(p.choices) > 0):
+            return p, col
+        col += p.dims
+    return None, None
+
+
+def categorical_short(patch):
+    """The draw never gives a string list's last choice: the first takes
+    its place."""
+    def change(space, cols):
+        p, _ = _list_param(space, strings=True)
+        if p is not None:
+            last, first = p.choices[-1], p.choices[0]
+            cols[p.name] = [first if v == last else v for v in cols[p.name]]
+        return cols
+    _draw(patch, change)
+
+
+def onehot_shifted(patch):
+    """A string list's one-hot block written one column to the right
+    within its width: the first column never hot, the last choice's bit
+    lost."""
+    def change(space, cols, rows):
+        p, c = _list_param(space, strings=True)
+        if p is not None:
+            rows[:, c + 1:c + p.dims] = rows[:, c:c + p.dims - 1].copy()
+            rows[:, c] = 0.0
+        return rows
+    _encoding(patch, change)
+
+
+def ordinal_log_scale(patch):
+    """A numeric list encoded on the log scale of its choices in place of
+    the linear scale the port documents."""
+    def change(space, cols, rows):
+        p, c = _list_param(space, strings=False)
+        if p is not None:
+            lo, hi = np.log(min(p.choices)), np.log(max(p.choices))
+            v = np.log(np.asarray(cols[p.name], np.float64))
+            rows[:, c] = (v - lo) / (hi - lo)
+        return rows
+    _encoding(patch, change)
 
 
 def _tpe_args(change):
@@ -246,7 +313,8 @@ FAULTS: Dict[str, Callable] = {
     f.__name__: f for f in (fit_unchanged, fit_half_batch, scores_half_batch,
                             pick_altered, head_top_n, head_one_cluster,
                             head_worst, candidates_cut, candidates_stale,
-                            tpe_split_off, tpe_obs_stale,
+                            categorical_short, onehot_shifted,
+                            ordinal_log_scale, tpe_split_off, tpe_obs_stale,
                             tpe_bandwidths_swapped, tpe_scores_half_batch,
                             tpe_exp_bf16)}
 GP = ("bayesian", "clustering")
@@ -258,8 +326,22 @@ ONLY = {"fit_unchanged": GP, "fit_half_batch": GP, "scores_half_batch": GP,
         "tpe_scores_half_batch": ("tpe",), "tpe_exp_bf16": ("tpe",)}
 
 
-def breaks(name: str, optimizer: str) -> bool:
-    return optimizer in ONLY.get(name, (optimizer,))
+# the parameter a fault changes, where a space may have none: a list of
+# strings, or a list of positive numbers (see ``_list_param``)
+NEEDS = {"categorical_short": "strings", "onehot_shifted": "strings",
+         "ordinal_log_scale": "numbers"}
+
+
+def breaks(name: str, optimizer: str, space: dict) -> bool:
+    """Whether the fault ``name`` touches the timed path of a cell of
+    ``optimizer`` over ``space`` (the dict the program's bank takes)."""
+    if optimizer not in ONLY.get(name, (optimizer,)):
+        return False
+    if name not in NEEDS:
+        return True
+    from repro_torch.core.spaces import ParamSpace
+    p, _ = _list_param(ParamSpace(space), NEEDS[name] == "strings")
+    return p is not None
 
 
 def plant(name: str, patch=setattr, **kw) -> None:

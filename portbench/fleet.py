@@ -1,8 +1,13 @@
 """Seeded study histories and the closed ask/tell loop over the objective
 a configuration names (``objectives/<objective>.py``).
 
-The seeded histories follow ``chip_smoke.seeded_fleet`` (uniform points
-and their objective values), at the sizes a traffic file gives.
+The seeded histories follow ``chip_smoke.seeded_fleet`` (points and their
+objective values), at the sizes a traffic file gives: the objective file's
+``history`` draws them as native rows, one value per parameter as the
+program's trials carry it, and its ``encode`` gives the rows of ``DIM``
+columns the program observes (see ``objectives/neg_hartmann6.py``).  The
+states and trials handed to the program hold plain Python values, so
+that a state stays JSON-serialisable.
 
 A traffic file (``traffic/<name>.json``) holds the parameters of one mix:
 
@@ -56,17 +61,47 @@ def lagging(traffic: dict, n_studies: int) -> np.ndarray:
 
 
 def histories(n_studies: int, length: int, seed: int, objective):
-    """Seeded uniform points (B, length, DIM) and their objective values."""
+    """Seeded native rows (B, length, len(NAMES)) and their objective
+    values."""
     rng = np.random.default_rng([seed, 2])
-    X = rng.uniform(size=(n_studies, length, objective.DIM))
+    X = objective.history(rng, n_studies, length)
     return X, objective.evaluate(X)
+
+
+def native(x):
+    """A parameter value as a plain Python value (a ``Choice``'s dict
+    member by member)."""
+    if isinstance(x, np.generic):
+        return x.item()
+    if isinstance(x, dict):
+        return {k: native(v) for k, v in x.items()}
+    return x
+
+
+def params(row, names) -> dict:
+    """One native row as a trial's parameters."""
+    return dict(zip(names, map(native, row)))
+
+
+def trial_rows(trials, names) -> np.ndarray:
+    """The native rows (B, n, len(names)) of one ask's trials."""
+    n = len(trials[0])
+    if any(len(ts) != n for ts in trials):
+        raise ValueError("the studies returned different numbers of trials")
+    rows = np.empty((len(trials), n, len(names)), object)
+    for b, ts in enumerate(trials):
+        for j, t in enumerate(ts):
+            for i, k in enumerate(names):
+                rows[b, j, i] = t.params[k]
+    return rows
 
 
 def study_state(X: np.ndarray, y: np.ndarray, study_seed: int,
                 names) -> dict:
     """An ``AskTellOptimizer`` state dict holding the observed history
-    (X, y) of the parameters ``names`` and a fresh study RNG stream."""
-    trials = [{"id": i, "params": dict(zip(names, map(float, row))),
+    (X native rows, y) of the parameters ``names`` and a fresh study RNG
+    stream."""
+    trials = [{"id": i, "params": params(row, names),
                "status": "observed", "value": float(v), "obs_seq": i}
               for i, (row, v) in enumerate(zip(X, y))]
     return {"version": 1, "next_id": len(trials), "ask_count": 0,
@@ -137,9 +172,7 @@ class Fleet:
 
     def tell(self, trials) -> int:
         """Evaluate every trial of one ask and tell it; returns the count."""
-        names = self.objective.NAMES
-        rows = np.array([[[t.params[k] for k in names] for t in ts]
-                         for ts in trials], np.float64)
+        rows = trial_rows(trials, self.objective.NAMES)
         vals = self.objective.evaluate(rows)
         enc = self.objective.encode(rows)
         for b, ts in enumerate(trials):
@@ -172,8 +205,8 @@ class Fleet:
             y = self.hist_y[b, n - self.batch:n]
             v = self.bank.study(b)
             for row, val in zip(X, y):
-                v.observe_params(dict(zip(self.objective.NAMES,
-                                          map(float, row))), float(val))
+                v.observe_params(params(row, self.objective.NAMES),
+                                 float(val))
             self.records[b].append(self.objective.encode(X), y)
             self.n_obs[b] += self.batch
         self.starts = [v.state_dict() for v in self.bank.studies]

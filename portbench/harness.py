@@ -293,10 +293,9 @@ def hypers(led, b: int) -> dict:
 
 
 def pick_rows(trials, objective) -> np.ndarray:
-    """The encoded rows (B, n, d) of one ask's trials."""
-    return objective.encode(np.array(
-        [[[t.params[k] for k in objective.NAMES] for t in ts]
-         for ts in trials], np.float64))
+    """The encoded rows (B, n, DIM) of one ask's trials."""
+    from portbench.fleet import trial_rows
+    return objective.encode(trial_rows(trials, objective.NAMES))
 
 
 def invalid_picks(rows: np.ndarray, n: int) -> int:
@@ -464,12 +463,12 @@ def judge(recorded: List[dict], cfg: dict, files: dict, device,
     in which no pick recorded its bucket.  Beside the thirteen numbers every
     reference gives, a reference's ``NUMBERS`` adds each reading it names,
     its largest value (``max``) or its sum (``sum``)."""
-    reference = files["reference"]
-    cdf = files["objective"].candidate_cdf
+    reference, objective = files["reference"], files["objective"]
     readings: Dict[str, List[float]] = {}
     for rec in recorded:
-        for k, v in reference.judge_ask(rec, cfg, device, cdf,
-                                        precisions).items():
+        for k, v in reference.judge_ask(
+                rec, cfg, device, objective.candidate_cdf, precisions,
+                cdf_left=objective.candidate_cdf_left).items():
             readings.setdefault(k, []).extend(float(x) for x in v)
     repeats = reference.repeated_blocks(
         [r["C"] for r in recorded if r.get("C") is not None])

@@ -6,13 +6,24 @@ Frozen copies: ``evaluate`` and ``space`` come from ``chip_smoke.py``
 (``neg_hartmann6`` and ``hartmann_space``, phases 3, 4 and 19), the
 objective vectorized over rows.
 
-An objective file gives the harness ``NAMES`` (the parameters, in the
-order of the encoded columns), ``DIM``, ``space()`` (the parameter space
-the program's ``StudyBank`` takes), ``evaluate(rows)``, ``encode(rows)``
-(parameter values to the program's encoded unit-cube rows, float32) and
-``candidate_cdf(C)`` (each encoded column's value under the distribution
-the space draws candidates from, so the check can hold a candidate block
-to that distribution).
+An objective file gives the harness:
+
+* ``NAMES``: the parameters, in the space's order;
+* ``DIM``: the width of the encoded rows, which a parameter of several
+  columns (a one-hot, a ``Choice``) makes larger than ``len(NAMES)``;
+* ``space()``: the parameter space the program's ``StudyBank`` takes;
+* ``history(rng, n_studies, length)``: seeded native rows, an array
+  (n_studies, length, len(NAMES)) whose rows hold one value per name,
+  each as the program's trials carry it (a float, an int, a bool, a
+  string, a ``Choice``'s ``{"_choice": branch, ...}`` dict);
+* ``evaluate(rows)`` and ``encode(rows)``: of native rows (..., len(NAMES)),
+  the objective (...) and the encoded rows (..., DIM) as float32, written
+  from the encoding the port documents and not taken from its code;
+* ``candidate_cdf(C)`` and ``candidate_cdf_left(C)``: each encoded
+  column's F(x) and its left limit F(x-) under the distribution the space
+  draws candidates from, so the check can hold a candidate block to it.
+
+Here every parameter is one column and its own encoding.
 """
 from typing import Dict
 
@@ -41,6 +52,11 @@ def space() -> Dict[str, object]:
     return {name: uniform(0, 1) for name in NAMES}
 
 
+def history(rng, n_studies: int, length: int) -> np.ndarray:
+    """Seeded rows (n_studies, length, DIM), uniform on [0, 1]."""
+    return rng.uniform(size=(n_studies, length, DIM))
+
+
 def encode(rows: np.ndarray) -> np.ndarray:
     """Uniform parameters on [0, 1] are their own encoding."""
     return np.asarray(rows, np.float32)
@@ -49,3 +65,8 @@ def encode(rows: np.ndarray) -> np.ndarray:
 def candidate_cdf(C):
     """Encoded candidates are uniform on [0, 1): the CDF is the value."""
     return C.clamp(0.0, 1.0)
+
+
+def candidate_cdf_left(C):
+    """The columns have no atoms: F(x-) is F(x)."""
+    return candidate_cdf(C)

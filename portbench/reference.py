@@ -58,16 +58,24 @@ OPTIMIZERS = ("bayesian", "clustering")   # the asks judge_ask judges
 
 
 # ---------------------------------------------------------------- candidates
-def candidate_ks(C: torch.Tensor, cdf) -> torch.Tensor:
+def candidate_ks(C: torch.Tensor, cdf, cdf_left=None) -> torch.Tensor:
     """Kolmogorov's statistic, sqrt(S) times the Kolmogorov-Smirnov
     distance, of each column of each study's candidate block C (B, S, d)
     from the distribution whose CDF ``cdf`` gives: (B, d).  Scaled so, its
-    spread under a sound draw does not depend on S."""
-    x = torch.sort(cdf(C.to(torch.float64)), dim=1).values
+    spread under a sound draw does not depend on S.
+
+    Each column is sorted raw, and the empirical CDF is compared with F(x)
+    above each point and with its left limit F(x-) (``cdf_left``; ``cdf``
+    where not given, as for a continuous column) below it: on a column
+    with atoms (a one-hot, an ordinal, an imputed child) this is the exact
+    distance, where F(x) on both sides would read a tie's jump as a gap."""
+    x = torch.sort(C.to(torch.float64), dim=1).values
+    F = cdf(x)
+    F_left = F if cdf_left is None else cdf_left(x)
     S = x.shape[1]
     i = torch.arange(1, S + 1, dtype=torch.float64, device=x.device)
-    above = (i / S)[None, :, None] - x
-    below = x - ((i - 1) / S)[None, :, None]
+    above = (i / S)[None, :, None] - F
+    below = F_left - ((i - 1) / S)[None, :, None]
     return math.sqrt(S) * torch.maximum(above.amax(1), below.amax(1))
 
 
@@ -452,14 +460,16 @@ def score_gaps(mu_p, sig2_p, mu_r, sig2_r, gp: GP) -> Dict[str, float]:
 
 
 def judge_ask(ask: dict, cfg: dict, device, cdf,
-              precisions: Sequence[str] = ("float64",)) -> Dict[str, List]:
+              precisions: Sequence[str] = ("float64",),
+              cdf_left=None) -> Dict[str, List]:
     """Readings of one recorded ask (see ``harness.Recorder``) for every
     study: the candidate block's distance from the space's distribution
-    (``cdf``), the fit gap of the studies that refit, the standardization
-    gap, the score gaps of the program's captured scores, and the pick
-    readings: GP-BUCB's slot gaps, or the clustering top-set gaps and head
-    mismatches.  With a control precision in ``precisions`` its readings
-    on the same asks are added under ``control.*``."""
+    (``cdf`` and ``cdf_left``, see ``candidate_ks``), the fit gap of the
+    studies that refit, the standardization gap, the score gaps of the
+    program's captured scores, and the pick readings: GP-BUCB's slot gaps,
+    or the clustering top-set gaps and head mismatches.  With a control
+    precision in ``precisions`` its readings on the same asks are added
+    under ``control.*``."""
     if cfg["optimizer"] not in OPTIMIZERS:
         raise ValueError(f"no judge for optimizer {cfg['optimizer']!r}")
     clustering = cfg["optimizer"] == "clustering"
@@ -478,7 +488,8 @@ def judge_ask(ask: dict, cfg: dict, device, cdf,
         out["missing_picks"].append(float(B * n))
         return out
     C_all = C_all.to(device)
-    out["candidate_ks"] = candidate_ks(C_all, cdf).flatten().tolist()
+    ks = candidate_ks(C_all, cdf, cdf_left)
+    out["candidate_ks"] = ks.flatten().tolist()
     due = []
     for b in range(B):
         X, y = ask["obs"][b]

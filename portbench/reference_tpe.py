@@ -139,12 +139,14 @@ def top(score: torch.Tensor, n: int) -> np.ndarray:
 
 
 def judge_ask(ask: dict, cfg: dict, device, cdf,
-              precisions: Sequence[str] = ("float64",)) -> Dict[str, List]:
+              precisions: Sequence[str] = ("float64",),
+              cdf_left=None) -> Dict[str, List]:
     """Readings of one recorded ask (see ``harness.Recorder``) for every
     study: the candidate block's form and distance from the space's
-    distribution (``cdf``), the gap of the program's captured scores from
-    this module's, and the pick gaps.  With the control in ``precisions``
-    its readings on the same asks are added under ``control.*``."""
+    distribution (``cdf`` and ``cdf_left``), the gap of the program's
+    captured scores from this module's, and the pick gaps.  With the
+    control in ``precisions`` its readings on the same asks are added under
+    ``control.*``."""
     if cfg["optimizer"] not in OPTIMIZERS:
         raise ValueError(f"no judge for optimizer {cfg['optimizer']!r}")
     d, B, S = cfg["dim"], cfg["n_studies"], cfg["mc_samples"]
@@ -160,7 +162,8 @@ def judge_ask(ask: dict, cfg: dict, device, cdf,
         out["missing_picks"].append(float(B * n))
         return out
     C_all = C_all[..., :d].to(device)
-    out["candidate_ks"] = candidate_ks(C_all, cdf).flatten().tolist()
+    ks = candidate_ks(C_all, cdf, cdf_left)
+    out["candidate_ks"] = ks.flatten().tolist()
     captured = ask.get("tpe_scores")
     controls = [p for p in precisions if p != "float64"]
     for b in range(B):

@@ -2,7 +2,12 @@
 for the benchmark's own tests: 4 studies, 300 candidates, histories of
 24-40 observations restored at 52 (the 64-row bucket).  The TPE fleet,
 whose configuration, limits and reference are in the benchmark but which no
-cell of ``BENCHMARK.json`` lists yet, runs here as the cell ``tpe.h6.long``."""
+cell of ``BENCHMARK.json`` lists yet, runs here as the cell ``tpe.h6.long``.
+The test objective ``mixed_kinds`` (every kind of parameter) runs as the
+cells of ``MIXED`` (configurations in ``tests/configs/``) under the limits
+of the Hartmann-6 cell of the same optimizer, at ``TINY_MIXED``'s
+candidates: a one-hot column of k choices needs sqrt(S) / k above the
+``candidate_ks`` limit for a lost choice to show."""
 import copy
 import json
 import sys
@@ -13,7 +18,13 @@ from portbench import harness
 TINY_CONFIG = {"n_studies": 4, "mc_samples": 300}
 TINY_TRAFFIC = {"start_obs": {"low": 24, "high": 40, "multiple": 8},
                 "restore_at": 52, "profile_rounds": 2}
+TINY_MIXED = {"mc_samples": 2048}
 TPE_CELL = "tpe.h6.long"
+# test cell: (its configuration's file, the cell whose limits it takes)
+MIXED = {"mixed_kinds.gp_bucb": ("mixed-kinds-gp-bucb",
+                                 "gp_bucb.long.staggered"),
+         "mixed_kinds.clustering": ("mixed-kinds-clustering",
+                                    "clustering.long.staggered")}
 TPE_CONFIG = "portbench/configs/mango-tpe-h6.json"
 # the metrics whose readers find something to read on the TPE path
 TPE_METRICS = ("trials_per_s", "launches_per_ask", "draw_ms", "pick_ms",
@@ -46,18 +57,44 @@ def load_bench(root=harness.ROOT) -> dict:
     return bench
 
 
-def tiny_files(workload: str, pb=harness.PB, bench=None) -> dict:
+def with_mixed(bench: dict) -> dict:
+    """``bench`` with the ``MIXED`` test cells on the staggered mix."""
+    bench = copy.deepcopy(bench)
+    for cell, (name, _) in MIXED.items():
+        bench["configs"].append({
+            "name": name, "source": "a test space",
+            "file": f"portbench/tests/configs/{name}.json", "reduced": [],
+            "why": "every kind of parameter"})
+        bench["workloads"].append({"name": cell, "config": name,
+                                   "traffic": "long.staggered", "chips": 1,
+                                   "why": "every kind of parameter"})
+    return bench
+
+
+def _bench(workload, pb, bench):
     bench = bench or load_bench(pb.parent)
+    if workload in MIXED and workload not in {
+            w["name"] for w in bench["workloads"]}:
+        return with_mixed(bench)
+    return bench
+
+
+def tiny_files(workload: str, pb=harness.PB, bench=None) -> dict:
+    bench = _bench(workload, pb, bench)
     files = harness.cell_files(bench, workload, pb)
     files["config"].update(TINY_CONFIG)
     files["traffic"].update(TINY_TRAFFIC)
+    if workload in MIXED:
+        files["config"].update(TINY_MIXED)
+        files["limits"] = harness.cell_files(
+            bench, MIXED[workload][1], pb)["limits"]
     return files
 
 
 def tiny_run(workload: str, seconds: float = 2.0, seed: int = 2 ** 31 + 7,
              trace: bool = False, precisions=("float64",), files=None,
              bench=None, pb=harness.PB) -> dict:
-    bench = bench or load_bench(pb.parent)
+    bench = _bench(workload, pb, bench)
     files = files or tiny_files(workload, pb, bench)
     return harness.run_cell(
         files, seed, seconds, trace, "cpu", time.perf_counter(),

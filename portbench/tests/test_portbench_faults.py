@@ -34,12 +34,16 @@ def test_a_sound_run_is_correct(cell):
 @pytest.mark.parametrize("fault", sorted(faults.FAULTS))
 def test_a_broken_timed_path_is_not_correct(cell, fault, program):
     """A fault of another family's path (the clustering head in a GP-BUCB
-    cell, the GP fit in a TPE cell, the TPE scorer in a GP cell) leaves the
-    cell's path as it was: there the run stays correct."""
+    cell, the GP fit in a TPE cell, the TPE scorer in a GP cell), or of a
+    kind of parameter the cell's space lacks (a string or numeric list in
+    a Hartmann-6 cell), leaves the cell's path as it was: there the run
+    stays correct."""
     kw = {"size": "tiny"} if fault == "candidates_cut" else {}
     faults.plant(fault, program.setattr, **kw)
     res = tiny_run(cell, seconds=1.5)
-    if not faults.breaks(fault, tiny_files(cell)["config"]["optimizer"]):
+    files = tiny_files(cell)
+    if not faults.breaks(fault, files["config"]["optimizer"],
+                         files["objective"].space()):
         assert res["correct"], res["check"]
         return
     assert not res["correct"], res["check"]
